@@ -1,0 +1,194 @@
+"""Plain versions of the port's temporal deformable-attention kernels (K1-K3)
+and its plain MSDA against the JAX package: the Pallas kernels in interpret
+mode, and the dense numpy oracle. f32 throughout."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from devis_tpu.ops.ms_deform_attn import ms_deform_attn_dense_reference
+from devis_tpu.ops.ms_deform_attn_pallas import (
+    S_TILE, _row_ranges_proj, ms_deform_attn_temporal,
+    ms_deform_attn_temporal_proj)
+from devis_torch.ops import ms_deform_attn_cuda as K
+from devis_torch.ops.ms_deform_attn import (ms_deform_attn, rule_window,
+                                            temporal_frame_table)
+
+SHAPES = ((12, 16), (6, 8), (3, 4))
+S = sum(h * w for h, w in SHAPES)
+L = len(SHAPES)
+RULES = [("all",), ("window", (-1, 1))]
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    # references run in full f32 (cuDNN convolutions default to TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _proj_inputs(rng, rule, T=3, Q=40, M=2, D=16, P=2):
+    """q-major K1 inputs: offsets in pixels (std 3, so taps land off the grid
+    and some outside the map), logits N(0, 1)."""
+    W = rule_window(rule, T)
+    return dict(
+        value=rng.rand(T, S, M, D).astype(np.float32),
+        ref=rng.rand(T, Q, L, 2).astype(np.float32),
+        c_off=(rng.randn(T, Q, M * L * P * 2) * 3).astype(np.float32),
+        t_off=(rng.randn(T, Q, M * W * L * P * 2) * 3).astype(np.float32),
+        c_logit=rng.randn(T, Q, M * L * P).astype(np.float32),
+        t_logit=rng.randn(T, Q, M * W * L * P).astype(np.float32))
+
+
+def _tiled(x, q_pad, q_tile=128, fill=0.0):
+    """q-major (T, Q, C) → the JAX op's pre-tiled (T, nqt, C, q_tile), with
+    padded queries set to `fill`."""
+    T, Q, C = x.shape
+    x = np.concatenate([x, np.full((T, q_pad - Q, C), fill, x.dtype)], 1)
+    return jnp.asarray(x.reshape(T, q_pad // q_tile, q_tile, C).transpose(0, 1, 3, 2))
+
+
+def _jax_proj_args(a, q_pad):
+    """Port inputs → (rx, ry, cx, cy, tx, ty, ca, ta) of the JAX op; padded
+    queries carry reference -10, as the JAX encoder pads them."""
+    ref = a["ref"]
+    return (_tiled(ref[..., 0], q_pad, fill=-10.0), _tiled(ref[..., 1], q_pad, fill=-10.0),
+            _tiled(a["c_off"][..., 0::2], q_pad), _tiled(a["c_off"][..., 1::2], q_pad),
+            _tiled(a["t_off"][..., 0::2], q_pad), _tiled(a["t_off"][..., 1::2], q_pad),
+            _tiled(a["c_logit"], q_pad), _tiled(a["t_logit"], q_pad))
+
+
+def _t(a):
+    return {k: torch.from_numpy(v) for k, v in a.items()}
+
+
+@pytest.mark.parametrize("rule", RULES)
+def test_temporal_proj_plain_matches_pallas(rng, rule):
+    a = _proj_inputs(rng, rule)
+    Q = a["ref"].shape[1]
+    want = ms_deform_attn_temporal_proj(jnp.asarray(a["value"]), SHAPES,
+                                        *_jax_proj_args(a, 128), Q, rule)
+    t = _t(a)
+    got = K.msda_temporal_proj_plain(t["value"], SHAPES, t["ref"], t["c_off"], t["t_off"],
+                                     t["c_logit"], t["t_logit"], rule)
+    # f32, same location arithmetic; summation order differs
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_temporal_proj_wrapper_runs_plain_on_cpu(rng):
+    t = _t(_proj_inputs(rng, ("all",)))
+    before = (K.msda_temporal_proj.plain_calls, K.msda_temporal_proj.launches)
+    out = K.msda_temporal_proj(t["value"], SHAPES, t["ref"], t["c_off"], t["t_off"],
+                               t["c_logit"], t["t_logit"], ("all",))
+    want = K.msda_temporal_proj_plain(t["value"], SHAPES, t["ref"], t["c_off"],
+                                      t["t_off"], t["c_logit"], t["t_logit"], ("all",))
+    assert torch.equal(out, want)
+    assert (K.msda_temporal_proj.plain_calls, K.msda_temporal_proj.launches) == \
+        (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("rule", RULES)
+def test_temporal_plain_matches_pallas(rng, rule):
+    T, Q, M, D, P = 3, 10, 2, 16, 2
+    Lf = (1 + rule_window(rule, T)) * L
+    value = rng.rand(T, S, M, D).astype(np.float32)
+    loc = (rng.rand(T, Q, M, Lf, P, 2) * 1.2 - 0.1).astype(np.float32)
+    att = rng.rand(T, Q, M, Lf, P).astype(np.float32)
+    want = ms_deform_attn_temporal(jnp.asarray(value), SHAPES, jnp.asarray(loc),
+                                   jnp.asarray(att), rule)
+    got = K.msda_temporal(torch.from_numpy(value), SHAPES, torch.from_numpy(loc),
+                          torch.from_numpy(att), rule)
+    # f32; summation order differs
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_plain_msda_matches_dense_oracle(rng):
+    B, Q, M, D, P = 2, 30, 4, 8, 3
+    value = rng.rand(B, S, M, D).astype(np.float32)
+    loc = (rng.rand(B, Q, M, L, P, 2) * 1.2 - 0.1).astype(np.float32)
+    att = rng.rand(B, Q, M, L, P).astype(np.float32)
+    want = ms_deform_attn_dense_reference(value, SHAPES, loc, att)
+    got = ms_deform_attn(torch.from_numpy(value), SHAPES, torch.from_numpy(loc),
+                         torch.from_numpy(att))
+    # f32 against a float64 oracle
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rule", RULES)
+def test_tap_window_covers_live_taps_tightly(rng, rule):
+    """Brute force: every in-bounds bilinear corner of every live tap of a
+    q-block, per level; the window is exactly its first and last row."""
+    a = _proj_inputs(rng, rule, Q=150)
+    t = _t(a)
+    M = 2
+    got = K.msda_tap_window(SHAPES, t["ref"], t["c_off"], t["t_off"], M).numpy()
+    loc = K.temporal_proj_locations(SHAPES, t["ref"], t["c_off"], t["t_off"], M).numpy()
+    T, Q, _, Lf, P, _ = loc.shape
+    nqb = got.shape[2]
+    assert got.shape == (T, M, -(-Q // K.Q_BLOCK), Lf, 2)
+    n_live = 0
+    for lvl in range(Lf):
+        h, w = SHAPES[lvl % L]
+        x = loc[:, :, :, lvl, :, 0] * np.float32(w) - np.float32(0.5)
+        y = loc[:, :, :, lvl, :, 1] * np.float32(h) - np.float32(0.5)
+        x0, y0 = np.floor(x), np.floor(y)
+        for tt in range(T):
+            for m in range(M):
+                for b in range(nqb):
+                    sl = slice(b * K.Q_BLOCK, (b + 1) * K.Q_BLOCK)
+                    rows = []
+                    for oy in (0, 1):
+                        for ox in (0, 1):
+                            yi, xi = y0[tt, sl, m] + oy, x0[tt, sl, m] + ox
+                            ok = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+                            rows.append((yi * w + xi)[ok])
+                    rows = np.concatenate(rows)
+                    first, last = got[tt, m, b, lvl]
+                    if rows.size == 0:
+                        assert (first, last) == (0, -1)
+                    else:
+                        n_live += 1
+                        assert (first, last) == (rows.min(), rows.max())
+    assert n_live > 0
+
+
+@pytest.mark.parametrize("rule", RULES)
+def test_tap_window_matches_pallas_ranges(rng, rule):
+    """Against `_row_ranges_proj` at the shared q-block of 128: JAX's windows
+    are in parity-packed rows (row // 2), 8-aligned, counted in S_TILE
+    tiles; the port's rows converted the same way must agree."""
+    a = _proj_inputs(rng, rule, Q=150)
+    T, Q = a["ref"].shape[:2]
+    M, P = 2, 2
+    W = rule_window(rule, T)
+    q_pad = 256
+
+    def rows(x, n):                          # (T, Q, M*n*P) → (T*M, n*P, q_pad)
+        x = x.reshape(T, Q, M, n * P).transpose(0, 2, 3, 1).reshape(T * M, n * P, Q)
+        return jnp.asarray(np.pad(x, ((0, 0), (0, 0), (0, q_pad - Q))))
+
+    def refs(x):
+        return jnp.asarray(np.pad(x.transpose(0, 2, 1), ((0, 0), (0, 0), (0, q_pad - Q)),
+                                  constant_values=-10.0))
+
+    want = np.asarray(_row_ranges_proj(
+        refs(a["ref"][..., 0]), refs(a["ref"][..., 1]),
+        rows(a["c_off"][..., 0::2], L), rows(a["c_off"][..., 1::2], L),
+        rows(a["t_off"][..., 0::2], W * L), rows(a["t_off"][..., 1::2], W * L),
+        SHAPES, 1 + W, 128, S_TILE))
+    t = _t(a)
+    got = K.msda_tap_window(SHAPES, t["ref"], t["c_off"], t["t_off"], M).numpy()
+    first, last = got[..., 0], got[..., 1]
+    base = (first // 2 // 8) * 8
+    count = (last // 2 - base) // S_TILE + 1
+    live = last >= 0
+    port = np.stack([np.where(live, base, 0), np.where(live, count, 0)], -1)
+    np.testing.assert_array_equal(port.reshape(want.shape), want)
+
+
+def test_frame_table_rules():
+    np.testing.assert_array_equal(temporal_frame_table(("all",), 3),
+                                  [[1, 2], [0, 2], [0, 1]])
+    # window (-1, 1) reflects at the clip edges
+    np.testing.assert_array_equal(temporal_frame_table(("window", (-1, 1)), 3),
+                                  [[1, 1], [0, 2], [1, 1]])
