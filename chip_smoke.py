@@ -5,21 +5,40 @@
 
 1. Builds the CUDA kernels from `devis_torch/csrc/` (one nvcc per source, in
    parallel) and prints the card's name and power limit.
-2. Holds each kernel (K1 encoder temporal attention, K2 tap windows, K3
-   decoder temporal attention, K4 DCNv2 layer) against its plain PyTorch
-   version at the YT-VIS-19 main-path shapes: f32 with TF32 off to 1e-4 of
-   max|plain|, bf16 to 2e-2. Offsets are random and off the pixel grid.
-   Times kernel and plain version with CUDA events.
-3. Drives the main path: `build_model` at the YT-19 R50 config (bf16, 6+6
-   layers, 60 queries, seeded random weights) and `VISInferFn` over 3
+2. Holds each kernel against its plain PyTorch version at the YT-VIS-19
+   main-path shapes: f32 with TF32 off to 1e-4 of max|plain|, bf16 to 2e-2.
+   Offsets are random and off the pixel grid. Times kernel and plain version
+   with CUDA events. K1 encoder temporal attention, K2 tap windows, K3
+   decoder temporal attention, K4 DCNv2 layer; K5 backward of K1/K3 at the
+   encoder's and the decoder's shapes; K6 and K7, single-frame attention
+   forward and backward, at the six mask-head layers; the differentiable
+   DCNv2 route (K6) against K4. A backward kernel's bf16 run is held against
+   the plain version on the same inputs upcast to f32 (the plain version's
+   own bf16 scatter-add loses the sum).
+3. Drives the inference path: `build_model` at the YT-19 R50 config (bf16,
+   6+6 layers, 60 queries, seeded random weights) and `VISInferFn` over 3
    consecutive clips of a seeded synthetic 360x640 uint8 video. Launch
    counters are zeroed just before and read just after; each clip must
    launch K1, K3 and K4 six times and no plain path. One clip also runs
    with the plain versions on the card, and the two are compared. K2 runs
    on the first encoder layer's inputs. One clip is profiled: device time
    by kernel group and the device's idle share.
-4. Prints the `kernels` JSON line, a clip-latency line, the card line, and
-   last {"ok": true, "device": {...}}.
+4. Drives the train path: the same model in training mode (dropout 0.1,
+   mask loss on decoder levels -1 and 2), `create_train_state` and
+   `make_train_step` on a seeded synthetic clip with 4 instances in 10
+   target slots: 1 warm-up step, then 3 timed steps with the counters zeroed
+   before and read after. Each step must launch K1 and K3 6 times, K5 12
+   times, K6 and K7 12 times each, K4 never, and no plain path; every loss
+   finite, every parameter with a gradient, every trained tensor changed
+   (counted), frozen ones not. One step is profiled and one more goes
+   through `train_one_epoch`. Then one step of a model with 1 encoder and 2
+   decoder layers at full width (mask loss on both decoder levels, 10 target
+   slots) with the kernels against one step with the plain versions on the
+   card, from the same weights and batch with dropout off: every loss, and
+   every parameter's gradient against that tensor's own norm.
+5. Prints the `kernels` JSON line (K1-K7), a clip-latency line, a
+   train-step line with peak memory, the card line, and last
+   {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 `devis_torch` package beside it. Imports nothing of JAX.
@@ -35,6 +54,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 T, NQ, NUM_OUT, STRIDE = 6, 60, 20, 4
+NUM_CLASSES = 41              # YT-VIS-19 with the background
+N_SLOTS, N_INSTANCES = 10, 4  # target slots of a train clip, and those filled
 VIDEO_HW = (360, 640)
 SHAPES = ((48, 80), (24, 40), (12, 20), (6, 10))      # the 384x640 canvas pyramid
 M, D, P = 8, 32, 4
@@ -46,6 +67,7 @@ DCN_B = 60
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 BF16_TC_FLOPS = 989e12         # bf16 tensor cores, dense
+GRAD_TOL, GRAD_FLOOR = 5e-2, 1e-5   # kernel path against plain path, per tensor
 
 
 def log(msg):
@@ -85,20 +107,23 @@ def compare(name, got, want, rel):
     return err
 
 
-def touched_value_bytes(loc, spatial_shapes, table, itemsize):
-    """Bytes of the distinct value rows (frame, pixel, head) that in-bounds
-    bilinear corners of `loc` (T, Q, M, Lf, P, 2) read: the data-dependent
-    input traffic of K1 and K3."""
+def corner_stats(loc, spatial_shapes, frames=None):
+    """(taps, live in-bounds corners, distinct value rows read) of a location
+    tensor (B, Q, M, Lx, P, 2) over `spatial_shapes` repeated along Lx.
+    `frames` (B, Lx / L) names the value frame of each level group (the
+    temporal kernels); single-frame attention reads its own batch entry."""
     import torch
-    Tn, _, Mn, Lf, _, _ = loc.shape
+    Bn, _, Mn, Lx, _, _ = loc.shape
     L = len(spatial_shapes)
     S = sum(h * w for h, w in spatial_shapes)
     starts = [0]
     for h, w in spatial_shapes[:-1]:
         starts.append(starts[-1] + h * w)
-    frames = torch.cat([torch.arange(Tn, device=loc.device)[:, None], table], 1)
+    if frames is None:
+        frames = torch.arange(Bn, device=loc.device)[:, None].expand(Bn, Lx // L)
+    live_corners = 0
     keys = []
-    for lvl in range(Lf):
+    for lvl in range(Lx):
         j, l = divmod(lvl, L)
         h, w = spatial_shapes[l]
         x = loc[:, :, :, lvl, :, 0] * w - 0.5
@@ -106,15 +131,25 @@ def touched_value_bytes(loc, spatial_shapes, table, itemsize):
         live = (x > -1) & (x < w) & (y > -1) & (y < h)
         x0 = torch.floor(torch.where(live, x, 0.0)).long()
         y0 = torch.floor(torch.where(live, y, 0.0)).long()
-        f = frames[:, j].view(Tn, 1, 1, 1).expand_as(x0)
+        f = frames[:, j].view(Bn, 1, 1, 1).expand_as(x0)
         m = torch.arange(Mn, device=loc.device).view(1, 1, Mn, 1).expand_as(x0)
         for oy in (0, 1):
             for ox in (0, 1):
                 yi, xi = y0 + oy, x0 + ox
                 ok = live & (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-                s = starts[l] + yi * w + xi
-                keys.append(((f * S + s) * Mn + m)[ok])
-    return torch.unique(torch.cat(keys)).numel() * D * itemsize
+                live_corners += int(ok.sum())
+                keys.append((((f * S + starts[l] + yi * w + xi) * Mn + m)[ok]))
+    rows = torch.unique(torch.cat(keys)).numel()
+    return loc[..., 0].numel(), live_corners, rows
+
+
+def touched_value_bytes(loc, spatial_shapes, table, itemsize):
+    """Bytes of the distinct value rows (frame, pixel, head) that in-bounds
+    bilinear corners of `loc` (T, Q, M, Lf, P, 2) read: the data-dependent
+    input traffic of K1 and K3."""
+    import torch
+    frames = torch.cat([torch.arange(loc.shape[0], device=loc.device)[:, None], table], 1)
+    return corner_stats(loc, spatial_shapes, frames)[2] * D * itemsize
 
 
 def msda_phases(torch, dev, gen, results):
@@ -258,40 +293,214 @@ def dcn_phase(torch, dev, gen, results):
         flop_rate=BF16_TC_FLOPS, library_ms=None)
 
 
-def profile_clip(torch, infer, video):
-    """Device time of one clip by kernel group, from torch.profiler, and the
-    share of the clip's wall time the device was busy."""
+def backward_cost(loc, att, value, shapes, frames, d):
+    """(bytes, operations, atomic bytes) of a backward kernel (K5, K7) on
+    these inputs. Bytes are what the function must move: the distinct value
+    rows the live taps read, loc, att and the output gradient read once, the
+    value gradient written once in the value's type, the loc and att
+    gradients written once. About 24 operations per tap and channel plus 40
+    per tap. The kernel's own f32 scratch traffic (one 4-byte atomic add per
+    live corner and channel) is no part of the bound and is returned apart."""
+    taps, corners, rows = corner_stats(loc, shapes, frames)
+    item = value.element_size()
+    nbytes = (rows * d * item + 2 * (loc.numel() + att.numel()) * 4
+              + loc.shape[0] * loc.shape[1] * loc.shape[2] * d * item
+              + value.numel() * item)
+    return nbytes, taps * (24 * d + 40), corners * d * 4
+
+
+def temporal_bwd_phase(torch, dev, gen, results):
+    """K5 at the encoder's (Q = 5100) and the decoder's (Q = 10) shapes."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.ms_deform_attn import temporal_frame_table
+
+    L, W = len(SHAPES), T - 1
+    S = sum(h * w for h, w in SHAPES)
+    rule = ("all",)
+    table = torch.as_tensor(temporal_frame_table(rule, T), device=dev)
+    frames = torch.cat([torch.arange(T, device=dev)[:, None], table], 1)
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, atomic=0, err=0.0)
+    for where, Q in (("encoder", S), ("decoder", NQ // T)):
+        log(f"K5 msda_temporal_bwd ({where}), T={T} Q={Q} M={M} D={D} Lf={(1 + W) * L} P={P}")
+        value = torch.randn(T, S, M, D, generator=gen, device=dev)
+        loc = torch.rand(T, Q, M, (1 + W) * L, P, 2, generator=gen, device=dev) * 1.2 - 0.1
+        att = torch.softmax(torch.randn(T, Q, M, (1 + W) * L * P, generator=gen, device=dev),
+                            -1).reshape(loc.shape[:-1])
+        grad = torch.randn(T, Q, M * D, generator=gen, device=dev)
+        # the bf16 run's inputs, and the same values upcast for its reference
+        a16 = (bf(value), SHAPES, loc, att, bf(grad), rule)
+        a16_up = (a16[0].float(), SHAPES, loc, att, a16[4].float(), rule)
+        a32 = (value, SHAPES, loc, att, grad, rule)
+        # f32: the atomics' order changes the last bits. bf16: the value
+        # gradient is rounded once to bf16, the row gradients stay f32
+        for tag, args, ref_args, tols in (("f32 ", a32, a32, (1e-4, 1e-4, 1e-4)),
+                                          ("bf16", a16, a16_up, (1e-2, 1e-4, 1e-4))):
+            got = K.msda_temporal_bwd(*args)
+            want = K.msda_temporal_bwd_plain(*ref_args)
+            for part, g, w, tol in zip(("value", "loc", "att"), got, want, tols):
+                err = compare(f"{tag} grad_{part}", g, w, tol)
+                if tag == "bf16" and part == "value":
+                    tot["err"] = max(tot["err"], err)
+            del got, want
+        ms = cuda_time(lambda: K.msda_temporal_bwd(*a16), 10)
+        plain_ms = cuda_time(lambda: K.msda_temporal_bwd_plain(*a16), 2, 1)
+        nbytes, flops, atomic = backward_cost(loc, att, a16[0], SHAPES, frames, D)
+        log(f"    {where}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes, "
+            f"{flops / F32_FLOPS * 1e3:.4f} ms by operations")
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bytes"] += nbytes
+        tot["flops"] += flops
+        tot["atomic"] += atomic
+        del value, loc, att, grad, a16, a16_up, a32
+        torch.cuda.empty_cache()
+    # one encoder plus one decoder launch: a twelfth of a train step's K5 work
+    results["K5"] = dict(
+        name="msda_temporal_bwd", route="cuda", source="devis_torch/csrc/ms_deform_attn.cu",
+        replaces="devis_tpu/ops/ms_deform_attn_pallas.py:940", max_abs_err=tot["err"],
+        ms=tot["ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"], flops=tot["flops"],
+        flop_rate=F32_FLOPS, library_ms=None, atomic_bytes=tot["atomic"])
+
+
+def rows_phase(torch, dev, gen, results):
+    """K6 and K7 at the six mask-head layers (the K*K positions of U = x . W
+    as 9 one-point levels of one head), and the K6 route against K4."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.deform_conv import (modulated_deform_conv2d,
+                                             modulated_deform_conv2d_rows)
+    from devis_torch.ops.ms_deform_attn import ms_deform_attn
+
+    log(f"K6 msda_rows / K7 msda_rows_bwd, B={DCN_B}, 9 levels, per mask-head layer")
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    fwd = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0)
+    bwd = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, atomic=0, err=0.0)
+    for name, cin, cout, h, w in DCN_LAYERS:
+        shapes = ((h, w),) * 9
+        hw = h * w
+        value = torch.randn(DCN_B, 9 * hw, 1, cout, generator=gen, device=dev)
+        # pixel centres plus offsets of a few pixels, some off the map
+        base = torch.stack(torch.meshgrid(
+            (torch.arange(w, device=dev) + 0.5) / w, (torch.arange(h, device=dev) + 0.5) / h,
+            indexing="xy"), -1).reshape(1, hw, 1, 1, 1, 2)
+        jitter = torch.randn(DCN_B, hw, 1, 9, 1, 2, generator=gen, device=dev) * 2.0
+        loc = (base + jitter / torch.tensor([w, h], device=dev)).contiguous()
+        att = torch.rand(DCN_B, hw, 1, 9, 1, generator=gen, device=dev) * 2.0
+        grad = torch.randn(DCN_B, hw, cout, generator=gen, device=dev)
+        v16, g16 = bf(value), bf(grad)
+        with torch.no_grad():
+            if name in ("lay1", "lay5"):
+                compare(f"{name} K6 f32 ", K.msda_rows(value, shapes, loc, att),
+                        ms_deform_attn(value, shapes, loc, att), 1e-4)
+            err = compare(f"{name} K6 bf16", K.msda_rows(v16, shapes, loc, att),
+                          ms_deform_attn(v16, shapes, loc, att), 2e-2)
+            fwd["err"] = max(fwd["err"], err)
+            ms = cuda_time(lambda: K.msda_rows(v16, shapes, loc, att), 10)
+            plain_ms = cuda_time(lambda: ms_deform_attn(v16, shapes, loc, att), 2, 1)
+        taps, _, rows = corner_stats(loc, shapes)
+        fwd["ms"] += ms
+        fwd["plain_ms"] += plain_ms
+        fwd["bytes"] += rows * cout * 2 + (loc.numel() + att.numel()) * 4 + DCN_B * hw * cout * 2
+        fwd["flops"] += taps * 8 * cout
+        line = f"    {name} D={cout} at {h}x{w}: K6 {ms:.3f} ms (plain {plain_ms:.3f})"
+
+        pairs = [("bf16", (v16, shapes, loc, att, g16),
+                  (v16.float(), shapes, loc, att, g16.float()), (1e-2, 1e-4, 1e-4))]
+        if name in ("lay1", "lay5"):
+            a32 = (value, shapes, loc, att, grad)
+            pairs.insert(0, ("f32 ", a32, a32, (1e-4, 1e-4, 1e-4)))
+        for tag, args, ref_args, tols in pairs:
+            got = K.msda_rows_bwd(*args)
+            want = K.msda_rows_bwd_plain(*ref_args)
+            for part, g, wnt, tol in zip(("value", "loc", "att"), got, want, tols):
+                err = compare(f"{name} K7 {tag} grad_{part}", g, wnt, tol)
+                if tag == "bf16" and part == "value":
+                    bwd["err"] = max(bwd["err"], err)
+            del got, want
+        ms = cuda_time(lambda: K.msda_rows_bwd(v16, shapes, loc, att, g16), 10)
+        plain_ms = cuda_time(lambda: K.msda_rows_bwd_plain(v16, shapes, loc, att, g16), 2, 1)
+        nbytes, flops, atomic = backward_cost(loc, att, v16, shapes, None, cout)
+        bwd["ms"] += ms
+        bwd["plain_ms"] += plain_ms
+        bwd["bytes"] += nbytes
+        bwd["flops"] += flops
+        bwd["atomic"] += atomic
+        log(line + f", K7 {ms:.3f} ms (plain {plain_ms:.3f})")
+        del value, loc, att, grad, v16, g16, jitter
+        torch.cuda.empty_cache()
+    for key, tot, nm, line in (("K6", fwd, "msda_rows", 354), ("K7", bwd, "msda_rows_bwd", 773)):
+        results[key] = dict(
+            name=nm, route="cuda", source="devis_torch/csrc/ms_deform_attn_rows.cu",
+            replaces=f"devis_tpu/ops/ms_deform_attn_pallas.py:{line}", max_abs_err=tot["err"],
+            ms=tot["ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"], flops=tot["flops"],
+            flop_rate=F32_FLOPS, library_ms=None, **({"atomic_bytes": tot["atomic"]}
+                                                     if key == "K7" else {}))
+
+    log("DCNv2 layer: the differentiable route (K6) against K4 on the same inputs")
+    Kk = 3
+    for name, cin, cout, h, w in (DCN_LAYERS[0], DCN_LAYERS[4]):
+        def rnd(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device=dev) * scale
+        fan = (Kk * Kk * cin) ** 0.5
+        args = [rnd(DCN_B, cin, h, w), rnd(Kk, Kk, cin, 2 * Kk * Kk, scale=2.0 / fan),
+                rnd(2 * Kk * Kk, scale=0.5), rnd(Kk, Kk, cin, Kk * Kk, scale=1.0 / fan),
+                rnd(Kk * Kk), rnd(Kk, Kk, cin, cout, scale=1.0 / fan), rnd(cout)]
+        a16 = [bf(t) for t in args]
+        with torch.no_grad():
+            torch.backends.cudnn.allow_tf32 = False
+            compare(f"{name} f32 ", modulated_deform_conv2d_rows(*args),
+                    modulated_deform_conv2d(*args), 1e-4)
+            # bf16: the route rounds its offset and modulation fields and U to
+            # bf16 (as the JAX package's does); K4 keeps them in f32
+            compare(f"{name} bf16", modulated_deform_conv2d_rows(*a16),
+                    modulated_deform_conv2d(*a16), 3e-2)
+
+
+KERNEL_GROUPS = {"K1 msda_temporal_proj": "msda_temporal_proj_kernel",
+                 "K5 msda_temporal_bwd": "msda_temporal_bwd_kernel",
+                 "K3 msda_temporal": "msda_temporal_kernel",
+                 "K7 msda_rows_bwd": "msda_rows_bwd_kernel",
+                 "K6 msda_rows": "msda_rows_kernel",
+                 "K4 dcn_layer": "dcn_layer_kernel"}
+
+
+def profile_run(torch, what, fn):
+    """Device time of one call of `fn` by kernel group, from torch.profiler,
+    and the share of its wall time the device was busy."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        infer(video, 0)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"K1 msda_temporal_proj": "msda_temporal_proj_kernel",
-              "K3 msda_temporal": "msda_temporal_kernel",
-              "K4 dcn_layer": "dcn_layer_kernel"}
-    sums = dict.fromkeys(list(groups) + ["convolutions (cuDNN)", "matmuls", "other"], 0.0)
+    sums = dict.fromkeys(list(KERNEL_GROUPS) + ["convolutions (cuDNN)", "matmuls", "other"], 0.0)
     top = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        # kernel events only: a CPU op's own entry repeats its kernels' time
-        if us <= 0 or getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+        # kernel events only: a CPU op's own entry, and an annotation's span
+        # on the device (the optimizer's), repeat their kernels' time
+        if us <= 0 or getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer."):
             continue
         name = e.key
         top.append((us, e.count, name))
         low = name.lower()
-        group = next((g for g, k in groups.items() if k in name), None)
+        group = next((g for g, k in KERNEL_GROUPS.items() if k in name), None)
         if group is None:
-            group = ("convolutions (cuDNN)" if any(k in low for k in ("conv", "cudnn", "xmma", "fprop"))
-                     else "matmuls" if any(k in low for k in ("gemm", "cutlass", "matmul"))
+            group = ("convolutions (cuDNN)"
+                     if any(k in low for k in ("conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad"))
+                     else "matmuls" if any(k in low for k in ("gemm", "cutlass", "matmul", "nvjet"))
                      else "other")
         sums[group] += us / 1e3
     busy = sum(sums.values())
-    log(f"profile of one clip ({wall_ms:.3f} ms wall): device busy {busy:.3f} ms, "
+    log(f"profile of one {what} ({wall_ms:.3f} ms wall): device busy {busy:.3f} ms, "
         f"idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for g, ms in sums.items():
-        log(f"  {g}: {ms:.3f} ms")
+        if ms:
+            log(f"  {g}: {ms:.3f} ms")
     for us, n, name in sorted(top, reverse=True)[:10]:
         log(f"    {us / 1e3:8.3f} ms  x{n:<4d} {name[:90]}")
 
@@ -330,33 +539,28 @@ class _Video:
         return self.frames[i * STRIDE:i * STRIDE + T]
 
 
-def main_path(torch, dev, card, results):
-    import numpy as np
-
+def build(torch, dev, enc_layers=6, dec_layers=6, mask_aux=(2,)):
+    """(cfg, model): DeVIS R50 at the YT-VIS-19 widths, bf16 compute, seeded
+    random weights, in eval mode."""
     from devis_torch.config import get_cfg_defaults
-    from devis_torch.inference import VISInferFn, make_eval_buckets
     from devis_torch.models import build_model
-    from devis_torch.models import attention as attn_mod
-    from devis_torch.models import segmentation as seg_mod
-    from devis_torch.models.segmentation import ModulatedDeformableConv
-    from devis_torch.ops import ms_deform_attn_cuda as K
-    from devis_torch.ops.deform_conv import (modulated_deform_conv2d,
-                                             modulated_deform_conv2d_plain)
-    from devis_torch.util.box_ops import box_cxcywh_to_xyxy
 
     cfg = get_cfg_defaults()
     cfg.DATASETS.TYPE = "vis"
     cfg.MODEL.MASK_ON = True
-    cfg.MODEL.LOSS.MASK_AUX_LOSS = [0]
+    cfg.MODEL.LOSS.MASK_AUX_LOSS = list(mask_aux)
+    cfg.MODEL.LOSS.AUX_LOSS_WEIGHTING = True
     cfg.MODEL.NUM_QUERIES = NQ
     cfg.MODEL.BBX_GRADIENT_PROP = True
+    cfg.MODEL.TRANSFORMER.ENCODER_LAYERS = enc_layers
+    cfg.MODEL.TRANSFORMER.DECODER_LAYERS = dec_layers
     cfg.MODEL.DEVIS.NUM_FRAMES = T
     cfg.TEST.NUM_OUT = NUM_OUT
     cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST = VIDEO_HW
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
     cfg.freeze()
     t0 = time.perf_counter()
-    model = build_model(41, cfg, seed=SEED)
+    model = build_model(NUM_CLASSES, cfg, seed=SEED)
     # The reference init zeroes the offset and logit projections, which puts
     # every tap on the pixel grid; seeded noise moves them off it.
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -367,8 +571,24 @@ def main_path(torch, dev, card, results):
                 fan = p[0].numel()
                 p.add_(torch.randn(p.shape, generator=gen).to(dev) / fan ** 0.5)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"main path: DeVIS R50 YT-19, bf16, {n_params} parameters, built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"model: DeVIS R50 YT-19, {enc_layers}+{dec_layers} layers, bf16, {n_params} "
+        f"parameters, built in {time.perf_counter() - t0:.1f} s")
+    return cfg, model
+
+
+def main_path(torch, dev, card, cfg, model, results):
+    import numpy as np
+
+    from devis_torch.inference import VISInferFn, make_eval_buckets
+    from devis_torch.models import attention as attn_mod
+    from devis_torch.models import segmentation as seg_mod
+    from devis_torch.models.segmentation import ModulatedDeformableConv
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.deform_conv import (modulated_deform_conv2d,
+                                             modulated_deform_conv2d_plain)
+    from devis_torch.util.box_ops import box_cxcywh_to_xyxy
+
+    log("inference path: VISInferFn over 3 clips")
     video = _Video(T + 3 * STRIDE, SEED)
     infer = VISInferFn(model, T, make_eval_buckets(*VIDEO_HW))
     infer(video, 0)                                      # warm-up (cuDNN plans)
@@ -447,8 +667,185 @@ def main_path(torch, dev, card, results):
         raise AssertionError("kernel path disagrees with the plain path")
     with torch.inference_mode():
         tap_window_phase(torch, model, x, pad, results)
-    profile_clip(torch, infer, video)
+    profile_run(torch, "clip", lambda: infer(video, 0))
     return launches, clip_ms
+
+
+def kernel_ops():
+    """The wrappers that count launches, K1-K3, K5-K7, K4."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.deform_conv import modulated_deform_conv2d
+    return [K.msda_temporal_proj, K.msda_tap_window, K.msda_temporal, K.msda_temporal_bwd,
+            K.msda_rows, K.msda_rows_bwd, modulated_deform_conv2d]
+
+
+def train_batch(n_slots):
+    from devis_torch.util.synthetic import synthetic_clip_batch
+    return synthetic_clip_batch(SEED + 2, T, (384, 640), VIDEO_HW, min(N_INSTANCES, n_slots),
+                                n_slots, NUM_CLASSES - 1)
+
+
+def train_path(torch, dev, card, cfg, model):
+    """1 warm-up and 3 timed steps through `make_train_step` at full width
+    and depth; launch counts, finite losses, which parameters moved."""
+    import numpy as np
+
+    from devis_torch.engine import (create_train_state, make_train_step, param_labels,
+                                    train_one_epoch)
+    from devis_torch.models.segmentation import ModulatedDeformableConv
+
+    log(f"train path: make_train_step, 1 clip a step, {N_INSTANCES} instances in "
+        f"{N_SLOTS} slots, dropout {cfg.MODEL.DROPOUT}")
+    state = create_train_state(cfg, model, steps_per_epoch=100)
+    step = make_train_step(model, cfg)
+    batch = train_batch(N_SLOTS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    labels = param_labels(model, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(state, batch, gen)               # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    ops = kernel_ops()
+    for fn in ops:
+        fn.launches = fn.plain_calls = 0
+    n_steps, step_ms = 3, []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        m = {k: float(v) for k, v in metrics.items()}
+        log(f"  step {i}: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f} "
+            f"finite {m['finite']:.0f}  {step_ms[-1]:.3f} ms")
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad or m["finite"] != 1.0:
+            raise AssertionError(f"step {i}: non-finite {bad or 'loss'}")
+    launches = {fn.__name__: fn.launches for fn in ops}
+    plain = {fn.__name__: fn.plain_calls for fn in ops}
+    log(f"  launches over {n_steps} steps: {launches}; plain calls: {plain}")
+    n_enc = cfg.MODEL.TRANSFORMER.ENCODER_LAYERS
+    n_dec = cfg.MODEL.TRANSFORMER.DECODER_LAYERS
+    n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
+    n_mask = 1 + len(cfg.MODEL.LOSS.MASK_AUX_LOSS)
+    check_counts(ops, [n_steps * c for c in (n_enc, 0, n_dec, n_enc + n_dec,
+                                             n_dcn * n_mask, n_dcn * n_mask, 0)])
+    if state.step != 1 + n_steps:
+        raise AssertionError(f"{state.step} updates after {1 + n_steps} steps")
+
+    no_grad, still, moved_frozen, n_moved = [], [], [], 0
+    for name, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[name])
+        if p.grad is None:                 # cut from the graph
+            no_grad.append(name)
+        if labels[name] == "frozen":
+            if not same:
+                moved_frozen.append(name)
+        elif not same:
+            n_moved += 1
+        # a trained tensor may stand still only where it is exactly zero and so
+        # is its gradient (AdamW then leaves it at zero)
+        elif p.grad is None or bool(p.grad.abs().max() > 0) or bool(p.detach().abs().max() > 0):
+            still.append(name)
+    n_trained = sum(v != "frozen" for v in labels.values())
+    log(f"  {n_moved} of {n_trained} trained tensors moved; {len(moved_frozen)} of "
+        f"{len(labels) - n_trained} frozen ones moved; {len(no_grad)} tensors without a gradient")
+    if no_grad or still or moved_frozen:
+        raise AssertionError(f"no gradient: {no_grad}; trained but unchanged: {still}; "
+                             f"frozen but moved: {moved_frozen}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mean_ms = float(np.mean(step_ms))
+    log(f"  train step {[round(v, 3) for v in step_ms]} ms, mean {mean_ms:.3f} ms; "
+        f"peak memory {peak:.3f} GiB ({card})")
+    profile_run(torch, "train step", lambda: step(state, batch, gen))
+    # and one step through the host epoch loop, which raises on a non-finite loss
+    done = state.step
+    state, averages = train_one_epoch(step, state, [batch], gen, epoch=0)
+    if state.step != done + 1 or not np.isfinite(averages["loss"]):
+        raise AssertionError(f"epoch loop: step {state.step}, averages {averages}")
+    return launches, mean_ms, peak
+
+
+def train_compare(torch, dev):
+    """One step with the kernels against one step with the plain versions on
+    the card: a model of 1 encoder and 2 decoder layers at full width with
+    the mask loss on both decoder levels (the plain versions keep every
+    gathered tap for their backward, about 30 GB an encoder layer), the same
+    weights and batch as the train path's (10 target slots, so the DCNv2
+    batch is 60), dropout off. Every loss, and every parameter's gradient
+    against that tensor's own norm."""
+    import copy
+
+    from devis_torch.engine import create_train_state, make_train_step
+    from devis_torch.models import attention as attn_mod
+    from devis_torch.models.layers import Dropout
+    from devis_torch.ops import deform_conv as dc_mod
+    from devis_torch.ops import ms_deform_attn_cuda as K
+
+    log("kernel path against plain path, one train step, 1+2 layers at full width")
+    cfg, model_k = build(torch, dev, 1, 2, mask_aux=(0,))
+    for mod in model_k.modules():
+        if isinstance(mod, Dropout):
+            mod.p = 0.0
+    model_p = copy.deepcopy(model_k)
+    batch = train_batch(N_SLOTS)
+    ops = kernel_ops()
+    out = []
+    for tag, model in (("kernels", model_k), ("plain", model_p)):
+        for fn in ops:
+            fn.launches = fn.plain_calls = 0
+        saved = (attn_mod.msda_temporal_proj, attn_mod.msda_temporal, dc_mod.msda_rows)
+        if tag == "plain":
+            attn_mod.msda_temporal_proj = K.msda_temporal_proj_plain
+            attn_mod.msda_temporal = K.ms_deform_attn_temporal_plain
+            dc_mod.msda_rows = K.ms_deform_attn
+        try:
+            state = create_train_state(cfg, model, steps_per_epoch=100)
+            _, metrics = make_train_step(model, cfg)(state, batch)
+        finally:
+            attn_mod.msda_temporal_proj, attn_mod.msda_temporal, dc_mod.msda_rows = saved
+        counts = {fn.__name__: fn.launches for fn in ops}
+        log(f"  {tag} step: launches {counts}")
+        n = sum(counts.values())
+        if (n == 0) != (tag == "plain") or any(fn.plain_calls for fn in ops):
+            raise AssertionError(f"{tag} step launched {n} kernels")
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    {k: p.grad.float() for k, p in model.named_parameters()}))
+        torch.cuda.empty_cache()
+    (mk, gk), (mp, gp) = out
+    # bf16 end to end: the two paths round at different places. Every loss
+    # and the gradient norm to 1e-2 of its value (or 1e-3 absolute). Each
+    # parameter's clipped gradient to GRAD_TOL of that tensor's own norm,
+    # plus GRAD_FLOOR of the whole gradient's norm: a tensor whose gradient
+    # is below a few 1e-5 of the whole (the last decoder layer's offset
+    # biases) carries bf16 rounding noise of about a tenth of its own size
+    worst = max(((abs(mk[k] - mp[k]) / max(abs(mp[k]), 0.1), k) for k in mp
+                 if k not in ("finite", "class_error")))
+    total = torch.sqrt(sum(gp[k].double().square().sum() for k in gp)).item()
+    rows = []
+    for k in gp:
+        diff = (gk[k] - gp[k]).double().norm().item()
+        own = gp[k].double().norm().item()
+        rows.append((diff / max(own, 1e-30), diff, own, k))
+    rows.sort(reverse=True)
+    bad = [r for r in rows if r[1] > GRAD_TOL * r[2] + GRAD_FLOOR * total]
+    diff_all = sum(r[1] ** 2 for r in rows) ** 0.5
+    log(f"  loss {mk['loss']:.5f} vs {mp['loss']:.5f}; grad_norm {mk['grad_norm']:.4f} vs "
+        f"{mp['grad_norm']:.4f}; worst metric {worst[1]} off by {worst[0]:.3e} "
+        f"(limit 1e-2); all gradients |diff| / |grad| = {diff_all / total:.3e}")
+    log(f"  per tensor |diff| / |own grad| over {len(rows)} tensors (limit {GRAD_TOL:g} + "
+        f"{GRAD_FLOOR:g} of the whole norm {total:.4f}); the largest:")
+    for rel, diff, own, k in rows[:8]:
+        log(f"    {rel:.3e}  |diff| {diff:.3e}  |grad| {own:.3e}  {k}")
+    proj = [r for r in rows if any(s in r[3] for s in ("sampling_offsets", "attention_weights",
+                                                       "offset_conv", "modulator_conv"))]
+    log(f"  the {len(proj)} offset, logit and field projections, where the kernels' loc and "
+        f"att gradients land; the largest:")
+    for rel, diff, own, k in proj[:8]:
+        log(f"    {rel:.3e}  |diff| {diff:.3e}  |grad| {own:.3e}  {k}")
+    if worst[0] > 1e-2 or bad or mk["finite"] != 1.0:
+        raise AssertionError("kernel-path train step disagrees with the plain path: "
+                             f"{[r[3] for r in bad]}")
 
 
 def main() -> int:
@@ -485,13 +882,24 @@ def main() -> int:
     with torch.inference_mode():
         msda_phases(torch, dev, gen, results)
         dcn_phase(torch, dev, gen, results)
+    temporal_bwd_phase(torch, dev, gen, results)
+    rows_phase(torch, dev, gen, results)
     torch.cuda.empty_cache()
-    launches, clip_ms = main_path(torch, dev, card, results)
+    cfg, model = build(torch, dev)
+    launches, clip_ms = main_path(torch, dev, card, cfg, model, results)
+    train_launches, step_ms, peak_gib = train_path(torch, dev, card, cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    train_compare(torch, dev)
 
+    # K1-K4: launches of the inference path's 3 clips; K5-K7: of the train
+    # path's 3 steps (which also launched K1 and K3: `train_launches`)
     counts = {"K1": launches["msda_temporal_proj"], "K2": launches["msda_tap_window"],
-              "K3": launches["msda_temporal"], "K4": launches["modulated_deform_conv2d"]}
+              "K3": launches["msda_temporal"], "K4": launches["modulated_deform_conv2d"],
+              "K5": train_launches["msda_temporal_bwd"], "K6": train_launches["msda_rows"],
+              "K7": train_launches["msda_rows_bwd"]}
     kernels = []
-    for key in ("K1", "K2", "K3", "K4"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         r = results[key]
         bound_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         bound_ops = r["flops"] / r["flop_rate"] * 1e3
@@ -501,9 +909,12 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            "train_launches": train_launches[r["name"]],
+            **({"atomic_bytes": r["atomic_bytes"]} if "atomic_bytes" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"clip_ms": clip_ms, "fps": STRIDE / clip_ms * 1e3, "card": card}))
+    print(json.dumps({"train_step_ms": step_ms, "train_peak_gib": peak_gib, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 // Temporal multi-scale deformable attention for Hopper (sm_90a).
 //
-// Three kernels, each the counterpart of a Pallas kernel of
+// Four kernels, each the counterpart of a Pallas kernel of
 // devis_tpu/ops/ms_deform_attn_pallas.py:
 //
 //   K1 msda_temporal_proj  <- _fwd_kernel_temporal_proj (encoder).
@@ -13,6 +13,9 @@
 //      tap of K1 touches, from the same f32 location math.
 //   K3 msda_temporal       <- _fwd_kernel_temporal (decoder).
 //      The same sampling from precomputed locations and weights.
+//   K5 msda_temporal_bwd   <- _bwd_kernel_rows_temporal (backward of K1, K3).
+//      From the output gradient: the gradient of the per-frame value, of the
+//      locations and of the weights, with the taps rebuilt in the kernel.
 //
 // Mapping (K1, K3): one warp per (t, q, m); lane d owns channel d (D <= 32).
 // Every lane walks the (1 + W) * L * P taps; the four corner reads of a tap
@@ -28,26 +31,22 @@
 // Staging each q-block's value window (K2) in shared memory is the next
 // step and is not taken here.
 //
-// Location arithmetic uses explicit round-to-nearest intrinsics so nvcc does
-// not contract it into FMAs: K1 and K2 then compute exactly the f32 values
-// of the plain PyTorch versions, and a K2 window covers every K1 tap.
+// K5 keeps the mapping of K3. Its value gradient is a scatter: every corner
+// of every tap adds weight * corner * g onto the frame the rule names, with
+// f32 atomics into an f32 buffer (the TPU kernel's one-hot fold of temporal
+// slots onto frames is layout; here the slot's frame is addressed directly).
+// The sums are therefore not bit-reproducible from run to run. The weight and
+// location gradients are three warp reductions over the D channels per tap.
+// What bounds it: the atomic traffic, T*Q*M*Lf*P*4*D f32 adds (3.0e9 at the
+// encoder's shapes) onto a buffer that stays in L2.
+//
+// Location arithmetic uses explicit round-to-nearest intrinsics (see
+// msda_common.cuh): K1 and K2 then compute exactly the f32 values of the
+// plain PyTorch versions, and a K2 window covers every K1 tap.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "msda_common.cuh"
 
-#define MAX_LEVELS 8
 #define MAX_WINDOW 16
-
-struct Pyramid {
-  int L;
-  int h[MAX_LEVELS];
-  int w[MAX_LEVELS];
-  int start[MAX_LEVELS];
-  float inv_w[MAX_LEVELS];
-  float inv_h[MAX_LEVELS];
-};
 
 struct FrameRule {
   int all;  // 1: every other frame; 0: offsets with edge reflection
@@ -55,60 +54,12 @@ struct FrameRule {
   int off[MAX_WINDOW];
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // Absolute source frame of temporal slot j of frame t.
 __device__ __forceinline__ int source_frame(const FrameRule& r, int j, int t, int T) {
   if (r.all) return j + (t <= j ? 1 : 0);
   int o = r.off[j];
   int c = t + o;
   return (c < 0 || c > T - 1) ? t - o : c;
-}
-
-// Normalized location of a tap: ref + off / size, as ref + off * (1/size).
-__device__ __forceinline__ float tap_loc(float ref, float off, float inv) {
-  return __fadd_rn(ref, __fmul_rn(off, inv));
-}
-
-// Bilinear sample of channel d at normalized (lx, ly) of one level, zero
-// padding. `vl` points at row 0 of the level for this head; rows are
-// `row` elements apart.
-template <typename scalar_t>
-__device__ __forceinline__ float sample_bilinear(const scalar_t* __restrict__ vl, int h, int w,
-                                                 size_t row, float lx, float ly, int d) {
-  float x = __fsub_rn(__fmul_rn(lx, (float)w), 0.5f);
-  float y = __fsub_rn(__fmul_rn(ly, (float)h), 0.5f);
-  if (!(x > -1.f && x < (float)w && y > -1.f && y < (float)h)) return 0.f;
-  float x0f = floorf(x), y0f = floorf(y);
-  float dx = x - x0f, dy = y - y0f;
-  int x0 = (int)x0f, y0 = (int)y0f;
-  float acc = 0.f;
-  if (y0 >= 0) {
-    const scalar_t* r0 = vl + (size_t)y0 * w * row;
-    if (x0 >= 0) acc += (1.f - dy) * (1.f - dx) * to_f(r0[(size_t)x0 * row + d]);
-    if (x0 + 1 < w) acc += (1.f - dy) * dx * to_f(r0[(size_t)(x0 + 1) * row + d]);
-  }
-  if (y0 + 1 < h) {
-    const scalar_t* r1 = vl + (size_t)(y0 + 1) * w * row;
-    if (x0 >= 0) acc += dy * (1.f - dx) * to_f(r1[(size_t)x0 * row + d]);
-    if (x0 + 1 < w) acc += dy * dx * to_f(r1[(size_t)(x0 + 1) * row + d]);
-  }
-  return acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -275,24 +226,68 @@ __global__ void msda_temporal_kernel(const scalar_t* __restrict__ value,
 }
 
 // ---------------------------------------------------------------------------
+// K5: backward of K1 and K3 from precomputed locations and weights.
+//   value (T, S, M, D); loc (T, Q, M, Lf, P, 2) f32; att (T, Q, M, Lf, P) f32;
+//   grad_out (T, Q, M*D) -> grad_value (T, S, M, D) f32, zeroed by the caller;
+//   grad_loc like loc; grad_att like att. A location's gradient is the pixel
+//   gradient times the level size, times the tap's weight.
+template <typename scalar_t>
+__global__ void msda_temporal_bwd_kernel(const scalar_t* __restrict__ value,
+                                         const float* __restrict__ loc,
+                                         const float* __restrict__ att,
+                                         const scalar_t* __restrict__ grad_out,
+                                         float* __restrict__ grad_value,
+                                         float* __restrict__ grad_loc,
+                                         float* __restrict__ grad_att, int T, int Q, int S,
+                                         int M, int D, int P, Pyramid pyr, FrameRule rule) {
+  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= (long)T * Q * M) return;  // whole warps leave together
+  const int m = (int)(warp % M);
+  const long tq = warp / M;
+  const int t = (int)(tq / Q);
+  const int L = pyr.L, W = rule.W;
+  const int LfP = (1 + W) * L * P;
+  const float* lc = loc + (tq * M + m) * LfP * 2;
+  const float* at = att + (tq * M + m) * LfP;
+  float* glc = grad_loc + (tq * M + m) * LfP * 2;
+  float* gat = grad_att + (tq * M + m) * LfP;
+  const size_t row = (size_t)M * D;
+  const bool active = lane < D;
+  const float g = active ? to_f(grad_out[(tq * M + m) * D + lane]) : 0.f;
+  for (int j = 0; j <= W; ++j) {
+    const int f = j == 0 ? t : source_frame(rule, j - 1, t, T);
+    const size_t frame = (size_t)f * S * row + (size_t)m * D;
+    for (int l = 0; l < L; ++l) {
+      const size_t level = frame + (size_t)pyr.start[l] * row;
+      const int h = pyr.h[l], w = pyr.w[l];
+      for (int p = 0; p < P; ++p) {
+        const int k = (j * L + l) * P + p;
+        const float a = at[k];
+        int x0, y0;
+        float dx, dy;
+        float s_v = 0.f, s_x = 0.f, s_y = 0.f;
+        // the tap is the same for every lane, so the warp does not diverge
+        if (tap_geometry(h, w, lc[2 * k], lc[2 * k + 1], x0, y0, dx, dy) && active)
+          tap_backward(value + level, grad_value + level, h, w, row, x0, y0, dx, dy, g, a * g,
+                       lane, s_v, s_x, s_y);
+        s_v = warp_sum(s_v);
+        s_x = warp_sum(s_x);
+        s_y = warp_sum(s_y);
+        if (lane == 0) {
+          gat[k] = s_v;
+          glc[2 * k] = a * s_x * (float)w;
+          glc[2 * k + 1] = a * s_y * (float)h;
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // C entry points. Pointers and the stream arrive as void*; `levels` is
 // (L, 2) host ints (h, w); `offsets` the W host ints of a window rule
 // (ignored when rule_all). Each returns cudaGetLastError().
-
-static Pyramid make_pyramid(const int* levels, int L) {
-  Pyramid p;
-  p.L = L;
-  int s = 0;
-  for (int l = 0; l < L; ++l) {
-    p.h[l] = levels[2 * l];
-    p.w[l] = levels[2 * l + 1];
-    p.start[l] = s;
-    p.inv_w[l] = 1.0f / (float)p.w[l];
-    p.inv_h[l] = 1.0f / (float)p.h[l];
-    s += p.h[l] * p.w[l];
-  }
-  return p;
-}
 
 static FrameRule make_rule(int rule_all, const int* offsets, int W) {
   FrameRule r;
@@ -343,6 +338,20 @@ static int launch_temporal(void* value, void* loc, void* att, void* out, int T, 
   return (int)cudaGetLastError();
 }
 
+template <typename scalar_t>
+static int launch_temporal_bwd(void* value, void* loc, void* att, void* grad_out,
+                               void* grad_value, void* grad_loc, void* grad_att, int T, int Q,
+                               int S, int M, int D, int P, const int* levels, int L,
+                               int rule_all, const int* offsets, int W, void* stream) {
+  long warps = (long)T * Q * M;
+  int blocks = (int)((warps * 32 + kThreads - 1) / kThreads);
+  msda_temporal_bwd_kernel<scalar_t><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const scalar_t*)value, (const float*)loc, (const float*)att, (const scalar_t*)grad_out,
+      (float*)grad_value, (float*)grad_loc, (float*)grad_att, T, Q, S, M, D, P,
+      make_pyramid(levels, L), make_rule(rule_all, offsets, W));
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 int msda_temporal_proj_f32(void* value, void* ref, void* c_off, void* t_off, void* c_logit,
@@ -386,6 +395,23 @@ int msda_temporal_bf16(void* value, void* loc, void* att, void* out, int T, int 
                        const int* offsets, int W, void* stream) {
   return launch_temporal<__nv_bfloat16>(value, loc, att, out, T, Q, S, M, D, P, levels, L,
                                         rule_all, offsets, W, stream);
+}
+
+int msda_temporal_bwd_f32(void* value, void* loc, void* att, void* grad_out, void* grad_value,
+                          void* grad_loc, void* grad_att, int T, int Q, int S, int M, int D,
+                          int P, const int* levels, int L, int rule_all, const int* offsets,
+                          int W, void* stream) {
+  return launch_temporal_bwd<float>(value, loc, att, grad_out, grad_value, grad_loc, grad_att, T,
+                                    Q, S, M, D, P, levels, L, rule_all, offsets, W, stream);
+}
+
+int msda_temporal_bwd_bf16(void* value, void* loc, void* att, void* grad_out, void* grad_value,
+                           void* grad_loc, void* grad_att, int T, int Q, int S, int M, int D,
+                           int P, const int* levels, int L, int rule_all, const int* offsets,
+                           int W, void* stream) {
+  return launch_temporal_bwd<__nv_bfloat16>(value, loc, att, grad_out, grad_value, grad_loc,
+                                            grad_att, T, Q, S, M, D, P, levels, L, rule_all,
+                                            offsets, W, stream);
 }
 
 }  // extern "C"

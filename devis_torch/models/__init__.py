@@ -2,8 +2,8 @@
 
 `build_model(num_classes, cfg)` returns the DeVIS clip model for
 ``DATASETS.TYPE == 'vis'`` with its parameters made from a seed, on the GPU
-unless ``device`` says otherwise. With focal loss the model emits
-`num_classes` logits.
+unless ``device`` says otherwise, in eval mode (`model.train()` turns the
+dropout on). With focal loss the model emits `num_classes` logits.
 """
 from __future__ import annotations
 
@@ -19,6 +19,15 @@ from .detr import DeformableDETR, bbox_bias_init, class_bias_init
 from .devis_model import DeVIS
 from .layers import GroupNorm
 from .position_encoding import PositionEmbeddingSineWithLearnableTemporal
+
+
+def matcher_cfg_from(cfg) -> dict:
+    """Keyword arguments of the clip matcher."""
+    return dict(cost_class=cfg.MODEL.MATCHER.CLASS_COST,
+                cost_bbox=cfg.MODEL.MATCHER.BBX_L1_COST,
+                cost_giou=cfg.MODEL.MATCHER.BBX_GIOU_COST,
+                focal_alpha=cfg.MODEL.LOSS.FOCAL_ALPHA,
+                use_l1_distance_sum=cfg.MODEL.MATCHER.USE_SUM_L1_DISTANCE)
 
 
 @torch.no_grad()
@@ -67,19 +76,22 @@ def build_model(num_classes: int, cfg, device=None, seed: int = 0) -> DeVIS:
     device = resolve_device(device)
     if cfg.DATASETS.TYPE != "vis":
         raise NotImplementedError("the COCO image model is ROADMAP queue A "
-                                  "item 11 of the port")
+                                  "item 12 of the port")
     if "swin" in cfg.MODEL.BACKBONE:
-        raise NotImplementedError("the Swin backbone is ROADMAP queue A item 12 "
+        raise NotImplementedError("the Swin backbone is ROADMAP queue A item 14 "
                                   "of the port")
     da = cfg.MODEL.DEVIS.DEFORMABLE_ATTENTION
     if da.DISABLE_TEMPORAL_CONNECTIONS or cfg.MODEL.MASK_HEAD.DEVIS.CONV_HEAD_3D \
             or not cfg.MODEL.MASK_HEAD.USE_MDC or not cfg.MODEL.WITH_BBX_REFINE \
             or cfg.MODEL.WITH_REF_POINT_REFINE \
             or cfg.MODEL.DEVIS.TEMPORAL_EMBEDDING != "learned":
-        raise NotImplementedError("the port runs the DeVIS eval path with "
-                                  "temporal connections, box refinement, "
-                                  "learned temporal embedding and the MDC "
-                                  "mask head; other variants are ROADMAP items")
+        raise NotImplementedError("the port runs DeVIS with temporal "
+                                  "connections, box refinement, learned "
+                                  "temporal embedding and the MDC mask "
+                                  "head; other variants are ROADMAP items")
+    if cfg.TPU.TRANSFORMER_GRADIENT_CHECKPOINT:
+        raise NotImplementedError("per-layer recomputation (remat_layers) is "
+                                  "a ROADMAP item of the port")
     dtype = torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32
     eff_num_classes = num_classes - 1 if cfg.MODEL.LOSS.FOCAL_LOSS else num_classes
     T = cfg.MODEL.DEVIS.NUM_FRAMES
@@ -88,6 +100,7 @@ def build_model(num_classes: int, cfg, device=None, seed: int = 0) -> DeVIS:
         num_encoder_layers=cfg.MODEL.TRANSFORMER.ENCODER_LAYERS,
         num_decoder_layers=cfg.MODEL.TRANSFORMER.DECODER_LAYERS,
         dim_feedforward=cfg.MODEL.DIM_FEEDFORWARD,
+        dropout=cfg.MODEL.DROPOUT,
         enc_n_points=cfg.MODEL.TRANSFORMER.ENC_N_POINTS,
         dec_n_points=cfg.MODEL.TRANSFORMER.DEC_N_POINTS,
         num_frames=T,
@@ -108,6 +121,8 @@ def build_model(num_classes: int, cfg, device=None, seed: int = 0) -> DeVIS:
     model = DeVIS(detr, num_frames=T,
                   mask_head_used_features=cfg.MODEL.MASK_HEAD.USED_FEATURES,
                   att_maps_used_res=cfg.MODEL.MASK_HEAD.UPSAMPLING_RESOLUTIONS,
+                  mask_aux_loss=cfg.MODEL.LOSS.MASK_AUX_LOSS,
+                  matcher_cfg=matcher_cfg_from(cfg),
                   num_out=cfg.TEST.NUM_OUT, dtype=dtype)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -8,7 +8,10 @@
   * `TemporalMSDeformAttnDecoder`: instance-aware temporal attention; the
     locations and the joint softmax are built here and sampled by K3.
   * `MultiHeadAttention`: the decoder's query self-attention, with the packed
-    `in_proj_*` parameters of `torch.nn.MultiheadAttention`.
+    `in_proj_*` parameters of `torch.nn.MultiheadAttention` and dropout on
+    the attention weights.
+
+Gradients flow through K1 and K3 by their autograd Functions (backward K5).
 
 Frames ride the batch axis. Temporal levels are frame-major: (W, L).
 """
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 from ..ops.ms_deform_attn import (make_temporal_shapes, normalize_shapes,
                                   temporal_frame_rule, temporal_frame_table)
 from ..ops.ms_deform_attn_cuda import msda_temporal, msda_temporal_proj
-from .layers import Linear
+from .layers import Dropout, Linear
 
 
 def _directional_grid(n_heads: int) -> np.ndarray:
@@ -192,10 +195,12 @@ class MultiHeadAttention(nn.Module):
     """Multi-head attention with `torch.nn.MultiheadAttention`'s parameters
     (`in_proj_weight` (3C, C), `in_proj_bias`, `out_proj`)."""
 
-    def __init__(self, d_model: int, n_heads: int, dtype=torch.float32):
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         self.n_heads = n_heads
         self.compute_dtype = dtype
+        self.dropout = Dropout(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = Linear(d_model, d_model, dtype=dtype)
@@ -213,6 +218,6 @@ class MultiHeadAttention(nn.Module):
 
         qp, kp, vp = heads(q, 0), heads(k, 1), heads(v, 2)
         logits = torch.einsum("bhqd,bhkd->bhqk", qp, kp) / math.sqrt(Dh)
-        att = torch.softmax(logits.float(), dim=-1).to(dt)
+        att = self.dropout(torch.softmax(logits.float(), dim=-1).to(dt))
         out = torch.einsum("bhqk,bhkd->bhqd", att, vp)
         return self.out_proj(out.transpose(1, 2).reshape(B, Lq, C))

@@ -71,7 +71,8 @@ class DeformableDETR(nn.Module):
         self.backbone_num_channels = tuple(backbone_num_channels)
         self.backbone = nn.ModuleList([Backbone(body), position_encoding])
         self.transformer = DeformableTransformer(
-            d_model=hidden_dim, num_feature_levels=num_feature_levels, dtype=dtype,
+            d_model=hidden_dim, num_feature_levels=num_feature_levels,
+            with_gradient=with_gradient, dtype=dtype,
             **(transformer_kwargs or {}))
         num_pred = self.transformer.num_decoder_layers
         if num_feature_levels > 1:

@@ -1,9 +1,12 @@
-"""DeVIS clip model, eval path (port of `devis_tpu/models/devis_model.py`).
+"""DeVIS clip model (port of `devis_tpu/models/devis_model.py`).
 
-Clip forward on T frames, then top-k trajectory selection and masks for a
-static trajectory set: all Nq trajectories when Nq <= num_out, else the
-top-num_out set with duplicates. The training branch and the matcher belong
-to the training slice.
+Clip forward on T frames. At eval: top-k trajectory selection and masks for a
+static trajectory set, all Nq trajectories when Nq <= num_out, else the
+top-num_out set with duplicates. In training (``targets`` given and
+``train=True``): the final level and each level of `mask_aux_loss` are
+matched to the targets on detached costs, and masks are computed for the
+matched trajectories only; the criterion reads `indices` and `pred_masks`
+from those levels.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
+from . import matcher as matcher_lib
 from .detr import DeformableDETR
 from .segmentation import (MaskHeadConv, MultiScaleMHAttentionMap, RES_TO_IDX,
                            mask_head_feat_dims, select_mask_head_features)
@@ -25,12 +29,16 @@ class DeVIS(nn.Module):
                      ("/32", "encoded"), ("/16", "encoded"), ("/8", "encoded"),
                      ("/4", "backbone")),
                  att_maps_used_res: Sequence[str] = ("/32", "/16", "/8"),
+                 mask_aux_loss: Sequence[int] = (2,),
+                 matcher_cfg: Optional[dict] = None,
                  num_out: int = 20, dtype=torch.float32):
         super().__init__()
         self.def_detr = detr
         self.num_frames = num_frames
         self.mask_head_used_features = tuple(map(tuple, mask_head_used_features))
         self.att_maps_used_res = tuple(att_maps_used_res)
+        self.mask_aux_loss = tuple(mask_aux_loss)
+        self.matcher_cfg = dict(matcher_cfg or {})
         self.num_out = num_out
         hidden = detr.hidden_dim
         nheads = 8
@@ -64,14 +72,31 @@ class DeVIS(nn.Module):
         return m[:, 0].reshape(N, T, m.shape[2], m.shape[3])
 
     def forward(self, images: torch.Tensor, pad_mask: torch.Tensor,
-                clip_length: Optional[int] = None):
+                clip_length: Optional[int] = None, targets: Optional[dict] = None,
+                train: bool = False):
         """images (T, H, W, 3); pad_mask (T, H, W); clip_length: number of
-        real frames. Returns (out, results) like the JAX module's eval path."""
+        real frames. Returns (out, results) like the JAX module's eval path,
+        or, with ``targets`` and ``train=True``, `out` alone with `indices`
+        and `pred_masks` on the levels that carry a mask loss."""
         T = self.num_frames
         out, inter = self.def_detr(images, pad_mask)
         mem_att, mask_att, feats = self._select_features(inter)
         hs = inter["hs"]                                  # (n_layers, 1, T*Nq, C)
         Nq = hs.shape[2] // T
+
+        if targets is not None and train:
+            live = targets["valid"] & targets["exists"][:, None]
+            for lvl in (-1,) + self.mask_aux_loss:
+                level_out = out if lvl == -1 else out["aux_outputs"][lvl]
+                traj_idx = matcher_lib.hungarian_match_clip(
+                    level_out["pred_logits"], level_out["pred_boxes"],
+                    targets["labels"], targets["boxes"], live, T,
+                    **self.matcher_cfg)
+                level_out["indices"] = traj_idx
+                emb = hs[lvl][0].reshape(T, Nq, -1)[:, traj_idx]   # (T, N, C)
+                level_out["pred_masks"] = self._masks_for_trajectories(
+                    emb, mem_att, mask_att, feats)
+            return out
 
         logits = torch.sigmoid(out["pred_logits"][0].float()).reshape(T, Nq, -1)
         K = logits.shape[-1]

@@ -4,7 +4,8 @@ Parameters are stored in f32. A layer built with ``dtype=torch.bfloat16``
 casts its input and parameters to bf16 and returns bf16, as a flax layer with
 ``dtype=bfloat16`` does. Layer and group norms compute their statistics in
 f32; `LayerNorm` returns f32 (flax's LayerNorm promotes to its f32 scale),
-`GroupNorm` returns its compute dtype.
+`GroupNorm` returns its compute dtype. `Dropout` draws its mask from an
+explicit `torch.Generator` on the input's device.
 """
 from __future__ import annotations
 
@@ -70,3 +71,28 @@ class GroupNorm(nn.Module):
         shape = (1, C) + (1,) * (x.dim() - 2)
         y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
         return y.to(self.compute_dtype)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout, active in training mode. The keep mask comes from
+    `generator` (on the input's device), which the train step hands to
+    every layer from its caller, so a run is reproducible from that
+    generator's seed; with none it comes from torch's global generator."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, device=x.device, generator=self.generator) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Give every `Dropout` of `model` the generator it draws from."""
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator

@@ -1,6 +1,7 @@
 """Deformable transformer, DeVIS variant (port of the ``variant="devis"`` path
 of `devis_tpu/models/transformer.py`): temporal deformable attention in the
-encoder and the decoder, and iterative box refinement."""
+encoder and the decoder, iterative box refinement, and dropout where the JAX
+package applies it (after each attention, inside and after each FFN)."""
 from __future__ import annotations
 
 from typing import List, Sequence
@@ -12,7 +13,7 @@ import torch.nn.functional as F
 from ..util.misc import inverse_sigmoid
 from .attention import (MultiHeadAttention, TemporalMSDeformAttnDecoder,
                         TemporalMSDeformAttnEncoder)
-from .layers import LayerNorm, Linear
+from .layers import Dropout, LayerNorm, Linear
 
 
 def get_valid_ratios(masks: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -42,9 +43,10 @@ def encoder_reference_points(spatial_shapes, valid_ratios: torch.Tensor) -> torc
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_frames, t_window,
-                 connect_all, n_points, n_temporal_points, dtype):
+    def __init__(self, d_model, d_ffn, dropout, n_levels, n_heads, n_frames,
+                 t_window, connect_all, n_points, n_temporal_points, dtype):
         super().__init__()
+        self.dropout = Dropout(dropout)
         self.self_attn = TemporalMSDeformAttnEncoder(
             n_frames, d_model, n_levels, t_window, n_heads, n_points,
             n_temporal_points, dtype=dtype, connect_all=connect_all)
@@ -54,17 +56,19 @@ class EncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, pos, reference_points, spatial_shapes, padding_mask):
-        src = self.norm1(src + self.self_attn(src + pos, reference_points, src,
-                                              spatial_shapes, padding_mask))
-        y = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + y)
+        drop = self.dropout
+        src = self.norm1(src + drop(self.self_attn(src + pos, reference_points, src,
+                                                   spatial_shapes, padding_mask)))
+        y = self.linear2(drop(F.relu(self.linear1(src))))
+        return self.norm2(src + drop(y))
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_frames,
+    def __init__(self, d_model, d_ffn, dropout, n_levels, n_heads, n_frames,
                  instance_aware, n_points, n_temporal_points, dtype):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, n_heads, dtype=dtype)
+        self.dropout = Dropout(dropout)
+        self.self_attn = MultiHeadAttention(d_model, n_heads, dropout, dtype=dtype)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.cross_attn = TemporalMSDeformAttnDecoder(
             n_frames, d_model, n_levels, n_frames - 1, n_heads, n_points,
@@ -76,12 +80,13 @@ class DecoderLayer(nn.Module):
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
                 padding_mask):
+        drop = self.dropout
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
-        tgt = self.norm1(tgt + self.cross_attn(tgt + query_pos, reference_points,
-                                               src, spatial_shapes, padding_mask))
-        y = self.linear2(F.relu(self.linear1(tgt)))
-        return self.norm3(tgt + y)
+        tgt = self.norm2(tgt + drop(self.self_attn(q, q, tgt)))
+        tgt = self.norm1(tgt + drop(self.cross_attn(
+            tgt + query_pos, reference_points, src, spatial_shapes, padding_mask)))
+        y = self.linear2(drop(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + drop(y))
 
 
 class _Stack(nn.Module):
@@ -92,36 +97,41 @@ class _Stack(nn.Module):
 
 class DeformableTransformer(nn.Module):
     def __init__(self, d_model=256, n_heads=8, num_encoder_layers=6,
-                 num_decoder_layers=6, dim_feedforward=1024,
+                 num_decoder_layers=6, dim_feedforward=1024, dropout=0.1,
                  num_feature_levels=4, enc_n_points=4, dec_n_points=4,
                  num_frames=6, enc_connect_all=True,
                  enc_temporal_window=2, enc_n_temporal_points=4,
                  dec_n_temporal_points=4, instance_aware=True,
-                 dtype=torch.float32):
+                 with_gradient=False, dtype=torch.float32):
         super().__init__()
         self.d_model = d_model
+        self.with_gradient = with_gradient
         self.compute_dtype = dtype
         self.num_decoder_layers = num_decoder_layers
         self.level_embed = nn.Parameter(torch.zeros(num_feature_levels, d_model))
         self.reference_points = Linear(d_model, 2, dtype=dtype)
         enc_t_window = num_frames - 1 if enc_connect_all else enc_temporal_window
         self.encoder = _Stack([
-            EncoderLayer(d_model, dim_feedforward, num_feature_levels, n_heads,
-                         num_frames, enc_t_window, enc_connect_all,
+            EncoderLayer(d_model, dim_feedforward, dropout, num_feature_levels,
+                         n_heads, num_frames, enc_t_window, enc_connect_all,
                          enc_n_points, enc_n_temporal_points, dtype)
             for _ in range(num_encoder_layers)])
         self.decoder = _Stack([
-            DecoderLayer(d_model, dim_feedforward, num_feature_levels, n_heads,
-                         num_frames, instance_aware, dec_n_points,
+            DecoderLayer(d_model, dim_feedforward, dropout, num_feature_levels,
+                         n_heads, num_frames, instance_aware, dec_n_points,
                          dec_n_temporal_points, dtype)
             for _ in range(num_decoder_layers)])
 
     def _refine(self, bbox_embed, output, reference_points):
+        """The refined boxes; gradients pass through them only with
+        `with_gradient`."""
         tmp = bbox_embed(output)
         if reference_points.shape[-1] == 4:
-            return torch.sigmoid(tmp + inverse_sigmoid(reference_points))
-        xy = tmp[..., :2] + inverse_sigmoid(reference_points)
-        return torch.sigmoid(torch.cat([xy, tmp[..., 2:]], dim=-1))
+            new_ref = torch.sigmoid(tmp + inverse_sigmoid(reference_points))
+        else:
+            xy = tmp[..., :2] + inverse_sigmoid(reference_points)
+            new_ref = torch.sigmoid(torch.cat([xy, tmp[..., 2:]], dim=-1))
+        return new_ref if self.with_gradient else new_ref.detach()
 
     def forward(self, srcs, masks, pos_embeds, query_embed, bbox_embed):
         """srcs: NCHW per level; masks (T, h, w) bool; pos_embeds

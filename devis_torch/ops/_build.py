@@ -3,8 +3,9 @@
 Each source in `devis_torch/csrc/` is compiled by `nvcc` for `sm_90a` into a
 shared library with a plain C interface under `devis_torch/_build/` (listed
 in `.gitignore`) and loaded with `ctypes`. A library is rebuilt when it is
-missing or older than its source. `build_all` starts one `nvcc` per source
-at once; `library` builds on first use. Nothing happens at import.
+missing or older than its source or a header beside it. `build_all` starts
+one `nvcc` per source at once; `library` builds on first use. Nothing happens
+at import.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ms_deform_attn", "deform_conv")
+SOURCES = ("ms_deform_attn", "ms_deform_attn_rows", "deform_conv")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -46,8 +47,11 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, lib, _ = _paths(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(src))
+    if not os.path.exists(lib):
+        return True
+    deps = [src] + [os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+                    if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(d) for d in deps)
 
 
 def build_all(names=SOURCES) -> Dict[str, float]:

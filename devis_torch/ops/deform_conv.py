@@ -15,6 +15,14 @@ dilation 1, zero padding outside the image.
 Both versions are exact DCNv2 at any offsets (`_mdc_reference` of the JAX
 package). The JAX TPU kernel drops taps outside a rebased band, so the two
 agree only where every tap is in band.
+
+K4 has no backward. Where a gradient is wanted (grad enabled and an input
+requires grad) the layer runs `modulated_deform_conv2d_rows`, the port of the
+JAX package's differentiable composition (`_mdc_reference`): the two field
+convolutions, the channel mix U_k = x . W_k as one matrix product BEFORE the
+gather (bilinear sampling is linear and W_k is constant over space), and the
+K*K kernel positions gathered as K*K levels of one single-head, one-point
+attention: K6 forward, K7 backward (`msda_rows`). It is exact DCNv2 too.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .ms_deform_attn_cuda import msda_rows
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
@@ -78,6 +87,47 @@ def modulated_deform_conv2d_plain(x, w_off, b_off, w_mod, b_mod, weight, bias,
     return (out + bias.float()[None, :, None, None]).to(x.dtype)
 
 
+def deform_conv2d_rows(x, offset, mask, weight, bias, padding: int = 1):
+    """Deformable conv with the channel mix before the gather, as
+    `_deform_conv2d_pallas` of the JAX package. x (B, Cin, H, W); offset
+    (B, 2KK, H, W) (y, x) per k; mask (B, KK, H, W); weight (K, K, Cin, Cout)
+    in x's dtype; returns (B, Cout, H, W) in x's dtype."""
+    B, Cin, H, W = x.shape
+    K = weight.shape[0]
+    KK = K * K
+    Cout = weight.shape[-1]
+    HW = H * W
+    f32 = torch.float32
+    off = offset.reshape(B, KK, 2, HW).to(f32)
+    q = torch.arange(HW, dtype=f32, device=x.device)
+    k = torch.arange(KK, device=x.device)
+    base_x, base_y = q % W, torch.floor(q / W)
+    ky = torch.div(k, K, rounding_mode="floor").to(f32)[:, None]
+    kx = (k % K).to(f32)[:, None]
+    # attention convention: pixel = loc * size - 0.5, so loc = (pixel + 0.5) / size
+    ly = (base_y + (ky - padding) + off[:, :, 0] + 0.5) / H      # (B, KK, HW)
+    lx = (base_x + (kx - padding) + off[:, :, 1] + 0.5) / W
+    loc = torch.stack([lx, ly], -1).permute(0, 2, 1, 3).reshape(B, HW, 1, KK, 1, 2)
+    att = mask.reshape(B, KK, HW).to(f32).permute(0, 2, 1).reshape(B, HW, 1, KK, 1)
+    u = torch.matmul(x.reshape(B, 1, Cin, HW).transpose(2, 3),
+                     weight.reshape(1, KK, Cin, Cout))           # (B, KK, HW, Cout)
+    out = msda_rows(u.reshape(B, KK * HW, 1, Cout), ((H, W),) * KK,
+                    loc.contiguous(), att.contiguous())          # (B, HW, Cout)
+    out = out.float() + bias.float()
+    return out.to(x.dtype).transpose(1, 2).reshape(B, Cout, H, W)
+
+
+def modulated_deform_conv2d_rows(x, w_off, b_off, w_mod, b_mod, weight, bias,
+                                 padding: int = 1):
+    """The differentiable DCNv2 layer (module docstring): field convolutions
+    in the dtype of their weights, then `deform_conv2d_rows`."""
+    xf = x.to(w_off.dtype)
+    offset = F.conv2d(xf, _hwio_to_oihw(w_off), b_off, padding=padding)
+    mod = 2.0 * torch.sigmoid(F.conv2d(xf, _hwio_to_oihw(w_mod), b_mod,
+                                       padding=padding))
+    return deform_conv2d_rows(x, offset, mod, weight, bias, padding)
+
+
 def _function(name: str):
     fn = getattr(_build.library("deform_conv"), name)
     if fn.argtypes is None:
@@ -91,8 +141,12 @@ def _function(name: str):
 
 def modulated_deform_conv2d(x, w_off, b_off, w_mod, b_mod, weight, bias,
                             padding: int = 1):
-    """K4: the fused DCNv2 layer (module docstring). CPU tensors run the plain
+    """The DCNv2 layer (module docstring). Where a gradient is wanted it runs
+    the differentiable rows route. Otherwise K4: CPU tensors run the plain
     version; CUDA tensors launch the kernel in `csrc/deform_conv.cu`."""
+    tensors = (x, w_off, b_off, w_mod, b_mod, weight, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return modulated_deform_conv2d_rows(*tensors, padding)
     if not x.is_cuda:
         modulated_deform_conv2d.plain_calls += 1
         return modulated_deform_conv2d_plain(x, w_off, b_off, w_mod, b_mod,

@@ -1,10 +1,11 @@
-"""Temporal deformable-attention kernels (K1-K3) and their plain versions.
+"""Deformable-attention kernels (K1-K3, K5-K7) and their plain versions.
 
 The port's counterpart of `devis_tpu/ops/ms_deform_attn_pallas.py`. Each
 public op takes the JAX package's q-major layout and dispatches on where its
 tensors lie: on the CPU it runs the plain PyTorch version; on a CUDA device it
-launches the hand-written kernel from `csrc/ms_deform_attn.cu` or raises.
-`launches` counts kernel launches and `plain_calls` CPU dispatches, per op.
+launches the hand-written kernel from `csrc/ms_deform_attn.cu` or
+`csrc/ms_deform_attn_rows.cu`, or raises. `launches` counts kernel launches
+and `plain_calls` CPU dispatches, per op.
 
   * K1 `msda_temporal_proj` (encoder; replaces `_fwd_kernel_temporal_proj`):
     value (T, S, M, D), per-level references (T, Q, L, 2) and the raw outputs
@@ -20,6 +21,19 @@ launches the hand-written kernel from `csrc/ms_deform_attn.cu` or raises.
   * K3 `msda_temporal` (decoder; replaces `_fwd_kernel_temporal`):
     precomputed loc (T, Q, M, Lf, P, 2) and att (T, Q, M, Lf, P) over the
     fused level stack.
+  * K5 `msda_temporal_bwd` (replaces `_bwd_kernel_rows_temporal`): from the
+    output gradient (T, Q, M*D), the gradients of value, loc and att.
+  * K6 `msda_rows` (replaces `_fwd_kernel_fused`) and K7 `msda_rows_bwd`
+    (replaces `_bwd_kernel_rows`): single-frame attention, value
+    (B, S, M, D) at any D, loc (B, Q, M, L, P, 2), att (B, Q, M, L, P), and
+    its backward.
+
+On a CUDA tensor K1, K3 and K6 run as `torch.autograd.Function`s whose
+backward is K5, K5 and K7. K1's backward rebuilds loc and att from the raw projections
+under autograd, launches K5 and lets autograd chain the loc and att gradients
+to references, offsets and logits. On the CPU autograd differentiates the
+plain versions. The value gradient is summed with f32 atomics: equal inputs
+give results that differ in the last bits from run to run.
 
 Levels run frame-major: the current frame's L levels, then L levels for each
 of the W frames the rule names (`temporal_frame_rule`). The value is read per
@@ -32,12 +46,13 @@ import ctypes
 import torch
 
 from . import _build
-from .ms_deform_attn import (Shapes, ms_deform_attn_temporal_plain,
-                             normalize_shapes, rule_window)
+from .ms_deform_attn import (Shapes, ms_deform_attn,
+                             ms_deform_attn_temporal_plain, normalize_shapes,
+                             rule_window)
 
 Q_BLOCK = 128
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_MAX_LEVELS = 8
+_MAX_LEVELS = 16
 _MAX_WINDOW = 16
 
 
@@ -123,6 +138,29 @@ def msda_tap_window_plain(spatial_shapes, ref, c_off, t_off, n_heads: int,
     return out.permute(0, 2, 1, 3, 4).to(torch.int32).contiguous()
 
 
+def _plain_backward(fn, value, loc, att, grad_out):
+    """Gradients of a plain attention `fn(value, loc, att)` by autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (value, loc, att)]
+        out = fn(*leaves)
+    return torch.autograd.grad(out, leaves, grad_out.to(out.dtype))
+
+
+def msda_temporal_bwd_plain(value, spatial_shapes, loc, att, grad_out, rule):
+    """Plain K5: autograd of the plain temporal attention. Returns
+    (grad_value in the value's dtype, grad_loc f32, grad_att f32)."""
+    return _plain_backward(
+        lambda v, l, a: ms_deform_attn_temporal_plain(v, spatial_shapes, l, a, rule),
+        value, loc, att, grad_out)
+
+
+def msda_rows_bwd_plain(value, spatial_shapes, loc, att, grad_out):
+    """Plain K7: autograd of the plain single-frame attention."""
+    return _plain_backward(
+        lambda v, l, a: ms_deform_attn(v, spatial_shapes, l, a),
+        value, loc, att, grad_out)
+
+
 # ---------------------------------------------------------------------------
 # kernel launchers
 # ---------------------------------------------------------------------------
@@ -138,6 +176,7 @@ def _check_cuda(name, device, tensors, dtype):
 
 
 def _check_geometry(name, spatial_shapes, D, W):
+    """Limits of the temporal kernels (one lane per channel)."""
     if len(spatial_shapes) > _MAX_LEVELS:
         raise ValueError(f"{name}: at most {_MAX_LEVELS} levels")
     if D > 32:
@@ -152,13 +191,17 @@ def _rule_args(rule):
 
 
 def _function(name: str, n_ptrs: int, n_ints: int):
-    """A C entry of `csrc/ms_deform_attn.cu`, typed: `n_ptrs` device
-    pointers, `n_ints` ints, then the level table, L, and for the attention
-    entries the rule (flag, offsets, W), then the stream."""
-    fn = getattr(_build.library("ms_deform_attn"), name)
+    """A typed C entry: `n_ptrs` device pointers, `n_ints` ints, then the
+    level table and L, then W (tap windows) or the rule (flag, offsets, W)
+    (temporal attention) or nothing (single-frame attention), then the
+    stream."""
+    rows = name.startswith("msda_rows")
+    fn = getattr(_build.library("ms_deform_attn_rows" if rows else "ms_deform_attn"),
+                 name)
     if fn.argtypes is None:
         P, I, A = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-        tail = [A, I, I] if name.startswith("msda_tap_window") else [A, I, I, A, I]
+        tail = [A, I] if rows else [A, I, I] if name.startswith("msda_tap_window") \
+            else [A, I, I, A, I]
         fn.argtypes = [P] * n_ptrs + [I] * n_ints + tail + [P]
         fn.restype = ctypes.c_int
     return fn
@@ -172,14 +215,8 @@ def _levels(spatial_shapes):
     return _build.int_array([v for hw in spatial_shapes for v in hw])
 
 
-def msda_temporal_proj(value, spatial_shapes, ref, c_off, t_off, c_logit,
-                       t_logit, rule=("all",)):
-    """K1 (see module docstring). Returns (T, Q, M*D) in the value's dtype."""
-    spatial_shapes = normalize_shapes(spatial_shapes)
-    if not value.is_cuda:
-        msda_temporal_proj.plain_calls += 1
-        return msda_temporal_proj_plain(value, spatial_shapes, ref, c_off,
-                                        t_off, c_logit, t_logit, rule)
+def _launch_temporal_proj(value, spatial_shapes, ref, c_off, t_off, c_logit,
+                          t_logit, rule):
     T, S, M, D = value.shape
     _, Q, L, _ = ref.shape
     P = c_logit.shape[-1] // (M * L)
@@ -207,6 +244,52 @@ def msda_temporal_proj(value, spatial_shapes, ref, c_off, t_off, c_logit,
                      "msda_temporal_proj")
     msda_temporal_proj.launches += 1
     return out
+
+
+class MSDATemporalProjFunction(torch.autograd.Function):
+    """K1 forward. The backward splits as the JAX package's VJP does: loc and
+    att are rebuilt from the raw projections under autograd, K5 gives their
+    gradients and the value's, and autograd chains them to the references,
+    offsets and logits."""
+
+    @staticmethod
+    def forward(ctx, value, ref, c_off, t_off, c_logit, t_logit, spatial_shapes,
+                rule):
+        ctx.spatial_shapes, ctx.rule = spatial_shapes, rule
+        ctx.save_for_backward(value, ref, c_off, t_off, c_logit, t_logit)
+        return _launch_temporal_proj(value, spatial_shapes, ref, c_off, t_off,
+                                     c_logit, t_logit, rule)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, *proj = ctx.saved_tensors
+        M = value.shape[2]
+        needs = ctx.needs_input_grad[1:6]
+        with torch.enable_grad():
+            ref, c_off, t_off, c_logit, t_logit = (
+                t.detach().requires_grad_(n) for t, n in zip(proj, needs))
+            loc = temporal_proj_locations(ctx.spatial_shapes, ref, c_off, t_off, M)
+            att = temporal_proj_weights(c_logit, t_logit, M, len(ctx.spatial_shapes))
+        g_value, g_loc, g_att = msda_temporal_bwd(
+            value, ctx.spatial_shapes, loc.detach().contiguous(),
+            att.detach().contiguous(), grad_out.contiguous(), ctx.rule)
+        leaves = [t for t in (ref, c_off, t_off, c_logit, t_logit) if t.requires_grad]
+        grads = iter(torch.autograd.grad([loc, att], leaves, [g_loc, g_att],
+                                         allow_unused=True) if leaves else ())
+        g_proj = [next(grads) if n else None for n in needs]
+        return (g_value if ctx.needs_input_grad[0] else None, *g_proj, None, None)
+
+
+def msda_temporal_proj(value, spatial_shapes, ref, c_off, t_off, c_logit,
+                       t_logit, rule=("all",)):
+    """K1 (see module docstring). Returns (T, Q, M*D) in the value's dtype."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    if not value.is_cuda:
+        msda_temporal_proj.plain_calls += 1
+        return msda_temporal_proj_plain(value, spatial_shapes, ref, c_off,
+                                        t_off, c_logit, t_logit, rule)
+    return MSDATemporalProjFunction.apply(value, ref, c_off, t_off, c_logit,
+                                          t_logit, spatial_shapes, rule)
 
 
 msda_temporal_proj.launches = 0
@@ -248,26 +331,27 @@ msda_tap_window.launches = 0
 msda_tap_window.plain_calls = 0
 
 
-def msda_temporal(value, spatial_shapes, loc, att, rule=("all",)):
-    """K3 (see module docstring). Returns (T, Q, M*D) in the value's dtype."""
-    spatial_shapes = normalize_shapes(spatial_shapes)
-    if not value.is_cuda:
-        msda_temporal.plain_calls += 1
-        return ms_deform_attn_temporal_plain(value, spatial_shapes, loc, att,
-                                             rule)
-    T, S, M, D = value.shape
-    _, Q, _, Lf, P, _ = loc.shape
-    L = len(spatial_shapes)
-    W = rule_window(rule, T)
-    _check_geometry("msda_temporal", spatial_shapes, D, W)
-    _check_cuda("msda_temporal", value.device, (value,), value.dtype)
-    _check_cuda("msda_temporal", value.device, (loc, att), torch.float32)
+def _check_rows(name, value, spatial_shapes, loc, att, n_levels):
+    """Shapes and types shared by K3, K5, K6 and K7."""
+    B, S, M, D = value.shape
+    Q, P = loc.shape[1], loc.shape[4]
+    _check_cuda(name, value.device, (value,), value.dtype)
+    _check_cuda(name, value.device, (loc, att), torch.float32)
     if value.dtype not in _DTYPES:
-        raise ValueError(f"msda_temporal: unsupported dtype {value.dtype}")
-    if (S != sum(h * w for h, w in spatial_shapes) or Lf != (1 + W) * L
-            or tuple(loc.shape) != (T, Q, M, Lf, P, 2)
-            or tuple(att.shape) != (T, Q, M, Lf, P)):
-        raise ValueError("msda_temporal: inconsistent shapes")
+        raise ValueError(f"{name}: unsupported dtype {value.dtype}")
+    if (S != sum(h * w for h, w in spatial_shapes)
+            or tuple(loc.shape) != (B, Q, M, n_levels, P, 2)
+            or tuple(att.shape) != (B, Q, M, n_levels, P)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    return B, Q, S, M, D, P
+
+
+def _launch_temporal(value, spatial_shapes, loc, att, rule):
+    L = len(spatial_shapes)
+    W = rule_window(rule, value.shape[0])
+    _check_geometry("msda_temporal", spatial_shapes, value.shape[3], W)
+    T, Q, S, M, D, P = _check_rows("msda_temporal", value, spatial_shapes, loc,
+                                   att, (1 + W) * L)
     out = torch.empty((T, Q, M * D), dtype=value.dtype, device=value.device)
     fn = _function(f"msda_temporal_{_DTYPES[value.dtype]}", 4, 6)
     rule_all, offsets = _rule_args(rule)
@@ -279,5 +363,149 @@ def msda_temporal(value, spatial_shapes, loc, att, rule=("all",)):
     return out
 
 
+def _grad_buffers(value, loc, att):
+    """f32 gradient buffers of a backward kernel; the value's is zeroed for
+    the atomic adds."""
+    return (torch.zeros(value.shape, dtype=torch.float32, device=value.device),
+            torch.empty_like(loc), torch.empty_like(att))
+
+
+class MSDATemporalFunction(torch.autograd.Function):
+    """K3 forward, K5 backward."""
+
+    @staticmethod
+    def forward(ctx, value, loc, att, spatial_shapes, rule):
+        ctx.spatial_shapes, ctx.rule = spatial_shapes, rule
+        ctx.save_for_backward(value, loc, att)
+        return _launch_temporal(value, spatial_shapes, loc, att, rule)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, att = ctx.saved_tensors
+        grads = msda_temporal_bwd(value, ctx.spatial_shapes, loc, att,
+                                  grad_out.contiguous(), ctx.rule)
+        return (*(g if n else None for g, n in zip(grads, ctx.needs_input_grad)),
+                None, None)
+
+
+def msda_temporal(value, spatial_shapes, loc, att, rule=("all",)):
+    """K3 (see module docstring). Returns (T, Q, M*D) in the value's dtype."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    if not value.is_cuda:
+        msda_temporal.plain_calls += 1
+        return ms_deform_attn_temporal_plain(value, spatial_shapes, loc, att,
+                                             rule)
+    return MSDATemporalFunction.apply(value, loc, att, spatial_shapes, rule)
+
+
 msda_temporal.launches = 0
 msda_temporal.plain_calls = 0
+
+
+def msda_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule=("all",)):
+    """K5 (see module docstring). Returns (grad_value in the value's dtype,
+    grad_loc f32, grad_att f32)."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    if not value.is_cuda:
+        msda_temporal_bwd.plain_calls += 1
+        return msda_temporal_bwd_plain(value, spatial_shapes, loc, att, grad_out,
+                                       rule)
+    L = len(spatial_shapes)
+    W = rule_window(rule, value.shape[0])
+    _check_geometry("msda_temporal_bwd", spatial_shapes, value.shape[3], W)
+    T, Q, S, M, D, P = _check_rows("msda_temporal_bwd", value, spatial_shapes,
+                                   loc, att, (1 + W) * L)
+    _check_cuda("msda_temporal_bwd", value.device, (grad_out,), value.dtype)
+    if tuple(grad_out.shape) != (T, Q, M * D):
+        raise ValueError("msda_temporal_bwd: inconsistent shapes")
+    g_value, g_loc, g_att = _grad_buffers(value, loc, att)
+    fn = _function(f"msda_temporal_bwd_{_DTYPES[value.dtype]}", 7, 6)
+    rule_all, offsets = _rule_args(rule)
+    with torch.cuda.device(value.device):
+        _build.check(fn(value.data_ptr(), loc.data_ptr(), att.data_ptr(),
+                        grad_out.data_ptr(), g_value.data_ptr(), g_loc.data_ptr(),
+                        g_att.data_ptr(), T, Q, S, M, D, P, _levels(spatial_shapes),
+                        L, rule_all, offsets, W, _stream(value)),
+                     "msda_temporal_bwd")
+    msda_temporal_bwd.launches += 1
+    return g_value.to(value.dtype), g_loc, g_att
+
+
+msda_temporal_bwd.launches = 0
+msda_temporal_bwd.plain_calls = 0
+
+
+def _launch_rows(value, spatial_shapes, loc, att):
+    L = len(spatial_shapes)
+    if L > _MAX_LEVELS:
+        raise ValueError(f"msda_rows: at most {_MAX_LEVELS} levels")
+    B, Q, S, M, D, P = _check_rows("msda_rows", value, spatial_shapes, loc, att, L)
+    out = torch.empty((B, Q, M * D), dtype=value.dtype, device=value.device)
+    fn = _function(f"msda_rows_{_DTYPES[value.dtype]}", 4, 6)
+    with torch.cuda.device(value.device):
+        _build.check(fn(value.data_ptr(), loc.data_ptr(), att.data_ptr(),
+                        out.data_ptr(), B, Q, S, M, D, P, _levels(spatial_shapes),
+                        L, _stream(value)), "msda_rows")
+    msda_rows.launches += 1
+    return out
+
+
+class MSDARowsFunction(torch.autograd.Function):
+    """K6 forward, K7 backward."""
+
+    @staticmethod
+    def forward(ctx, value, loc, att, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, att)
+        return _launch_rows(value, spatial_shapes, loc, att)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, att = ctx.saved_tensors
+        grads = msda_rows_bwd(value, ctx.spatial_shapes, loc, att,
+                              grad_out.contiguous())
+        return (*(g if n else None for g, n in zip(grads, ctx.needs_input_grad)),
+                None)
+
+
+def msda_rows(value, spatial_shapes, loc, att):
+    """K6 (see module docstring). Returns (B, Q, M*D) in the value's dtype."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    if not value.is_cuda:
+        msda_rows.plain_calls += 1
+        return ms_deform_attn(value, spatial_shapes, loc, att)
+    return MSDARowsFunction.apply(value, loc, att, spatial_shapes)
+
+
+msda_rows.launches = 0
+msda_rows.plain_calls = 0
+
+
+def msda_rows_bwd(value, spatial_shapes, loc, att, grad_out):
+    """K7 (see module docstring). Returns (grad_value in the value's dtype,
+    grad_loc f32, grad_att f32)."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    if not value.is_cuda:
+        msda_rows_bwd.plain_calls += 1
+        return msda_rows_bwd_plain(value, spatial_shapes, loc, att, grad_out)
+    L = len(spatial_shapes)
+    if L > _MAX_LEVELS:
+        raise ValueError(f"msda_rows_bwd: at most {_MAX_LEVELS} levels")
+    B, Q, S, M, D, P = _check_rows("msda_rows_bwd", value, spatial_shapes, loc,
+                                   att, L)
+    _check_cuda("msda_rows_bwd", value.device, (grad_out,), value.dtype)
+    if tuple(grad_out.shape) != (B, Q, M * D):
+        raise ValueError("msda_rows_bwd: inconsistent shapes")
+    g_value, g_loc, g_att = _grad_buffers(value, loc, att)
+    fn = _function(f"msda_rows_bwd_{_DTYPES[value.dtype]}", 7, 6)
+    with torch.cuda.device(value.device):
+        _build.check(fn(value.data_ptr(), loc.data_ptr(), att.data_ptr(),
+                        grad_out.data_ptr(), g_value.data_ptr(), g_loc.data_ptr(),
+                        g_att.data_ptr(), B, Q, S, M, D, P, _levels(spatial_shapes),
+                        L, _stream(value)), "msda_rows_bwd")
+    msda_rows_bwd.launches += 1
+    return g_value.to(value.dtype), g_loc, g_att
+
+
+msda_rows_bwd.launches = 0
+msda_rows_bwd.plain_calls = 0

@@ -1,4 +1,5 @@
-"""Box conversion used on the eval path."""
+"""Box utilities (port of `devis_tpu/util/box_ops.py`): cxcywh/xyxy
+conversion and broadcasted IoU / generalized IoU on (..., 4) xyxy boxes."""
 from __future__ import annotations
 
 import torch
@@ -8,3 +9,33 @@ def box_cxcywh_to_xyxy(x: torch.Tensor) -> torch.Tensor:
     cx, cy, w, h = x.unbind(-1)
     return torch.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w,
                         cy + 0.5 * h], dim=-1)
+
+
+def box_xyxy_to_cxcywh(x: torch.Tensor) -> torch.Tensor:
+    x0, y0, x1, y1 = x.unbind(-1)
+    return torch.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0], dim=-1)
+
+
+def box_area(boxes: torch.Tensor) -> torch.Tensor:
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def multi_iou(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """IoU and union of broadcastable (..., 4) xyxy boxes → (...)."""
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(boxes1) + box_area(boxes2) - inter
+    return inter / union.clamp(min=1e-9), union
+
+
+def multi_giou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Generalized IoU of broadcastable (..., 4) xyxy boxes → (...). With
+    equal shapes it is the elementwise GIoU."""
+    iou, union = multi_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area.clamp(min=1e-9)

@@ -1,6 +1,13 @@
-"""Small tensor helpers and the device rule of the port's entry points."""
+"""Small tensor helpers, the device rule of the port's entry points, and the
+metric logger of the training loop."""
 from __future__ import annotations
 
+import datetime
+import time
+from collections import defaultdict, deque
+from typing import Iterable
+
+import numpy as np
 import torch
 
 
@@ -21,3 +28,82 @@ def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x1 = x.clamp(min=eps)
     x2 = (1 - x).clamp(min=eps)
     return torch.log(x1 / x2)
+
+
+class SmoothedValue:
+    """A series of values with its windowed median and average and its
+    global average."""
+
+    def __init__(self, window_size: int = 20,
+                 fmt: str = "{median:.4f} ({global_avg:.4f})"):
+        self.deque = deque(maxlen=window_size)
+        self.total = 0.0
+        self.count = 0
+        self.fmt = fmt
+
+    def update(self, value, n: int = 1):
+        self.deque.append(float(value))
+        self.count += n
+        self.total += float(value) * n
+
+    @property
+    def median(self):
+        return float(np.median(self.deque)) if self.deque else 0.0
+
+    @property
+    def avg(self):
+        return float(np.mean(self.deque)) if self.deque else 0.0
+
+    @property
+    def global_avg(self):
+        return self.total / max(self.count, 1)
+
+    def __str__(self):
+        return self.fmt.format(median=self.median, avg=self.avg,
+                               global_avg=self.global_avg)
+
+
+class MetricLogger:
+    """Console metric logger with ETA."""
+
+    def __init__(self, print_freq: int = 10, delimiter: str = "  ",
+                 debug: bool = False):
+        self.meters = defaultdict(SmoothedValue)
+        self.delimiter = delimiter
+        self.print_freq = print_freq
+        self.debug = debug
+
+    def update(self, **kwargs):
+        for k, v in kwargs.items():
+            self.meters[k].update(float(v))
+
+    def __str__(self):
+        return self.delimiter.join(f"{name}: {meter}"
+                                   for name, meter in self.meters.items())
+
+    def log_every(self, iterable: Iterable, header: str = ""):
+        """Yield the items, printing the meters every `print_freq` items; in
+        debug mode stop after two."""
+        start = time.time()
+        iter_time = SmoothedValue(fmt="{avg:.4f}")
+        try:
+            total = len(iterable)
+        except TypeError:
+            total = None
+        end = time.time()
+        for i, obj in enumerate(iterable):
+            yield obj
+            iter_time.update(time.time() - end)
+            if i % self.print_freq == 0 or (total and i == total - 1):
+                if total:
+                    eta = datetime.timedelta(
+                        seconds=int(iter_time.global_avg * (total - i)))
+                    print(f"{header} [{i}/{total}] eta: {eta} {self} "
+                          f"time: {iter_time}", flush=True)
+                else:
+                    print(f"{header} [{i}] {self} time: {iter_time}", flush=True)
+            end = time.time()
+            if self.debug and i >= 1:
+                break
+        total_time = datetime.timedelta(seconds=int(time.time() - start))
+        print(f"{header} Total time: {total_time}", flush=True)

@@ -3,7 +3,9 @@
 `from_jax_params` is the inverse of the torch→flax loader of the JAX package
 (`devis_tpu/util/checkpoint.py`), with its own copy of the name mapping: the
 port's parameters carry the reference torch `state_dict` names, so the same
-mapping serves reference checkpoints.
+mapping serves reference checkpoints. The layout changes are transposes, so
+the same function carries a JAX gradient tree (its leaves under `params/`)
+to the port's parameter names.
 """
 from __future__ import annotations
 
@@ -97,4 +99,4 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if set(slot) != set(_QKV):
             raise ValueError(f"{key}: needs q, k and v, got {sorted(slot)}")
         out[key] = np.concatenate([slot[p] for p in _QKV], axis=0)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}

@@ -13,7 +13,10 @@ FORBIDDEN = ("jax", "flax", "devis_tpu", "yaml", "cv2", "ml_dtypes")
 PORT_MODULES = ("devis_torch", "devis_torch.config", "devis_torch.models",
                 "devis_torch.inference", "devis_torch.util.weights",
                 "devis_torch.util.box_ops", "devis_torch.ops.ms_deform_attn_cuda",
-                "devis_torch.ops.deform_conv", "devis_torch.ops.interpolate")
+                "devis_torch.ops.deform_conv", "devis_torch.ops.interpolate",
+                "devis_torch.ops.hungarian", "devis_torch.models.matcher",
+                "devis_torch.models.criterion", "devis_torch.engine",
+                "devis_torch.util.misc", "devis_torch.util.synthetic")
 
 
 def test_import_leaves_jax_out_of_sys_modules():

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, at small
-and ragged shapes (D below 32, a partial q-block, Cout 1, window rules).
+and ragged shapes (D below 32 and above it, a partial q-block, Cout 1, window
+rules), forward and backward, and the autograd Functions around them.
 Skipped without a GPU; on one: `python -m pytest -m cuda tests/test_torch_kernels_cuda.py`."""
 import pytest
 import torch
@@ -7,7 +8,9 @@ import torch
 from devis_torch.ops import ms_deform_attn_cuda as K
 from devis_torch.ops.deform_conv import (modulated_deform_conv2d,
                                          modulated_deform_conv2d_plain)
-from devis_torch.ops.ms_deform_attn import ms_deform_attn_temporal_plain, rule_window
+from devis_torch.ops.ms_deform_attn import (ms_deform_attn,
+                                            ms_deform_attn_temporal_plain,
+                                            rule_window)
 
 pytestmark = pytest.mark.cuda
 SHAPES = ((12, 16), (6, 8), (3, 4))
@@ -86,3 +89,99 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     a = _proj(dev, ("all",))
     with pytest.raises(ValueError, match="float32"):
         K.msda_temporal_proj(a[0], SHAPES, a[1].double(), *a[2:], ("all",))
+
+
+# ---------------------------------------------------------------------------
+# backward kernels (K5, K7), the forward K6, and the autograd Functions.
+# The value gradient is summed with f32 atomics in an order that changes from
+# run to run; the f32 tolerance covers that, the bf16 one the output rounding.
+# ---------------------------------------------------------------------------
+
+def _rows_inputs(dev, dtype, B, Q, M, D, P, n_levels, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    value = torch.randn(B, S, M, D, generator=g, device=dev).to(dtype)
+    loc = torch.rand(B, Q, M, n_levels, P, 2, generator=g, device=dev) * 1.4 - 0.2
+    att = torch.rand(B, Q, M, n_levels, P, generator=g, device=dev)
+    grad = torch.randn(B, Q, M * D, generator=g, device=dev).to(dtype)
+    return value, loc, att, grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rule,D", [(("all",), 32), (("window", (-1, 1)), 16)])
+def test_temporal_bwd_kernel(dev, dtype, rule, D):
+    T = 3
+    Lf = (1 + rule_window(rule, T)) * L
+    value, loc, att, grad = _rows_inputs(dev, dtype, T, 7, 2, D, 2, Lf)
+    got = K.msda_temporal_bwd(value, SHAPES, loc, att, grad, rule)
+    want = K.msda_temporal_bwd_plain(value, SHAPES, loc, att, grad, rule)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D,Q", [(1, 1, 70), (1, 5, 33), (2, 32, 9), (1, 72, 40)])
+def test_rows_kernels(dev, dtype, M, D, Q):
+    value, loc, att, grad = _rows_inputs(dev, dtype, 2, Q, M, D, 2, L)
+    _close(K.msda_rows(value, SHAPES, loc, att),
+           ms_deform_attn(value, SHAPES, loc, att), dtype)
+    got = K.msda_rows_bwd(value, SHAPES, loc, att, grad)
+    want = K.msda_rows_bwd_plain(value, SHAPES, loc, att, grad)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        _close(g, w, dtype)
+
+
+def _grads(fn, tensors):
+    leaves = [t.detach().requires_grad_(t.is_floating_point()) for t in tensors]
+    out = fn(*leaves)
+    g = torch.Generator(device=out.device).manual_seed(9)
+    cot = torch.randn(out.shape, generator=g, device=out.device).to(out.dtype)
+    return torch.autograd.grad(out, [t for t in leaves if t.requires_grad], cot)
+
+
+@pytest.mark.parametrize("rule", [("all",), ("window", (-1, 1))])
+def test_temporal_proj_function_gives_gradients(dev, rule):
+    """K1 on inputs that require grad: gradients of the value, references,
+    offsets and logits, none of them zero, equal to the plain version's."""
+    a = _proj(dev, rule)
+    got = _grads(lambda *t: K.msda_temporal_proj(t[0], SHAPES, *t[1:], rule), a)
+    want = _grads(lambda *t: K.msda_temporal_proj_plain(t[0], SHAPES, *t[1:], rule), a)
+    assert len(got) == 6
+    for g, w in zip(got, want):
+        assert g.abs().max() > 0
+        _close(g, w, torch.float32)
+
+
+def test_temporal_function_gives_gradients(dev):
+    value, loc, att, _ = _rows_inputs(dev, torch.float32, 3, 7, 2, 32, 2, 3 * L)
+    got = _grads(lambda v, l, a: K.msda_temporal(v, SHAPES, l, a), (value, loc, att))
+    want = _grads(lambda v, l, a: ms_deform_attn_temporal_plain(v, SHAPES, l, a, ("all",)),
+                  (value, loc, att))
+    for g, w in zip(got, want):
+        assert g.abs().max() > 0
+        _close(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("cin,cout", [(40, 24), (16, 1)])
+def test_dcn_layer_gives_gradients(dev, cin, cout):
+    """The DCNv2 layer on inputs that require grad takes the K6/K7 route:
+    its output equals K4's and its seven gradients the plain version's."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    r = lambda *s, k=1.0: torch.randn(*s, generator=g, device=dev) * k  # noqa: E731
+    fan = (9 * cin) ** 0.5
+    a = [r(3, cin, 7, 9), r(3, 3, cin, 18, k=3.0 / fan), r(18), r(3, 3, cin, 9, k=1 / fan),
+         r(9), r(3, 3, cin, cout, k=1 / fan), r(cout)]
+    before = (K.msda_rows.launches, K.msda_rows_bwd.launches, modulated_deform_conv2d.launches)
+    got = _grads(lambda *t: modulated_deform_conv2d(*t), a)
+    assert (K.msda_rows.launches, K.msda_rows_bwd.launches,
+            modulated_deform_conv2d.launches) == (before[0] + 1, before[1] + 1, before[2])
+    want = _grads(lambda *t: modulated_deform_conv2d_plain(*t), a)
+    assert len(got) == 7
+    for gg, w in zip(got, want):
+        assert gg.abs().max() > 0
+        _close(gg, w, torch.float32)
+    with torch.no_grad():
+        k4 = modulated_deform_conv2d(*a)
+    leaves = [t.detach().requires_grad_(True) for t in a]
+    _close(modulated_deform_conv2d(*leaves), k4, torch.float32)
