@@ -36,9 +36,29 @@
    slots) with the kernels against one step with the plain versions on the
    card, from the same weights and batch with dropout off: every loss, and
    every parameter's gradient against that tensor's own norm.
-5. Prints the `kernels` JSON line (K1-K7), a clip-latency line, a
-   train-step line with peak memory, the card line, and last
-   {"ok": true, "device": {...}}.
+5. The COCO image model (Deformable-DETR R50 + mask head, 91 classes, bf16,
+   6+6 layers, 300 queries, top 50; one 800x1216 image on its 832x1344
+   canvas). K8 (projection-fused attention) at the encoder's and at decoder
+   layer 0's shape, K9 (backward from taps) at the decoder's shape, K10
+   (deformable conv from given fields) and K4 at the six mask-head layers at
+   batch 50, K6 and K7 at the decoder's shape (1 and 2 images) and K7 at the
+   encoder's (Q = S, 2 images), each against its plain version. The
+   inference path:
+   `build_model` and `evaluate_coco` over a seeded synthetic dataset, 1
+   warm-up image + 3 images: an image must launch K8 7, K6 5 and K4 6 times
+   and no plain path; one image also runs with the plain versions on the
+   card; K2 runs on encoder layer 0's inputs with an empty temporal part;
+   the public op `deform_conv2d` (K10) recomputes the six mask-head layers
+   of that image from their field convolutions and is held against K4; one
+   image is profiled. The train path: 1 warm-up + 3 steps of
+   `make_train_step` at 2 images, 25 target slots, mask loss on decoder
+   levels -1 and 2: a step must launch K8 7, K6 5 + 12, K9 5, K7 7 + 12
+   times; finite losses, every trained tensor moved, frozen ones not; one
+   step is profiled; then a 1+2-layer step (1 image, 10 slots) with the
+   kernels against the plain versions, per gradient tensor.
+6. Prints the `kernels` JSON line (K1-K10), a clip-latency line, a
+   train-step line with peak memory, the image model's two lines, the card
+   line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 `devis_torch` package beside it. Imports nothing of JAX.
@@ -68,6 +88,14 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 BF16_TC_FLOPS = 989e12         # bf16 tensor cores, dense
 GRAD_TOL, GRAD_FLOOR = 5e-2, 1e-5   # kernel path against plain path, per tensor
+# the COCO image model: one 800x1216 image on its 832x1344 canvas
+COCO_CLASSES, COCO_NQ, COCO_OUT = 91, 300, 50
+COCO_HW, COCO_CANVAS = (800, 1216), (832, 1344)
+COCO_SHAPES = ((104, 168), (52, 84), (26, 42), (13, 21))
+COCO_DCN_LAYERS = (("lay1", 264, 264, 26, 42), ("lay2", 264, 128, 26, 42),
+                   ("lay3", 136, 64, 52, 84), ("lay4", 72, 32, 104, 168),
+                   ("lay5", 32, 16, 208, 336), ("out_lay", 16, 1, 208, 336))
+COCO_BATCH, COCO_SLOTS, COCO_INSTANCES = 2, 25, 6
 
 
 def log(msg):
@@ -462,7 +490,9 @@ KERNEL_GROUPS = {"K1 msda_temporal_proj": "msda_temporal_proj_kernel",
                  "K3 msda_temporal": "msda_temporal_kernel",
                  "K7 msda_rows_bwd": "msda_rows_bwd_kernel",
                  "K6 msda_rows": "msda_rows_kernel",
-                 "K4 dcn_layer": "dcn_layer_kernel"}
+                 "K8 msda_proj": "msda_proj_kernel",
+                 "K9 msda_taps_bwd": "msda_taps_bwd_kernel",
+                 "K4 / K10 dcn_layer": "dcn_layer_kernel"}
 
 
 def profile_run(torch, what, fn):
@@ -539,7 +569,28 @@ class _Video:
         return self.frames[i * STRIDE:i * STRIDE + T]
 
 
-def build(torch, dev, enc_layers=6, dec_layers=6, mask_aux=(2,)):
+def move_taps_off_the_grid(torch, model, dev, box_noise):
+    """The reference init zeroes the offset and logit projections, which puts
+    every tap on the pixel grid; seeded noise moves them off it. It also
+    zeroes the box heads' last layer, which makes every box, and so every
+    later layer's reference, independent of the attention; a quarter of that
+    noise there (`box_noise`) lets the boxes tell a wrong kernel. The two
+    train-step compares leave it out: the L1 and GIoU losses turn on the
+    sign of differences of bf16 boxes, so one bf16 step between two correct
+    paths moved the box heads' gradients by up to 9e-2 of their norm."""
+    gen = torch.Generator().manual_seed(SEED + 1)
+    box_gen = torch.Generator().manual_seed(SEED + 8)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if any(s in name for s in ("sampling_offsets.weight", "attention_weights.weight",
+                                       "offset_conv.weight", "modulator_conv.weight")):
+                p.add_(torch.randn(p.shape, generator=gen).to(dev) / p[0].numel() ** 0.5)
+            elif box_noise and "bbox_embed" in name and name.endswith("layers.2.weight"):
+                p.add_(torch.randn(p.shape, generator=box_gen).to(dev)
+                       * 0.25 / p[0].numel() ** 0.5)
+
+
+def build(torch, dev, enc_layers=6, dec_layers=6, mask_aux=(2,), box_noise=True):
     """(cfg, model): DeVIS R50 at the YT-VIS-19 widths, bf16 compute, seeded
     random weights, in eval mode."""
     from devis_torch.config import get_cfg_defaults
@@ -561,15 +612,7 @@ def build(torch, dev, enc_layers=6, dec_layers=6, mask_aux=(2,)):
     cfg.freeze()
     t0 = time.perf_counter()
     model = build_model(NUM_CLASSES, cfg, seed=SEED)
-    # The reference init zeroes the offset and logit projections, which puts
-    # every tap on the pixel grid; seeded noise moves them off it.
-    gen = torch.Generator().manual_seed(SEED + 1)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if any(s in name for s in ("sampling_offsets.weight", "attention_weights.weight",
-                                       "offset_conv.weight", "modulator_conv.weight")):
-                fan = p[0].numel()
-                p.add_(torch.randn(p.shape, generator=gen).to(dev) / fan ** 0.5)
+    move_taps_off_the_grid(torch, model, dev, box_noise)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: DeVIS R50 YT-19, {enc_layers}+{dec_layers} layers, bf16, {n_params} "
         f"parameters, built in {time.perf_counter() - t0:.1f} s")
@@ -654,16 +697,21 @@ def main_path(torch, dev, card, cfg, model, results):
             (attn_mod.msda_temporal_proj, attn_mod.msda_temporal,
              seg_mod.modulated_deform_conv2d) = saved
     # bf16 end to end through 12 attention layers and 6 DCNv2 layers: the two
-    # paths round at different places, so probabilities and normalized boxes
-    # agree to 5e-2, and mask logits to 5e-2 of their largest magnitude
+    # paths round at different places, so probabilities and mask logits agree
+    # to 5e-2 of their largest magnitude (a seeded model's probabilities are
+    # small, so an absolute limit would say nothing) and normalized boxes to 2e-2
+    # (five bf16 steps just below 1)
     errs = {}
-    for k, f in (("pred_logits", torch.sigmoid), ("pred_boxes", lambda t: t)):
-        a, b = f(out_k[k].float()), f(out_p[k].float())
-        errs[k] = (a - b).abs().max().item()
+    prob_k, prob_p = (torch.sigmoid(o["pred_logits"].float()) for o in (out_k, out_p))
+    top = prob_p.max().item()
+    errs["pred_logits / max"] = ((prob_k - prob_p).abs().max() / top).item()
+    box_err = (out_k["pred_boxes"].float() - out_p["pred_boxes"].float()).abs().max().item()
     mk, mp = res_k["masks"].float(), res_p["masks"].float()
     errs["masks / max|masks|"] = ((mk - mp).abs().max() / mp.abs().max()).item()
-    log(f"  kernel path vs plain path on the card, max abs diff: {errs} (limit 5e-2)")
-    if not all(v <= 5e-2 for v in errs.values()):
+    log(f"  kernel path vs plain path on the card, max abs diff over the largest plain value "
+        f"({top:.4f} for probabilities): {errs} (limit 5e-2); pred_boxes {box_err:.3e} "
+        f"(limit 2e-2)")
+    if not all(v <= 5e-2 for v in errs.values()) or box_err > 2e-2:
         raise AssertionError("kernel path disagrees with the plain path")
     with torch.inference_mode():
         tap_window_phase(torch, model, x, pad, results)
@@ -683,6 +731,50 @@ def train_batch(n_slots):
     from devis_torch.util.synthetic import synthetic_clip_batch
     return synthetic_clip_batch(SEED + 2, T, (384, 640), VIDEO_HW, min(N_INSTANCES, n_slots),
                                 n_slots, NUM_CLASSES - 1)
+
+
+def check_parameters_moved(torch, model, labels, before):
+    """Every parameter holds a gradient, every trained tensor changed since
+    `before`, no frozen one did."""
+    no_grad, still, moved_frozen, n_moved = [], [], [], 0
+    for name, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[name])
+        if p.grad is None:                 # cut from the graph
+            no_grad.append(name)
+        if labels[name] == "frozen":
+            if not same:
+                moved_frozen.append(name)
+        elif not same:
+            n_moved += 1
+        # a trained tensor may stand still only where it is exactly zero and so
+        # is its gradient (AdamW then leaves it at zero)
+        elif p.grad is None or bool(p.grad.abs().max() > 0) or bool(p.detach().abs().max() > 0):
+            still.append(name)
+    n_trained = sum(v != "frozen" for v in labels.values())
+    log(f"  {n_moved} of {n_trained} trained tensors moved; {len(moved_frozen)} of "
+        f"{len(labels) - n_trained} frozen ones moved; {len(no_grad)} tensors without a gradient")
+    if no_grad or still or moved_frozen:
+        raise AssertionError(f"no gradient: {no_grad}; trained but unchanged: {still}; "
+                             f"frozen but moved: {moved_frozen}")
+
+
+def timed_steps(torch, step, state, batch, gen, n_steps):
+    """`n_steps` train steps, each timed to its synchronisation and held to
+    finite metrics. Returns (state, the steps' ms)."""
+    import numpy as np
+    step_ms = []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        m = {k: float(v) for k, v in metrics.items()}
+        log(f"  step {i}: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f} "
+            f"finite {m['finite']:.0f}  {step_ms[-1]:.3f} ms")
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad or m["finite"] != 1.0:
+            raise AssertionError(f"step {i}: non-finite {bad or 'loss'}")
+    return state, step_ms
 
 
 def train_path(torch, dev, card, cfg, model):
@@ -709,18 +801,8 @@ def train_path(torch, dev, card, cfg, model):
     ops = kernel_ops()
     for fn in ops:
         fn.launches = fn.plain_calls = 0
-    n_steps, step_ms = 3, []
-    for i in range(n_steps):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch, gen)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        m = {k: float(v) for k, v in metrics.items()}
-        log(f"  step {i}: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f} "
-            f"finite {m['finite']:.0f}  {step_ms[-1]:.3f} ms")
-        bad = [k for k, v in m.items() if not np.isfinite(v)]
-        if bad or m["finite"] != 1.0:
-            raise AssertionError(f"step {i}: non-finite {bad or 'loss'}")
+    n_steps = 3
+    state, step_ms = timed_steps(torch, step, state, batch, gen, n_steps)
     launches = {fn.__name__: fn.launches for fn in ops}
     plain = {fn.__name__: fn.plain_calls for fn in ops}
     log(f"  launches over {n_steps} steps: {launches}; plain calls: {plain}")
@@ -733,26 +815,7 @@ def train_path(torch, dev, card, cfg, model):
     if state.step != 1 + n_steps:
         raise AssertionError(f"{state.step} updates after {1 + n_steps} steps")
 
-    no_grad, still, moved_frozen, n_moved = [], [], [], 0
-    for name, p in model.named_parameters():
-        same = torch.equal(p.detach(), before[name])
-        if p.grad is None:                 # cut from the graph
-            no_grad.append(name)
-        if labels[name] == "frozen":
-            if not same:
-                moved_frozen.append(name)
-        elif not same:
-            n_moved += 1
-        # a trained tensor may stand still only where it is exactly zero and so
-        # is its gradient (AdamW then leaves it at zero)
-        elif p.grad is None or bool(p.grad.abs().max() > 0) or bool(p.detach().abs().max() > 0):
-            still.append(name)
-    n_trained = sum(v != "frozen" for v in labels.values())
-    log(f"  {n_moved} of {n_trained} trained tensors moved; {len(moved_frozen)} of "
-        f"{len(labels) - n_trained} frozen ones moved; {len(no_grad)} tensors without a gradient")
-    if no_grad or still or moved_frozen:
-        raise AssertionError(f"no gradient: {no_grad}; trained but unchanged: {still}; "
-                             f"frozen but moved: {moved_frozen}")
+    check_parameters_moved(torch, model, labels, before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     mean_ms = float(np.mean(step_ms))
     log(f"  train step {[round(v, 3) for v in step_ms]} ms, mean {mean_ms:.3f} ms; "
@@ -766,52 +829,8 @@ def train_path(torch, dev, card, cfg, model):
     return launches, mean_ms, peak
 
 
-def train_compare(torch, dev):
-    """One step with the kernels against one step with the plain versions on
-    the card: a model of 1 encoder and 2 decoder layers at full width with
-    the mask loss on both decoder levels (the plain versions keep every
-    gathered tap for their backward, about 30 GB an encoder layer), the same
-    weights and batch as the train path's (10 target slots, so the DCNv2
-    batch is 60), dropout off. Every loss, and every parameter's gradient
-    against that tensor's own norm."""
-    import copy
-
-    from devis_torch.engine import create_train_state, make_train_step
-    from devis_torch.models import attention as attn_mod
-    from devis_torch.models.layers import Dropout
-    from devis_torch.ops import deform_conv as dc_mod
-    from devis_torch.ops import ms_deform_attn_cuda as K
-
-    log("kernel path against plain path, one train step, 1+2 layers at full width")
-    cfg, model_k = build(torch, dev, 1, 2, mask_aux=(0,))
-    for mod in model_k.modules():
-        if isinstance(mod, Dropout):
-            mod.p = 0.0
-    model_p = copy.deepcopy(model_k)
-    batch = train_batch(N_SLOTS)
-    ops = kernel_ops()
-    out = []
-    for tag, model in (("kernels", model_k), ("plain", model_p)):
-        for fn in ops:
-            fn.launches = fn.plain_calls = 0
-        saved = (attn_mod.msda_temporal_proj, attn_mod.msda_temporal, dc_mod.msda_rows)
-        if tag == "plain":
-            attn_mod.msda_temporal_proj = K.msda_temporal_proj_plain
-            attn_mod.msda_temporal = K.ms_deform_attn_temporal_plain
-            dc_mod.msda_rows = K.ms_deform_attn
-        try:
-            state = create_train_state(cfg, model, steps_per_epoch=100)
-            _, metrics = make_train_step(model, cfg)(state, batch)
-        finally:
-            attn_mod.msda_temporal_proj, attn_mod.msda_temporal, dc_mod.msda_rows = saved
-        counts = {fn.__name__: fn.launches for fn in ops}
-        log(f"  {tag} step: launches {counts}")
-        n = sum(counts.values())
-        if (n == 0) != (tag == "plain") or any(fn.plain_calls for fn in ops):
-            raise AssertionError(f"{tag} step launched {n} kernels")
-        out.append(({k: float(v) for k, v in metrics.items()},
-                    {k: p.grad.float() for k, p in model.named_parameters()}))
-        torch.cuda.empty_cache()
+def report_step_difference(torch, out):
+    """`out`: ((metrics, gradients) of the kernel step, of the plain step)."""
     (mk, gk), (mp, gp) = out
     # bf16 end to end: the two paths round at different places. Every loss
     # and the gradient norm to 1e-2 of its value (or 1e-3 absolute). Each
@@ -846,6 +865,554 @@ def train_compare(torch, dev):
     if worst[0] > 1e-2 or bad or mk["finite"] != 1.0:
         raise AssertionError("kernel-path train step disagrees with the plain path: "
                              f"{[r[3] for r in bad]}")
+
+
+def compare_train_paths(torch, cfg, model_k, batch, ops, plain_names):
+    """One train step of `model_k` with the kernels and one of its copy with
+    the plain versions on the card (dropout off): `plain_names` maps a
+    kernel wrapper's name in `models.attention` or `ops.deform_conv` to its
+    plain version in `ops.ms_deform_attn_cuda`. Reports every loss and every
+    parameter's gradient against that tensor's own norm."""
+    import copy
+
+    from devis_torch.engine import create_train_state, make_train_step
+    from devis_torch.models import attention as attn_mod
+    from devis_torch.models.layers import Dropout
+    from devis_torch.ops import deform_conv as dc_mod
+    from devis_torch.ops import ms_deform_attn_cuda as K
+
+    for mod in model_k.modules():
+        if isinstance(mod, Dropout):
+            mod.p = 0.0
+    model_p = copy.deepcopy(model_k)
+    patches = [(dc_mod if name == "msda_rows" else attn_mod, name, getattr(K, plain))
+               for name, plain in plain_names.items()]
+    out = []
+    for tag, model in (("kernels", model_k), ("plain", model_p)):
+        for fn in ops:
+            fn.launches = fn.plain_calls = 0
+        saved = [getattr(mod, name) for mod, name, _ in patches]
+        if tag == "plain":
+            for mod, name, plain in patches:
+                setattr(mod, name, plain)
+        try:
+            state = create_train_state(cfg, model, steps_per_epoch=100)
+            _, metrics = make_train_step(model, cfg)(state, batch)
+        finally:
+            for (mod, name, _), fn in zip(patches, saved):
+                setattr(mod, name, fn)
+        counts = {fn.__name__: fn.launches for fn in ops}
+        log(f"  {tag} step: launches {counts}")
+        n = sum(counts.values())
+        if (n == 0) != (tag == "plain") or any(fn.plain_calls for fn in ops):
+            raise AssertionError(f"{tag} step launched {n} kernels")
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    {k: p.grad.float() for k, p in model.named_parameters()}))
+        torch.cuda.empty_cache()
+    report_step_difference(torch, out)
+
+
+def train_compare(torch, dev):
+    """The clip model: 1 encoder and 2 decoder layers at full width with the
+    mask loss on both decoder levels (the plain versions keep every gathered
+    tap for their backward, about 30 GB an encoder layer), the same batch as
+    the train path's (10 target slots, so the DCNv2 batch is 60)."""
+    log("kernel path against plain path, one train step, 1+2 layers at full width")
+    cfg, model = build(torch, dev, 1, 2, mask_aux=(0,), box_noise=False)
+    compare_train_paths(torch, cfg, model, train_batch(N_SLOTS), kernel_ops(),
+                        {"msda_temporal_proj": "msda_temporal_proj_plain",
+                         "msda_temporal": "ms_deform_attn_temporal_plain",
+                         "msda_rows": "ms_deform_attn"})
+
+
+# ---------------------------------------------------------------------------
+# the COCO image model
+# ---------------------------------------------------------------------------
+
+def coco_kernel_phases(torch, dev, gen, results):
+    """K8, K9 and K10, and K6, K7 and K4 again, at the image model's shapes
+    against their plain versions."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.deform_conv import (deform_conv2d, deform_conv2d_plain,
+                                             modulated_deform_conv2d,
+                                             modulated_deform_conv2d_plain)
+    from devis_torch.ops.ms_deform_attn import ms_deform_attn
+
+    L = len(COCO_SHAPES)
+    S = sum(h * w for h, w in COCO_SHAPES)
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0)
+    with torch.inference_mode():
+        for where, Q in (("encoder", S), ("decoder layer 0", COCO_NQ)):
+            log(f"K8 msda_proj ({where}), B=1 Q={Q} S={S} M={M} D={D} L={L} P={P}")
+            value = rnd(1, S, M, D)
+            ref = torch.rand(1, Q, L, 2, generator=gen, device=dev)
+            off = rnd(1, Q, M * L * P * 2, scale=3.0)        # pixels, off the grid
+            logit = rnd(1, Q, M * L * P)
+            a32 = (value, COCO_SHAPES, ref, off, logit)
+            a16 = (bf(value), COCO_SHAPES, ref, bf(off), bf(logit))
+            compare("f32 ", K.msda_proj(*a32), K.msda_proj_plain(*a32), 1e-4)
+            tot["err"] = max(tot["err"], compare("bf16", K.msda_proj(*a16),
+                                                 K.msda_proj_plain(*a16), 2e-2))
+            ms = cuda_time(lambda: K.msda_proj(*a16), 20)
+            plain_ms = cuda_time(lambda: K.msda_proj_plain(*a16), 3, 1)
+            loc = K.proj_locations(COCO_SHAPES, ref, a16[3], M)
+            rows = corner_stats(loc, COCO_SHAPES)[2]
+            nbytes = rows * D * 2 + ref.numel() * 4 + (off.numel() + logit.numel()) * 2 \
+                + Q * M * D * 2
+            flops = Q * M * L * P * (8 * D + 40)
+            log(f"    {where}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms by bytes, "
+                f"{flops / F32_FLOPS * 1e3:.5f} ms by operations")
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bytes"] += nbytes
+            tot["flops"] += flops
+            del value, ref, off, logit, a32, a16, loc
+    # one encoder plus one decoder-layer-0 launch: an image runs six and one
+    results["K8"] = dict(
+        name="msda_proj", route="cuda", source="devis_torch/csrc/ms_deform_attn_proj.cu",
+        replaces="devis_tpu/ops/ms_deform_attn_pallas.py:2210", max_abs_err=tot["err"],
+        ms=tot["ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"], flops=tot["flops"],
+        flop_rate=F32_FLOPS, library_ms=None)
+
+    B, Q = COCO_BATCH, COCO_NQ
+    log(f"K9 msda_taps_bwd (decoder), B={B} Q={Q} M={M} D={D} L={L}, {4 * P} entries a level")
+    value = rnd(B, S, M, D)
+    loc = torch.rand(B, Q, M, L, P, 2, generator=gen, device=dev) * 1.2 - 0.1
+    att = torch.softmax(rnd(B, Q, M, L * P), -1).reshape(B, Q, M, L, P)
+    grad = rnd(B, Q, M * D)
+    idx, wt = K.taps(COCO_SHAPES, loc, att)
+    for tag, v, g, tols in (("f32 ", value, grad, (1e-4, 1e-4)),
+                            ("bf16", bf(value), bf(grad), (1e-2, 1e-4))):
+        got = K.msda_taps_bwd(v, COCO_SHAPES, idx, wt, g)
+        want = K.msda_taps_bwd_plain(v.float(), COCO_SHAPES, idx, wt, g.float())
+        for part, gg, ww, tol in zip(("value", "wt"), got, want, tols):
+            e = compare(f"{tag} grad_{part}", gg, ww, tol)
+            if tag == "bf16" and part == "value":
+                err = e
+    v16, g16 = bf(value), bf(grad)
+    ms = cuda_time(lambda: K.msda_taps_bwd(v16, COCO_SHAPES, idx, wt, g16), 50)
+    plain_ms = cuda_time(lambda: K.msda_taps_bwd_plain(v16, COCO_SHAPES, idx, wt, g16), 3, 1)
+    live = int((wt != 0).sum())
+    rows = corner_stats(loc, COCO_SHAPES)[2]
+    results["K9"] = dict(
+        name="msda_taps_bwd", route="cuda", source="devis_torch/csrc/ms_deform_attn_taps.cu",
+        replaces="devis_tpu/ops/ms_deform_attn_pallas.py:443", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms,
+        bytes=rows * D * 2 + idx.numel() * 4 + 2 * wt.numel() * 4 + g16.numel() * 2
+        + v16.numel() * 2,
+        flops=idx.numel() * 2 * D + live * 2 * D, flop_rate=F32_FLOPS, library_ms=None,
+        atomic_bytes=live * D * 4)
+    del idx, wt, v16, g16
+
+    # K6 and K7 where the image model launches them: K6 in decoder layers 1-5
+    # (one image when serving, the batch when training), K7 as K8's backward
+    # in decoder layer 0 and in the six encoder layers (Q = S)
+    def rows_at(where, value, loc, att, grad, forward):
+        v16, g16 = bf(value), bf(grad)
+        times = {}
+        if forward:
+            with torch.no_grad():
+                compare(f"{where} K6 f32 ", K.msda_rows(value, COCO_SHAPES, loc, att),
+                        ms_deform_attn(value, COCO_SHAPES, loc, att), 1e-4)
+                compare(f"{where} K6 bf16", K.msda_rows(v16, COCO_SHAPES, loc, att),
+                        ms_deform_attn(v16, COCO_SHAPES, loc, att), 2e-2)
+                ms = cuda_time(lambda: K.msda_rows(v16, COCO_SHAPES, loc, att), 20)
+                plain_ms = cuda_time(lambda: ms_deform_attn(v16, COCO_SHAPES, loc, att), 3, 1)
+            taps, _, rows = corner_stats(loc, COCO_SHAPES)
+            nbytes = rows * D * 2 + (loc.numel() + att.numel()) * 4 + grad.numel() * 2
+            times["K6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(
+                nbytes / HBM_BYTES_PER_S, taps * 8 * D / F32_FLOPS) * 1e3)
+        a32 = (value, COCO_SHAPES, loc, att, grad)
+        for tag, args, ref_args, tols in (
+                ("f32 ", a32, a32, (1e-4, 1e-4, 1e-4)),
+                ("bf16", (v16, COCO_SHAPES, loc, att, g16),
+                 (v16.float(), COCO_SHAPES, loc, att, g16.float()), (1e-2, 1e-4, 1e-4))):
+            got = K.msda_rows_bwd(*args)
+            want = K.msda_rows_bwd_plain(*ref_args)
+            for part, g, wnt, tol in zip(("value", "loc", "att"), got, want, tols):
+                compare(f"{where} K7 {tag} grad_{part}", g, wnt, tol)
+            del got, want
+        ms = cuda_time(lambda: K.msda_rows_bwd(v16, COCO_SHAPES, loc, att, g16), 10)
+        plain_ms = cuda_time(lambda: K.msda_rows_bwd_plain(v16, COCO_SHAPES, loc, att, g16), 2, 1)
+        nbytes, flops, _ = backward_cost(loc, att, v16, COCO_SHAPES, None, D)
+        times["K7"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(
+            nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3)
+        for key, t in times.items():
+            log(f"    {where}: {key} {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
+                f"bound {t['bound_ms']:.5f} ms")
+            results[key].setdefault("coco_shapes", {})[where] = t
+        torch.cuda.empty_cache()
+
+    log(f"K6 msda_rows / K7 msda_rows_bwd at the image model's shapes, S={S} M={M} D={D} "
+        f"L={L} P={P}")
+    rows_at(f"decoder B=1 Q={Q}", value[:1], loc[:1], att[:1], grad[:1], forward=True)
+    rows_at(f"decoder B={B} Q={Q}", value, loc, att, grad, forward=True)
+    del loc, att, grad
+    loc = torch.rand(B, S, M, L, P, 2, generator=gen, device=dev) * 1.2 - 0.1
+    att = torch.softmax(rnd(B, S, M, L * P), -1).reshape(B, S, M, L, P)
+    rows_at(f"encoder B={B} Q={S}", value, loc, att, rnd(B, S, M * D), forward=False)
+    del value, loc, att
+
+    log(f"K10 deform_conv2d (and K4 on the same layers), B={COCO_OUT}, per mask-head layer")
+    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, k4=0.0)
+    with torch.inference_mode():
+        for name, cin, cout, h, w in COCO_DCN_LAYERS:
+            hw = h * w
+            fan = (9 * cin) ** 0.5
+            x = rnd(COCO_OUT, cin, h, w)
+            offset = rnd(COCO_OUT, 18, h, w, scale=2.0)     # pixels, some off the map
+            mask = torch.rand(COCO_OUT, 9, h, w, generator=gen, device=dev) * 2.0
+            weight, bias = rnd(3, 3, cin, cout, scale=1.0 / fan), rnd(cout)
+            a16 = (bf(x), bf(offset), bf(mask), bf(weight), bias)
+            if name in ("lay1", "lay5"):
+                compare(f"{name} f32 ", deform_conv2d(x, offset, mask, weight, bias),
+                        deform_conv2d_plain(x, offset, mask, weight)
+                        + bias[None, :, None, None], 1e-4)
+            plain16 = lambda: (deform_conv2d_plain(*a16[:4])  # noqa: E731
+                               + bias[None, :, None, None]).to(torch.bfloat16)
+            tot["err"] = max(tot["err"], compare(f"{name} bf16", deform_conv2d(*a16),
+                                                 plain16(), 2e-2))
+            ms = cuda_time(lambda: deform_conv2d(*a16), 5)
+            plain_ms = cuda_time(plain16, 2, 1)
+            k4 = [a16[0], bf(rnd(3, 3, cin, 18, scale=2.0 / fan)), rnd(18, scale=0.5),
+                  bf(rnd(3, 3, cin, 9, scale=1.0 / fan)), rnd(9), a16[3], bias]
+            if name in ("lay1", "lay5"):
+                k4_32 = [t.float() for t in k4]
+                compare(f"{name} K4 f32 ", modulated_deform_conv2d(*k4_32),
+                        modulated_deform_conv2d_plain(*k4_32), 1e-4)
+                compare(f"{name} K4 bf16", modulated_deform_conv2d(*k4),
+                        modulated_deform_conv2d_plain(*k4), 2e-2)
+                del k4_32
+            k4_ms = cuda_time(lambda: modulated_deform_conv2d(*k4), 5)
+            log(f"    {name} {cin}->{cout} at {h}x{w}: K10 {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+                f"K4 (fields computed) {k4_ms:.3f} ms")
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["k4"] += k4_ms
+            tot["bytes"] += (x.numel() + offset.numel() + mask.numel() + weight.numel()
+                             + COCO_OUT * cout * hw) * 2 + cout * 4
+            tot["flops"] += 2 * COCO_OUT * hw * 9 * (4 * cin + cin * cout)
+            del x, offset, mask, a16, k4
+            torch.cuda.empty_cache()
+    log(f"    six layers: K10 {tot['ms']:.3f} ms, K4 {tot['k4']:.3f} ms")
+    results["K10"] = dict(
+        name="deform_conv2d", route="cuda", source="devis_torch/csrc/deform_conv.cu",
+        replaces="devis_tpu/ops/deform_conv_banded.py:72", max_abs_err=tot["err"],
+        ms=tot["ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"], flops=tot["flops"],
+        flop_rate=BF16_TC_FLOPS, library_ms=None)
+    return tot["k4"]
+
+
+def build_coco(torch, dev, enc_layers=6, dec_layers=6, mask_aux=(2,), box_noise=True):
+    """(cfg, model): Deformable DETR R50 with the mask head at the settings
+    of configs/deformable_mask_head/deformable_mask_head_R_50.yaml for
+    `coco` (entered by hand: reading the file needs PyYAML), bf16 compute,
+    seeded random weights, in eval mode."""
+    from devis_torch.config import get_cfg_defaults
+    from devis_torch.models import build_model
+
+    cfg = get_cfg_defaults()
+    cfg.DATASETS.TYPE = "coco"
+    cfg.MODEL.MASK_ON = True
+    cfg.MODEL.SHIFT_CLASS_NEURON = True
+    cfg.MODEL.LOSS.SEGM_MASK_COEF = 8.0
+    cfg.MODEL.LOSS.SEGM_DICE_COEF = 8.0
+    cfg.MODEL.LOSS.MASK_AUX_LOSS = list(mask_aux)
+    cfg.MODEL.NUM_QUERIES = COCO_NQ
+    cfg.MODEL.TRANSFORMER.ENCODER_LAYERS = enc_layers
+    cfg.MODEL.TRANSFORMER.DECODER_LAYERS = dec_layers
+    cfg.SOLVER.FROZEN_PARAMS = ["class_embed"]
+    cfg.SOLVER.BASE_LR = 0.00002
+    cfg.SOLVER.LR_BACKBONE = 0.00001
+    cfg.SOLVER.BACKBONE_NAMES = ["backbone.0", "input_proj"]
+    cfg.SOLVER.LR_MASK_HEAD_MULT = 10
+    cfg.SOLVER.EPOCHS = 25
+    cfg.SOLVER.STEPS = [15]
+    cfg.TEST.NUM_OUT = COCO_OUT
+    cfg.TEST.EVAL_BATCH_SIZE = 1
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.TPU.MAX_INSTANCES = COCO_SLOTS
+    cfg.freeze()
+    t0 = time.perf_counter()
+    model = build_model(COCO_CLASSES, cfg, seed=SEED)
+    move_taps_off_the_grid(torch, model, dev, box_noise)
+    log(f"model: Deformable DETR R50 + mask head (COCO), {enc_layers}+{dec_layers} layers, bf16, "
+        f"{sum(p.numel() for p in model.parameters())} parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model
+
+
+def coco_ops():
+    """The wrappers the image model's paths may launch: K8, K6, K9, K7, K4, K10."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.deform_conv import deform_conv2d, modulated_deform_conv2d
+    return [K.msda_proj, K.msda_rows, K.msda_taps_bwd, K.msda_rows_bwd,
+            modulated_deform_conv2d, deform_conv2d]
+
+
+def zero_coco_counts(ops):
+    """Zeroes the wrappers' counts and the q-major op's plain calls (it
+    launches K6 and K9, which count for themselves)."""
+    from devis_torch.ops.ms_deform_attn_cuda import msda_taps
+    for fn in ops:
+        fn.launches = fn.plain_calls = 0
+    msda_taps.plain_calls = 0
+
+
+def check_coco_counts(ops, wants):
+    from devis_torch.ops.ms_deform_attn_cuda import msda_taps
+    check_counts(ops, wants)
+    if msda_taps.plain_calls:
+        raise AssertionError(f"msda_taps: {msda_taps.plain_calls} plain calls")
+
+
+class _Collect:
+    """Stands for the COCO evaluator: keeps every image's result and the
+    time it arrived."""
+
+    def __init__(self):
+        self.results, self.times = {}, []
+
+    def update(self, res):
+        self.results.update(res)
+        self.times.append(time.perf_counter())
+
+    def summarize(self):
+        return {"images": len(self.results)}
+
+
+def coco_infer_path(torch, dev, card, cfg, model, results):
+    import numpy as np
+
+    from devis_torch.inference import evaluate_coco, pack_mask_bits
+    from devis_torch.models import attention as attn_mod
+    from devis_torch.models import segmentation as seg_mod
+    from devis_torch.models.segmentation import ModulatedDeformableConv
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.deform_conv import deform_conv2d, modulated_deform_conv2d_plain
+    from devis_torch.ops.ms_deform_attn import ms_deform_attn
+    from devis_torch.util.synthetic import SyntheticImageDataset
+
+    log("COCO inference path: evaluate_coco, 1 warm-up image, then 3 images")
+    evaluate_coco(model, SyntheticImageDataset(SEED + 4, [COCO_HW]), cfg, _Collect(),
+                  verbose=False)                          # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    dataset = SyntheticImageDataset(SEED + 5, [COCO_HW] * 3)
+    ops = coco_ops()
+    zero_coco_counts(ops)
+    collect = _Collect()
+    t0 = time.perf_counter()
+    summary = evaluate_coco(model, dataset, cfg, collect, verbose=False)
+    lat = (np.diff([t0] + collect.times) * 1e3).tolist()
+    launches = {fn.__name__: fn.launches for fn in ops}
+    log(f"  launches over 3 images: {launches}; plain calls: "
+        f"{ {fn.__name__: fn.plain_calls for fn in ops} }")
+    n_enc, n_dec = cfg.MODEL.TRANSFORMER.ENCODER_LAYERS, cfg.MODEL.TRANSFORMER.DECODER_LAYERS
+    n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
+    check_coco_counts(ops, (3 * (n_enc + 1), 3 * (n_dec - 1), 0, 0, 3 * n_dcn, 0))
+    if summary != {"images": 3}:
+        raise AssertionError(f"evaluate_coco returned {summary}")
+    for image_id, r in sorted(collect.results.items()):
+        oh, ow = COCO_HW
+        if (r["scores"].shape != (COCO_OUT,) or r["boxes"].shape != (COCO_OUT, 4)
+                or len(r["masks"]) != COCO_OUT
+                or any(m.shape != COCO_HW or m.dtype != bool for m in r["masks"])):
+            raise AssertionError(f"image {image_id}: malformed result")
+        b = r["boxes"]
+        if not (np.isfinite(r["scores"]).all() and np.isfinite(b).all()
+                and ((r["scores"] >= 0) & (r["scores"] <= 1)).all()
+                and (np.diff(r["scores"]) <= 0).all()
+                and ((r["labels"] >= 1) & (r["labels"] <= COCO_CLASSES)).all()  # 91 logits, + 1
+                and (b >= 0).all() and (b[:, 0::2] <= ow).all() and (b[:, 1::2] <= oh).all()
+                and (b[:, 2:] >= b[:, :2]).all()):
+            raise AssertionError(f"image {image_id}: non-finite or out-of-range outputs")
+    image_ms = float(np.mean(lat))
+    log(f"  image latency {[round(v, 3) for v in lat]} ms (the first waits for its forward, "
+        f"each later one overlaps the next image's), mean {image_ms:.3f} ms = "
+        f"{1e3 / image_ms:.3f} images/s; mask pixels set: "
+        f"{np.mean([m.mean() for r in collect.results.values() for m in r['masks']]):.3f} ({card})")
+
+    # One image with the plain versions on the card, against the kernels.
+    sample = dataset[0]
+    x = torch.zeros((1,) + COCO_CANVAS + (3,), device=dev)
+    x[0, :COCO_HW[0], :COCO_HW[1]] = torch.from_numpy(sample["image"]).to(dev)
+    pad = torch.ones((1,) + COCO_CANVAS, dtype=torch.bool, device=dev)
+    pad[0, :COCO_HW[0], :COCO_HW[1]] = False
+    dcn_inputs = {}
+    hooks = [mod.register_forward_pre_hook(
+        lambda m, args, name=name: dcn_inputs.setdefault(name, args[0]))
+        for name, mod in model.mask_head.named_modules()
+        if isinstance(mod, ModulatedDeformableConv)]
+    enc0 = {}
+    hooks.append(model.def_detr.transformer.encoder.layers[0].self_attn
+                 .register_forward_pre_hook(lambda m, args: enc0.setdefault("a", args)))
+    with torch.inference_mode():
+        try:
+            out_k = model(x, pad)
+        finally:
+            for h in hooks:
+                h.remove()
+        saved = (attn_mod.msda_proj, attn_mod.msda_taps, seg_mod.modulated_deform_conv2d)
+        attn_mod.msda_proj = K.msda_proj_plain
+        attn_mod.msda_taps = ms_deform_attn
+        seg_mod.modulated_deform_conv2d = modulated_deform_conv2d_plain
+        try:
+            out_p = model(x, pad)
+        finally:
+            attn_mod.msda_proj, attn_mod.msda_taps, seg_mod.modulated_deform_conv2d = saved
+        # bf16 end to end through 12 attention layers and 6 DCNv2 layers: the
+        # two paths round at different places. Each limit is relative to the
+        # largest magnitude of what it compares (a seeded model's class
+        # probabilities are all below 0.1, so an absolute limit would say
+        # nothing): probabilities and top-k scores to 5e-2 of the largest
+        # probability, normalized boxes to 2e-2 (five bf16 steps just below 1),
+        # the mask logits of the (query, class) pairs in both top-k lists to
+        # 5e-2 of their largest magnitude; a packed mask bit may flip where
+        # the upsampled logit lies within that error of 0: at most 2 % of the
+        # bits; at most 5 of the 50 pairs may fall on the other side of the cut
+        errs = {}
+        prob_k, prob_p = (torch.sigmoid(o["pred_logits"].float()) for o in (out_k, out_p))
+        top = prob_p.max().item()
+        errs["pred_logits / max"] = ((prob_k - prob_p).abs().max() / top).item()
+        tk, tp = out_k["top_k"], out_p["top_k"]
+        errs["scores / max"] = ((tk["scores"] - tp["scores"]).abs().max() / top).item()
+        box_err = (out_k["pred_boxes"].float() - out_p["pred_boxes"].float()).abs().max().item()
+        # pair the two top-k lists by (query, class): near-equal scores may
+        # come out in another order or fall on the other side of the cut
+        n_cls = out_k["pred_logits"].shape[-1]
+        key_k = (tk["query_top_k_indexes"][0] * n_cls + tk["labels"][0]).tolist()
+        key_p = (tp["query_top_k_indexes"][0] * n_cls + tp["labels"][0]).tolist()
+        both = [k for k in key_k if k in key_p]
+        ik = torch.tensor([key_k.index(k) for k in both], device=dev)
+        ip = torch.tensor([key_p.index(k) for k in both], device=dev)
+        mk, mp = tk["masks"][0][ik].float(), tp["masks"][0][ip].float()
+        errs["masks / max|masks|"] = ((mk - mp).abs().max() / mp.abs().max()).item()
+        bits_k = pack_mask_bits(mk[None], COCO_CANVAS)
+        bits_p = pack_mask_bits(mp[None], COCO_CANVAS)
+        flipped = (bits_k ^ bits_p).cpu().numpy()
+        bit_share = float(np.unpackbits(flipped).mean())
+    log(f"  kernel path vs plain path on the card, max abs diff over the largest plain value "
+        f"({top:.4f} for probabilities): {errs} (limit 5e-2); pred_boxes {box_err:.3e} (limit "
+        f"2e-2); {len(both)} of {COCO_OUT} top-k (query, class) pairs are in both lists (limit "
+        f"{COCO_OUT - 5}); packed mask bits that differ: {bit_share:.5f} (limit 2e-2)")
+    if (not all(v <= 5e-2 for v in errs.values()) or box_err > 2e-2 or bit_share > 2e-2
+            or len(both) < COCO_OUT - 5):
+        raise AssertionError("kernel path disagrees with the plain path")
+
+    # K2 with an empty temporal part: the window the JAX `_fwd_call_proj`
+    # computes for the encoder's first layer, on that layer's real inputs
+    with torch.inference_mode():
+        attn = model.def_detr.transformer.encoder.layers[0].self_attn
+        query, ref, _, shapes = enc0["a"][:4]
+        ref = ref.float().contiguous()
+        c_off = attn.sampling_offsets(query).contiguous()
+        t_off = c_off.new_zeros(c_off.shape[:2] + (0,))
+        got = K.msda_tap_window(shapes, ref, c_off, t_off, M)
+        want = K.msda_tap_window_plain(shapes, ref, c_off, t_off, M)
+        ms = cuda_time(lambda: K.msda_tap_window(shapes, ref, c_off, t_off, M), 20)
+    log(f"K2 msda_tap_window at F = 1 on COCO encoder layer 0's inputs (Q={ref.shape[1]}, "
+        f"{tuple(got.shape)} windows): equal {bool(torch.equal(got, want))}, live share "
+        f"{(want[..., 1] >= 0).float().mean().item():.3f}, {ms:.4f} ms")
+    if not torch.equal(got, want):
+        raise AssertionError("K2 windows at F = 1 differ from the plain version")
+
+    # K10's path: the public op on given fields recomputes the image's six
+    # mask-head layers (fields by cuDNN convolutions) and is held against K4
+    log("K10 path: deform_conv2d from given fields on the image's six mask-head layers, vs K4")
+    deform_conv2d.launches = deform_conv2d.plain_calls = 0
+    with torch.inference_mode():
+        F = torch.nn.functional
+        for name, mod in model.mask_head.named_modules():
+            if not isinstance(mod, ModulatedDeformableConv):
+                continue
+            xin = dcn_inputs[name]
+            dt = xin.dtype
+            offset = F.conv2d(xin, mod.offset_conv.weight.to(dt), mod.offset_conv.bias.to(dt),
+                              padding=mod.padding)
+            mask = 2.0 * torch.sigmoid(F.conv2d(xin, mod.modulator_conv.weight.to(dt),
+                                                mod.modulator_conv.bias.to(dt),
+                                                padding=mod.padding))
+            got = deform_conv2d(xin, offset, mask,
+                                mod.regular_conv.weight.permute(2, 3, 1, 0).to(dt).contiguous(),
+                                mod.regular_conv.bias, mod.padding)
+            # bf16: the fields are rounded to bf16 here and kept in f32 by K4
+            compare(f"{name} {tuple(xin.shape)}", got, mod(xin), 3e-2)
+    k10_launches = deform_conv2d.launches
+    if k10_launches != n_dcn or deform_conv2d.plain_calls:
+        raise AssertionError(f"K10 launched {k10_launches} times")
+    profile_run(torch, "COCO image", lambda: evaluate_coco(
+        model, SyntheticImageDataset(SEED + 4, [COCO_HW]), cfg, _Collect(), verbose=False))
+    return launches, k10_launches, image_ms
+
+
+def coco_train_batch(batch, n_slots, n_instances):
+    from devis_torch.util.synthetic import synthetic_image_batch
+    return synthetic_image_batch(SEED + 6, COCO_CANVAS, COCO_HW, n_instances, n_slots,
+                                 COCO_CLASSES - 1, batch=batch)
+
+
+def coco_train_path(torch, dev, card, cfg, model):
+    """1 warm-up and 3 timed steps of the image model through
+    `make_train_step` at full width and depth."""
+    import numpy as np
+
+    from devis_torch.engine import create_train_state, make_train_step, param_labels
+    from devis_torch.models.segmentation import ModulatedDeformableConv
+
+    log(f"COCO train path: make_train_step, {COCO_BATCH} images a step, {COCO_INSTANCES} "
+        f"instances in {COCO_SLOTS} slots each, dropout {cfg.MODEL.DROPOUT}")
+    state = create_train_state(cfg, model, steps_per_epoch=100)
+    step = make_train_step(model, cfg)
+    batch = coco_train_batch(COCO_BATCH, COCO_SLOTS, COCO_INSTANCES)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    labels = param_labels(model, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(state, batch, gen)               # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ops = coco_ops()
+    zero_coco_counts(ops)
+    n_steps = 3
+    state, step_ms = timed_steps(torch, step, state, batch, gen, n_steps)
+    launches = {fn.__name__: fn.launches for fn in ops}
+    log(f"  launches over {n_steps} steps: {launches}; plain calls: "
+        f"{ {fn.__name__: fn.plain_calls for fn in ops} }")
+    n_enc, n_dec = cfg.MODEL.TRANSFORMER.ENCODER_LAYERS, cfg.MODEL.TRANSFORMER.DECODER_LAYERS
+    n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
+    n_mask = 1 + len(cfg.MODEL.LOSS.MASK_AUX_LOSS)
+    # K8: encoder layers and decoder layer 0; K6: the other decoder layers and
+    # the DCNv2 layers of each mask level; K9 backs the decoder's K6, K7 backs
+    # K8 and the DCNv2 layers; K4 and K10 have no gradient and never run
+    check_coco_counts(ops, [n_steps * c for c in (
+        n_enc + 1, n_dec - 1 + n_dcn * n_mask, n_dec - 1, n_enc + 1 + n_dcn * n_mask, 0, 0)])
+    if state.step != 1 + n_steps:
+        raise AssertionError(f"{state.step} updates after {1 + n_steps} steps")
+    check_parameters_moved(torch, model, labels, before)
+    if labels["def_detr.class_embed.0.weight"] != "frozen":
+        raise AssertionError("SOLVER.FROZEN_PARAMS did not freeze class_embed")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mean_ms = float(np.mean(step_ms))
+    log(f"  COCO train step {[round(v, 3) for v in step_ms]} ms, mean {mean_ms:.3f} ms; "
+        f"peak memory {peak:.3f} GiB ({card})")
+    profile_run(torch, "COCO train step", lambda: step(state, batch, gen))
+    return launches, mean_ms, peak
+
+
+def coco_train_compare(torch, dev):
+    """The image model: 1 encoder and 2 decoder layers at full width, the
+    mask loss on both decoder levels, 1 image with 10 target slots (the plain
+    versions keep every gathered tap for their backward)."""
+    log("COCO kernel path against plain path, one train step, 1+2 layers at full width")
+    cfg, model = build_coco(torch, dev, 1, 2, mask_aux=(0,), box_noise=False)
+    compare_train_paths(torch, cfg, model, coco_train_batch(1, 10, 4), coco_ops(),
+                        {"msda_proj": "msda_proj_plain", "msda_taps": "ms_deform_attn",
+                         "msda_rows": "ms_deform_attn"})
 
 
 def main() -> int:
@@ -884,6 +1451,7 @@ def main() -> int:
         dcn_phase(torch, dev, gen, results)
     temporal_bwd_phase(torch, dev, gen, results)
     rows_phase(torch, dev, gen, results)
+    coco_kernel_phases(torch, dev, gen, results)
     torch.cuda.empty_cache()
     cfg, model = build(torch, dev)
     launches, clip_ms = main_path(torch, dev, card, cfg, model, results)
@@ -891,15 +1459,27 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     train_compare(torch, dev)
+    torch.cuda.empty_cache()
+    coco_cfg, coco_model = build_coco(torch, dev)
+    coco_launches, k10_launches, image_ms = coco_infer_path(torch, dev, card, coco_cfg,
+                                                            coco_model, results)
+    coco_train_launches, coco_step_ms, coco_peak_gib = coco_train_path(
+        torch, dev, card, coco_cfg, coco_model)
+    del coco_model
+    torch.cuda.empty_cache()
+    coco_train_compare(torch, dev)
 
-    # K1-K4: launches of the inference path's 3 clips; K5-K7: of the train
-    # path's 3 steps (which also launched K1 and K3: `train_launches`)
+    # K1-K4: launches of the clip inference path's 3 clips; K5-K7: of the clip
+    # train path's 3 steps (which also launched K1 and K3: `train_launches`);
+    # K8: of the COCO inference path's 3 images; K9: of the COCO train path's
+    # 3 steps; K10: of the public op's path over one image's six layers
     counts = {"K1": launches["msda_temporal_proj"], "K2": launches["msda_tap_window"],
               "K3": launches["msda_temporal"], "K4": launches["modulated_deform_conv2d"],
               "K5": train_launches["msda_temporal_bwd"], "K6": train_launches["msda_rows"],
-              "K7": train_launches["msda_rows_bwd"]}
+              "K7": train_launches["msda_rows_bwd"], "K8": coco_launches["msda_proj"],
+              "K9": coco_train_launches["msda_taps_bwd"], "K10": k10_launches}
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10"):
         r = results[key]
         bound_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         bound_ops = r["flops"] / r["flop_rate"] * 1e3
@@ -910,11 +1490,17 @@ def main() -> int:
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": r["library_ms"],
-            "train_launches": train_launches[r["name"]],
-            **({"atomic_bytes": r["atomic_bytes"]} if "atomic_bytes" in r else {})})
+            "train_launches": train_launches.get(r["name"], 0),
+            "coco_image_launches": coco_launches.get(r["name"], 0),
+            "coco_train_launches": coco_train_launches.get(r["name"], 0),
+            **{k: r[k] for k in ("atomic_bytes", "coco_shapes") if k in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"clip_ms": clip_ms, "fps": STRIDE / clip_ms * 1e3, "card": card}))
     print(json.dumps({"train_step_ms": step_ms, "train_peak_gib": peak_gib, "card": card}))
+    print(json.dumps({"coco_image_ms": image_ms, "coco_images_per_s": 1e3 / image_ms,
+                      "card": card}))
+    print(json.dumps({"coco_train_step_ms": coco_step_ms, "coco_train_peak_gib": coco_peak_gib,
+                      "coco_batch": COCO_BATCH, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

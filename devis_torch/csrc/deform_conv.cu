@@ -1,4 +1,5 @@
-// Fused modulated deformable convolution (DCNv2) layer for Hopper (sm_90a).
+// Modulated deformable convolution (DCNv2) for Hopper (sm_90a): the fused
+// layer and the convolution from given fields, one kernel template.
 //
 // K4 dcn_layer <- devis_tpu/ops/deform_conv_banded.py:_banded_infield_kernel
 // (with its inner loop _premix_tent_combine). One kernel computes the whole
@@ -8,7 +9,12 @@
 //   out(p) = bias + sum_k mod_k(p) * W_k^T bilinear(x, p + k - pad + offset_k(p))
 // with zero padding outside the image.
 //
-// It is EXACT DCNv2 at any offsets: every bilinear tap is gathered where it
+// K10 deform_conv2d <- deform_conv_banded.py:_banded_kernel. The same kernel
+// with GIVEN_FIELDS: the offset field (B, 2KK, H, W) and the modulation field
+// (B, KK, H, W) are read from memory instead of computed, and the modulation
+// is used as it is (no sigmoid). Sampling and mixing are the shared code.
+//
+// Both are EXACT DCNv2 at any offsets: every bilinear tap is gathered where it
 // lands. The TPU kernel is inexact by design, dropping taps outside a rebased
 // candidate band (deform_conv_banded.py:42-48), because the TPU has no fast
 // gather; on this card the gather is direct, so no band exists.
@@ -43,9 +49,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-// x (B, Cin, H, W); w_off (K, K, Cin, 2KK); w_mod (K, K, Cin, KK);
-// weight (K, K, Cin, Cout); biases f32; out (B, Cout, H, W).
-template <typename scalar_t>
+// x (B, Cin, H, W); weight (K, K, Cin, Cout); biases f32; out (B, Cout, H, W).
+// K4 (GIVEN_FIELDS false): w_off (K, K, Cin, 2KK) and w_mod (K, K, Cin, KK)
+// are the field convolutions' weights, b_off and b_mod their biases.
+// K10 (GIVEN_FIELDS true): w_off is the offset field (B, 2KK, H, W), w_mod
+// the modulation field (B, KK, H, W); b_off and b_mod are not read.
+template <typename scalar_t, bool GIVEN_FIELDS>
 __global__ void __launch_bounds__(THREADS)
 dcn_layer_kernel(const scalar_t* __restrict__ x, const scalar_t* __restrict__ w_off,
                  const float* __restrict__ b_off, const scalar_t* __restrict__ w_mod,
@@ -65,13 +74,18 @@ dcn_layer_kernel(const scalar_t* __restrict__ x, const scalar_t* __restrict__ w_
   float* acc = S + (size_t)Cin * NP;             // (Cout, NP)
   const scalar_t* xb = x + (size_t)b * Cin * HW;
 
-  // 1. field convs. A warp shares one field channel (NP == 32), so its
-  //    weight loads are uniform and its x loads are 32 neighbouring pixels.
+  // 1. the fields: read (K10) or convolved (K4). A warp shares one field
+  //    channel (NP == 32), so its weight loads are uniform and its x or field
+  //    loads are 32 neighbouring pixels.
   for (int idx = threadIdx.x; idx < 3 * KK * NP; idx += THREADS) {
     const int p = idx % NP, ch = idx / NP;
     const int pix = p0 + p;
     float v = 0.f;
-    if (pix < HW) {
+    if (GIVEN_FIELDS) {
+      if (pix < HW)
+        v = ch < 2 * KK ? to_f(w_off[((size_t)b * 2 * KK + ch) * HW + pix])
+                        : to_f(w_mod[((size_t)b * KK + (ch - 2 * KK)) * HW + pix]);
+    } else if (pix < HW) {
       const int py = pix / W, px = pix % W;
       const bool is_off = ch < 2 * KK;
       const scalar_t* wt = is_off ? w_off + ch : w_mod + (ch - 2 * KK);
@@ -161,16 +175,16 @@ static size_t smem_bytes(int Cin, int Cout, int K) {
   return (size_t)(3 * K * K * NP + 8 * NP + (size_t)Cin * NP + (size_t)Cout * NP) * 4;
 }
 
-template <typename scalar_t>
+template <typename scalar_t, bool GIVEN_FIELDS>
 static int launch_dcn(void* x, void* w_off, void* b_off, void* w_mod, void* b_mod, void* weight,
                       void* bias, void* out, int B, int Cin, int H, int W, int Cout, int K,
                       int pad, void* stream) {
   const size_t smem = smem_bytes(Cin, Cout, K);
-  cudaError_t err = cudaFuncSetAttribute(dcn_layer_kernel<scalar_t>,
+  cudaError_t err = cudaFuncSetAttribute(dcn_layer_kernel<scalar_t, GIVEN_FIELDS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = B * ((H * W + NP - 1) / NP);
-  dcn_layer_kernel<scalar_t><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  dcn_layer_kernel<scalar_t, GIVEN_FIELDS><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       (const scalar_t*)x, (const scalar_t*)w_off, (const float*)b_off, (const scalar_t*)w_mod,
       (const float*)b_mod, (const scalar_t*)weight, (const float*)bias, (scalar_t*)out, Cin, H,
       W, Cout, K, pad);
@@ -186,15 +200,28 @@ long dcn_layer_smem_bytes(int Cin, int Cout, int K) { return (long)smem_bytes(Ci
 int dcn_layer_f32(void* x, void* w_off, void* b_off, void* w_mod, void* b_mod, void* weight,
                   void* bias, void* out, int B, int Cin, int H, int W, int Cout, int K, int pad,
                   void* stream) {
-  return launch_dcn<float>(x, w_off, b_off, w_mod, b_mod, weight, bias, out, B, Cin, H, W, Cout,
+  return launch_dcn<float, false>(x, w_off, b_off, w_mod, b_mod, weight, bias, out, B, Cin, H, W, Cout,
                            K, pad, stream);
 }
 
 int dcn_layer_bf16(void* x, void* w_off, void* b_off, void* w_mod, void* b_mod, void* weight,
                    void* bias, void* out, int B, int Cin, int H, int W, int Cout, int K, int pad,
                    void* stream) {
-  return launch_dcn<__nv_bfloat16>(x, w_off, b_off, w_mod, b_mod, weight, bias, out, B, Cin, H,
+  return launch_dcn<__nv_bfloat16, false>(x, w_off, b_off, w_mod, b_mod, weight, bias, out, B, Cin, H,
                                    W, Cout, K, pad, stream);
+}
+
+// K10: x, the offset field, the modulation field, weight, bias -> out.
+int deform_conv2d_f32(void* x, void* offset, void* mask, void* weight, void* bias, void* out,
+                      int B, int Cin, int H, int W, int Cout, int K, int pad, void* stream) {
+  return launch_dcn<float, true>(x, offset, nullptr, mask, nullptr, weight, bias, out, B, Cin, H,
+                                 W, Cout, K, pad, stream);
+}
+
+int deform_conv2d_bf16(void* x, void* offset, void* mask, void* weight, void* bias, void* out,
+                       int B, int Cin, int H, int W, int Cout, int K, int pad, void* stream) {
+  return launch_dcn<__nv_bfloat16, true>(x, offset, nullptr, mask, nullptr, weight, bias, out, B,
+                                         Cin, H, W, Cout, K, pad, stream);
 }
 
 }  // extern "C"

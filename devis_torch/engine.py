@@ -1,5 +1,5 @@
-"""Training engine (port of the clip half of `devis_tpu/engine.py`):
-parameter groups, optimizer, the train step and the host epoch loop.
+"""Training engine (port of `devis_tpu/engine.py`): parameter groups,
+optimizer, the train step for clips and for images, and the host epoch loop.
 
   * AdamW with the reference's five learning-rate groups and a MultiStepLR
     schedule per group, evaluated at the global step.
@@ -10,10 +10,11 @@ parameter groups, optimizer, the train step and the host epoch loop.
     `grad_norm` in the metrics is that norm.
   * A non-finite loss skips the update and reports ``finite = 0``;
     `train_one_epoch` raises on it.
-  * A batch is B clips on one device: the step loops over them, shares one
-    `num_boxes` normaliser (their mean target count) and averages their
-    losses, as the JAX package's vmap over its clip axis does. Several
-    devices (DDP) are a later slice.
+  * A clip batch is B clips on one device: the step loops over them, shares
+    one `num_boxes` normaliser (their mean target count) and averages their
+    losses, as the JAX package's vmap over its clip axis does. An image batch
+    is B images in one batched forward and one criterion. Several devices
+    (DDP) come later.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import torch.nn as nn
 
 from .models import matcher_cfg_from
 from .models.criterion import (build_weight_dict, clip_criterion,
-                               reduce_num_boxes, weighted_total)
+                               image_criterion, reduce_num_boxes,
+                               weighted_total)
 from .models.layers import set_dropout_generator
 from .util.misc import MetricLogger
 
@@ -158,28 +160,60 @@ def _to_device(tree, device):
 def make_train_step(model: nn.Module, cfg) -> Callable:
     """Returns `step(state, batch, generator=None) -> (state, metrics)`.
 
-    batch: images (B, T, H, W, 3), pad_mask (B, T, H, W), targets {labels
-    (B, N), boxes (B, N, T, 4), valid (B, N, T), exists (B, N), masks
-    (B, N, T, h, w)}, numpy arrays or tensors; they are moved to the model's
-    device. `generator` (on that device) feeds the dropout masks. The model
-    is left in training mode. metrics: 0-d tensors `loss`, `grad_norm`,
-    `finite` and every loss of the criterion."""
-    if cfg.DATASETS.TYPE != "vis":
-        raise NotImplementedError("the image train step belongs to the COCO slice")
+    batch (clips): images (B, T, H, W, 3), pad_mask (B, T, H, W), targets
+    {labels (B, N), boxes (B, N, T, 4), valid (B, N, T), exists (B, N), masks
+    (B, N, T, h, w)}; batch (images): images (B, H, W, 3), pad_mask
+    (B, H, W), targets {labels (B, N), boxes (B, N, 4), valid (B, N), masks
+    (B, N, h, w)}; numpy arrays or tensors, moved to the model's device.
+    `generator` (on that device) feeds the dropout masks. The model is left
+    in training mode. metrics: 0-d tensors `loss`, `grad_norm`, `finite` and
+    every loss of the criterion."""
+    is_vis = cfg.DATASETS.TYPE == "vis"
+    if not is_vis and cfg.DATASETS.TYPE != "coco":
+        raise NotImplementedError(f"no train step for {cfg.DATASETS.TYPE!r}: "
+                                  "panoptic training is a ROADMAP item")
     mask_on = bool(cfg.MODEL.MASK_ON)
     weight_dict = build_weight_dict(cfg)
     T = cfg.MODEL.DEVIS.NUM_FRAMES
     focal_alpha = cfg.MODEL.LOSS.FOCAL_ALPHA
-    mcfg = matcher_cfg_from(cfg)
+    mcfg = matcher_cfg_from(cfg, clip=is_vis)
 
-    def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
-        device = next(model.parameters()).device
-        batch = _to_device(batch, device)
-        targets = batch["targets"]
-        B = batch["images"].shape[0]
+    def finish(state, total, losses):
+        ok = torch.isfinite(total)
+        if bool(ok):                      # waits for the device
+            grad_norm = state.apply_gradients()
+        else:
+            grad_norm = global_norm(model.parameters())
+        return state, {"loss": total, "grad_norm": grad_norm,
+                       "finite": ok.float(), **losses}
+
+    def prepare(batch, generator):
+        batch = _to_device(batch, next(model.parameters()).device)
         model.train()
         set_dropout_generator(model, generator)
         model.zero_grad(set_to_none=True)
+        return batch
+
+    def image_step(state: TrainState, batch,
+                   generator: Optional[torch.Generator] = None):
+        batch = prepare(batch, generator)
+        targets = batch["targets"]
+        if mask_on:
+            out = model(batch["images"], batch["pad_mask"], targets=targets,
+                        train=True)
+        else:                             # the detector alone is matched by the criterion
+            out, _ = model(batch["images"], batch["pad_mask"])
+        losses = image_criterion(out, targets, mcfg, focal_alpha, mask_on=mask_on)
+        total = weighted_total(losses, weight_dict)
+        total.backward()
+        return finish(state, total.detach(),
+                      {k: v.detach() for k, v in losses.items()})
+
+    def clip_step(state: TrainState, batch,
+                  generator: Optional[torch.Generator] = None):
+        batch = prepare(batch, generator)
+        targets = batch["targets"]
+        B = batch["images"].shape[0]
         num_boxes = reduce_num_boxes([targets["exists"][b].sum() * T for b in range(B)])
         losses: Dict[str, torch.Tensor] = {}
         total = 0.0
@@ -194,16 +228,9 @@ def make_train_step(model: nn.Module, cfg) -> Callable:
             total = total + clip_total.detach()
             for k, v in clip.items():
                 losses[k] = losses.get(k, 0.0) + v.detach() / B
-        ok = torch.isfinite(total)
-        if bool(ok):                      # waits for the device
-            grad_norm = state.apply_gradients()
-        else:
-            grad_norm = global_norm(model.parameters())
-        metrics = {"loss": total, "grad_norm": grad_norm, "finite": ok.float(),
-                   **losses}
-        return state, metrics
+        return finish(state, total, losses)
 
-    return step
+    return clip_step if is_vis else image_step
 
 
 def train_one_epoch(step_fn, state: TrainState, data_loader, generator=None,

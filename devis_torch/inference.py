@@ -1,5 +1,6 @@
-"""VIS clip inference: the device step of the clip-stitching tracker (port of
-`VISInferFn` and `make_eval_buckets` of `devis_tpu/inference.py`).
+"""Inference entry points (port of `devis_tpu/inference.py`): the device step
+of the clip-stitching tracker (`VISInferFn`, `make_eval_buckets`) and the
+COCO evaluation loop of the image model (`evaluate_coco`).
 
 `VISInferFn` keeps the JAX package's three stages: `prepare` (host: load and
 pad one clip to a static canvas), `dispatch` (upload and enqueue the forward;
@@ -7,14 +8,24 @@ returns without waiting for the GPU) and `fetch` (wait, copy back and adapt
 the outputs to the tracker's dict). Mask logits leave the device as
 float8_e4m3fn, 1 byte a pixel: its resolution is finest around logit 0,
 where the tracker's threshold decides.
+
+`evaluate_coco` keeps the JAX function's three stages too: `_prep` (a loader
+thread pads a chunk of images to a static canvas), `_fwd` (the forward, then
+on the device the bilinear upsampling of the /4 mask logits to the canvas,
+the threshold at logit 0 and the bit-packing, 8 columns a byte), and
+`_postprocess` (host: absolute boxes, unpacked, cropped and nearest-resized
+masks). Chunk j+1's forward is enqueued before chunk j is fetched.
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .models.detr import top_k_process
+from .ops.interpolate import resize_bilinear_hw
 from .util.misc import resolve_device
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -112,3 +123,146 @@ class VISInferFn:
 
     def __call__(self, video, clip_idx: int) -> Dict[str, np.ndarray]:
         return self.run(self.prepare(video, clip_idx))
+
+
+# ---------------------------------------------------------------------------
+# COCO evaluation loop
+# ---------------------------------------------------------------------------
+
+def pack_mask_bits(logits: torch.Tensor, canvas: Tuple[int, int]) -> torch.Tensor:
+    """Mask logits (B, K, h, w) → flat uint8 of B*K*Hc*(Wc/8) bytes: bilinear
+    upsampling to the canvas (align_corners=False), threshold at logit > 0,
+    8 columns a byte with the first column in the highest bit, so that
+    `np.unpackbits` reads it back."""
+    Hc, Wc = canvas
+    if Wc % 8:
+        raise ValueError(f"canvas width {Wc} is not a multiple of 8")
+    B, K = logits.shape[:2]
+    up = resize_bilinear_hw(logits.float(), (Hc, Wc))
+    bits = (up > 0).reshape(B, K, Hc, Wc // 8, 8).to(torch.int32)
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                           device=logits.device)
+    return (bits * weights).sum(-1).to(torch.uint8).reshape(-1)
+
+
+def resize_nearest_numpy(mask: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Nearest resize of an (h, w) array to `size` = (oh, ow) by the index
+    rule of OpenCV's INTER_NEAREST: source = min(floor(dst * in / out), in - 1)."""
+    h, w = mask.shape
+    oh, ow = size
+    ys = np.minimum(np.floor(np.arange(oh) * (h / oh)).astype(np.int64), h - 1)
+    xs = np.minimum(np.floor(np.arange(ow) * (w / ow)).astype(np.int64), w - 1)
+    return mask[ys][:, xs]            # rows, then columns: two takes, no 2-d index
+
+
+def evaluate_coco(model, dataset, cfg, evaluator, device=None,
+                  verbose: bool = True):
+    """Evaluation loop of the image model over a COCO-style dataset.
+
+    `dataset[i]` gives {"image" (h, w, 3) f32, "image_id", "orig_size"};
+    images are padded to static canvases (`make_eval_buckets`) and run
+    `TEST.EVAL_BATCH_SIZE` to a forward where the dataset has `eval_hw` (the
+    tail chunk repeats its first image). Every image's {"scores", "labels"
+    (+1, back to COCO ids), "boxes" absolute xyxy clipped to the original
+    size, "masks" bool at the original size} goes to
+    `evaluator.update({image_id: result})`; returns `evaluator.summarize()`.
+    Runs on the GPU unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    if next(model.parameters()).device.type != device.type:
+        raise ValueError(f"model lies on {next(model.parameters()).device}, not {device}")
+    buckets = make_eval_buckets(cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    mask_on = bool(cfg.MODEL.MASK_ON)
+    model.eval()
+
+    @torch.inference_mode()
+    def _fwd(images: np.ndarray, pad_mask: np.ndarray) -> Dict[str, torch.Tensor]:
+        x = torch.from_numpy(images).to(device, non_blocking=True)
+        pad = torch.from_numpy(pad_mask).to(device, non_blocking=True)
+        if mask_on:
+            tk = dict(model(x, pad, train=False)["top_k"])
+            tk["masks_packed"] = pack_mask_bits(tk.pop("masks"), images.shape[1:3])
+            return tk
+        out, _ = model(x, pad)
+        prob = torch.sigmoid(out["pred_logits"].float()) if cfg.MODEL.LOSS.FOCAL_LOSS \
+            else torch.softmax(out["pred_logits"].float(), dim=-1)[..., :-1]
+        scores, labels, boxes, _ = top_k_process(prob, out["pred_boxes"],
+                                                 cfg.TEST.NUM_OUT)
+        return {"scores": scores, "labels": labels, "boxes": boxes}
+
+    indices = list(range(len(dataset)))
+    B = max(1, int(cfg.TEST.EVAL_BATCH_SIZE))
+    if B > 1 and hasattr(dataset, "eval_hw"):
+        groups: Dict[Tuple[int, int], List[int]] = {}
+        for idx in indices:
+            groups.setdefault(pick_canvas(*dataset.eval_hw(idx), buckets), []).append(idx)
+        chunks = [grp[k:k + B] for grp in groups.values()
+                  for k in range(0, len(grp), B)]
+    else:
+        B = 1
+        chunks = [[idx] for idx in indices]
+
+    def _prep(chunk):
+        """Host stage: load and canvas-pad one chunk (loader thread)."""
+        samples = [dataset[idx] for idx in chunk]
+        hws = [s["image"].shape[:2] for s in samples]
+        Hc, Wc = pick_canvas(max(h for h, _ in hws), max(w for _, w in hws), buckets)
+        images = np.zeros((B, Hc, Wc, 3), np.float32)
+        pad_mask = np.ones((B, Hc, Wc), bool)
+        for b, (s, (h, w)) in enumerate(zip(samples, hws)):
+            images[b, :h, :w] = s["image"]
+            pad_mask[b, :h, :w] = False
+        for b in range(len(samples), B):                   # tail padding
+            images[b] = images[0]
+            pad_mask[b] = pad_mask[0]
+        return samples, images, pad_mask, hws, (Hc, Wc)
+
+    def _postprocess(samples, out_dev, hws, canvas):
+        """Host stage: fetch and convert one chunk's predictions."""
+        Hc, Wc = canvas
+        tk = {k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
+              for k, v in out_dev.items()}
+        for b, (sample, (h, w)) in enumerate(zip(samples, hws)):
+            oh, ow = sample["orig_size"]
+            bx = tk["boxes"][b]
+            cx, cy = bx[:, 0] * ow, bx[:, 1] * oh
+            bw, bh = bx[:, 2] * ow, bx[:, 3] * oh
+            boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1)
+            boxes[:, 0::2] = boxes[:, 0::2].clip(0, ow)
+            boxes[:, 1::2] = boxes[:, 1::2].clip(0, oh)
+            res = {"scores": tk["scores"][b], "labels": tk["labels"][b] + 1,
+                   "boxes": boxes}
+            if "masks_packed" in tk:
+                Bf, K = tk["scores"].shape                 # the tail padding included
+                pk = tk["masks_packed"].reshape(Bf, K, Hc, Wc // 8)
+                res["masks"] = [
+                    resize_nearest_numpy(np.unpackbits(pk[b, k], axis=-1)[:h, :w],
+                                         (oh, ow)) > 0 for k in range(K)]
+            evaluator.update({int(sample["image_id"]): res})
+
+    loader = ThreadPoolExecutor(max_workers=1)
+    preps: Dict[int, object] = {}
+
+    def ensure_prep(k):
+        if k not in preps and k < len(chunks):
+            preps[k] = loader.submit(_prep, chunks[k])
+
+    try:
+        ensure_prep(0)
+        ensure_prep(1)
+        pending = None
+        done = 0
+        for j in range(len(chunks)):
+            samples, images, pad_mask, hws, canvas = preps.pop(j).result()
+            ensure_prep(j + 2)
+            out_dev = _fwd(images, pad_mask)
+            if pending is not None:
+                _postprocess(*pending)
+            pending = (samples, out_dev, hws, canvas)
+            done += len(samples)
+            if verbose and (j + 1) % 50 == 0:
+                print(f"eval {done}/{len(indices)}", flush=True)
+        if pending is not None:
+            _postprocess(*pending)
+    finally:
+        loader.shutdown(wait=True)
+    return evaluator.summarize()

@@ -1,6 +1,12 @@
-"""Temporal deformable attention and query self-attention (port of
+"""Deformable attention modules and query self-attention (port of
 `devis_tpu/models/attention.py`).
 
+  * `MSDeformAttn`: single-frame attention of the image model. With 2-d
+    reference points (every encoder layer, the first decoder layer) the raw
+    offset and logit projections go to K8, which does the location math and
+    the softmax; with 4-d reference points (decoder layers after the first
+    box refinement) locations and softmax are built here and sampled by the
+    q-major op (K6 forward, K9 backward).
   * `TemporalMSDeformAttnEncoder`: per-frame current attention plus temporal
     attention over the other frames, one K1 launch per layer: the offset and
     logit projections go to the kernel raw, and the location math and the
@@ -11,7 +17,8 @@
     `in_proj_*` parameters of `torch.nn.MultiheadAttention` and dropout on
     the attention weights.
 
-Gradients flow through K1 and K3 by their autograd Functions (backward K5).
+Gradients flow through the kernels by their autograd Functions (K1, K3:
+backward K5; K8: backward K7; the q-major op: backward K9).
 
 Frames ride the batch axis. Temporal levels are frame-major: (W, L).
 """
@@ -26,7 +33,8 @@ import torch.nn.functional as F
 
 from ..ops.ms_deform_attn import (make_temporal_shapes, normalize_shapes,
                                   temporal_frame_rule, temporal_frame_table)
-from ..ops.ms_deform_attn_cuda import msda_temporal, msda_temporal_proj
+from ..ops.ms_deform_attn_cuda import (msda_proj, msda_taps, msda_temporal,
+                                       msda_temporal_proj)
 from .layers import Dropout, Linear
 
 
@@ -71,6 +79,58 @@ def compute_sampling_locations(reference_points: torch.Tensor,
         return ref[..., :2] + offsets / n_points * ref[..., 2:] * 0.5
     raise ValueError("reference points last dim must be 2 or 4, got "
                      f"{reference_points.shape[-1]}")
+
+
+class MSDeformAttn(nn.Module):
+    """Single-frame multi-scale deformable attention."""
+
+    def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8,
+                 n_points: int = 4, dtype=torch.float32):
+        super().__init__()
+        self.d_model, self.n_levels = d_model, n_levels
+        self.n_heads, self.n_points = n_heads, n_points
+        M, L, P = n_heads, n_levels, n_points
+        self.value_proj = Linear(d_model, d_model, dtype=dtype)
+        self.sampling_offsets = Linear(d_model, M * L * P * 2, dtype=dtype)
+        self.attention_weights = Linear(d_model, M * L * P, dtype=dtype)
+        self.output_proj = Linear(d_model, d_model, dtype=dtype)
+
+    @torch.no_grad()
+    def reset_offsets(self):
+        """The reference init: zero offset and logit weights, directional
+        offset biases, zero logit biases."""
+        for lin in (self.sampling_offsets, self.attention_weights):
+            lin.weight.zero_()
+            lin.bias.zero_()
+        self.sampling_offsets.bias.copy_(torch.from_numpy(
+            sampling_offsets_bias_init(self.n_heads, self.n_levels, self.n_points)))
+
+    def forward(self, query, reference_points, input_flatten, spatial_shapes,
+                padding_mask=None):
+        """query (B, Q, C); reference_points (B, Q, L, 2|4); input_flatten
+        (B, S, C); padding_mask (B, S) True on padding → (B, Q, C)."""
+        B, Q, _ = query.shape
+        S = input_flatten.shape[1]
+        M, L, P = self.n_heads, self.n_levels, self.n_points
+        spatial_shapes = normalize_shapes(spatial_shapes)
+        value = self.value_proj(input_flatten)
+        if padding_mask is not None:
+            value = value.masked_fill(padding_mask[..., None], 0.0)
+        value = value.reshape(B, S, M, self.d_model // M).contiguous()
+        offsets = self.sampling_offsets(query)
+        logits = self.attention_weights(query)
+        if reference_points.shape[-1] == 2:
+            out = msda_proj(value, spatial_shapes,
+                            reference_points.float().contiguous(),
+                            offsets.contiguous(), logits.contiguous())
+        else:
+            att = torch.softmax(logits.float().reshape(B, Q, M, L * P), dim=-1)
+            loc = compute_sampling_locations(
+                reference_points.float(), offsets.float().reshape(B, Q, M, L, P, 2),
+                spatial_shapes, P)
+            out = msda_taps(value, spatial_shapes, loc.contiguous(),
+                            att.reshape(B, Q, M, L, P).contiguous())
+        return self.output_proj(out)
 
 
 class TemporalMSDeformAttnBase(nn.Module):

@@ -1,14 +1,15 @@
-"""Set-prediction losses of the clip model (port of the clip half of
+"""Set-prediction losses of the image and clip models (port of
 `devis_tpu/models/criterion.py`): focal classification, L1 + GIoU boxes,
 focal + dice masks, in the padded, masked formulation: targets are padded to
 capacity with validity masks and every loss is a masked reduction.
 
   * classification: sigmoid focal over the class logits; unmatched queries
     have all-zero targets; scaled by the number of queries.
-  * label loss on valid (trajectory, frame) pairs only; box and mask losses
-    on ALL frames of matched trajectories.
+  * clips: label loss on valid (trajectory, frame) pairs only; box and mask
+    losses on ALL frames of matched trajectories.
+  * images: every loss on the valid target slots of each image; the
+    normaliser is the batch's count of valid targets, at least 1.
   * every loss is computed in f32, whatever the model's compute dtype.
-  * the image criterion belongs to the COCO slice.
 """
 from __future__ import annotations
 
@@ -57,6 +58,81 @@ def reduce_num_boxes(counts: Sequence[torch.Tensor]) -> torch.Tensor:
     over the clips, at least 1 (the JAX package's all-reduce over its clip
     axis)."""
     return torch.stack([c.float() for c in counts]).mean().clamp(min=1.0)
+
+
+def image_losses(outputs: Dict, targets: Dict, src_idx: torch.Tensor,
+                 num_boxes, focal_alpha: float = 0.25,
+                 compute_masks: bool = False) -> Dict[str, torch.Tensor]:
+    """Losses of one output level of the image model.
+
+    targets: labels (B, N), boxes (B, N, 4), valid (B, N)
+             [+ masks (B, N, H, W)].
+    src_idx: (B, N) matched query per target slot.
+    outputs['pred_masks'] when compute_masks: (B, N, h, w), slot-aligned."""
+    logits = outputs["pred_logits"].float()              # (B, Q, K)
+    B, Q, K = logits.shape
+    labels = targets["labels"].long()
+    valid = targets["valid"]
+    N = labels.shape[1]
+
+    # classification: matched queries of valid slots are foreground at the
+    # slot's label; every other query has an all-zero target
+    onehot = logits.new_zeros((B, Q, K))
+    b_idx = torch.arange(B, device=logits.device)[:, None].expand(B, N)
+    onehot[b_idx[valid], src_idx[valid], labels[valid]] = 1.0
+    loss_ce = sigmoid_focal_loss(logits, onehot, num_boxes, alpha=focal_alpha) * Q
+
+    gather_idx = src_idx[..., None]
+    matched = torch.gather(logits, 1, gather_idx.expand(B, N, K))
+    correct = (matched.argmax(-1) == labels) & valid
+    class_error = 100.0 * (1.0 - correct.sum() / valid.sum().clamp(min=1))
+
+    src_boxes = torch.gather(outputs["pred_boxes"].float(), 1,
+                             gather_idx.expand(B, N, 4))
+    tgt_boxes = targets["boxes"].float()
+    vmask = valid.float()
+    loss_bbox = ((src_boxes - tgt_boxes).abs().sum(-1) * vmask).sum() / num_boxes
+    giou = box_ops.multi_giou(box_ops.box_cxcywh_to_xyxy(src_boxes),
+                              box_ops.box_cxcywh_to_xyxy(tgt_boxes))
+    loss_giou = ((1 - giou) * vmask).sum() / num_boxes
+
+    losses = {"loss_ce": loss_ce, "loss_bbox": loss_bbox,
+              "loss_giou": loss_giou, "class_error": class_error}
+
+    if compute_masks and "pred_masks" in outputs:
+        tgt_masks = targets["masks"].float()
+        up = resize_bilinear_hw(outputs["pred_masks"].float(), tgt_masks.shape[-2:])
+        up = up.reshape(B * N, -1)
+        tm = tgt_masks.reshape(B * N, -1)
+        vm = vmask.reshape(B * N)
+        losses["loss_mask"] = sigmoid_focal_loss(up, tm, num_boxes, valid=vm)
+        losses["loss_dice"] = dice_loss(up, tm, num_boxes, valid=vm)
+    return losses
+
+
+def image_criterion(outputs: Dict, targets: Dict, matcher_cfg: Dict,
+                    focal_alpha: float = 0.25,
+                    mask_on: bool = False) -> Dict[str, torch.Tensor]:
+    """The criterion over the final and auxiliary outputs of a batch of
+    images. A level that carries 'indices' (set by the model when it is given
+    targets) is not matched again."""
+    num_boxes = targets["valid"].sum().float().clamp(min=1.0)
+
+    def level(out, masks):
+        idx = out.get("indices")
+        if idx is None:
+            idx = matcher_lib.hungarian_match_image(
+                out["pred_logits"], out["pred_boxes"], targets["labels"],
+                targets["boxes"], targets["valid"], **matcher_cfg)
+        return image_losses(out, targets, idx, num_boxes, focal_alpha,
+                            compute_masks=masks)
+
+    losses = level(outputs, mask_on)
+    for i, aux in enumerate(outputs.get("aux_outputs", [])):
+        l = level(aux, "pred_masks" in aux)
+        l.pop("class_error", None)
+        losses.update({f"{k}_{i}": v for k, v in l.items()})
+    return losses
 
 
 def clip_losses(outputs: Dict, targets: Dict, traj_idx: torch.Tensor,

@@ -1,6 +1,8 @@
 """Deformable DETR with box refinement (port of `devis_tpu/models/detr.py`):
 backbone, per-level input projections plus the extra stride-2 /64 level, the
-deformable transformer and the per-layer class and box heads."""
+deformable transformer and the per-layer class and box heads, for the T frames
+of one clip (DeVIS) or a batch of B images (`transformer_kwargs` carries the
+transformer's ``variant``), and the image model's top-k postprocessing."""
 from __future__ import annotations
 
 import math
@@ -12,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.interpolate import downsample_mask
+from ..util import box_ops
 from ..util.misc import inverse_sigmoid
 from .layers import Conv2d, GroupNorm, Linear
 from .transformer import DeformableTransformer
@@ -95,8 +98,9 @@ class DeformableDETR(nn.Module):
             MLP(hidden_dim, hidden_dim, 4, 3, dtype=dtype) for _ in range(num_pred))
 
     def forward(self, images: torch.Tensor, pad_mask: torch.Tensor):
-        """images (T, H, W, 3) NHWC; pad_mask (T, H, W) bool, True on padding.
-        Returns (out, intermediates) like the JAX module."""
+        """images (T, H, W, 3) NHWC, the frames of a clip or a batch of
+        images; pad_mask (T, H, W) bool, True on padding. Returns
+        (out, intermediates) like the JAX module."""
         features = self.backbone[0](images.permute(0, 3, 1, 2))
         feature_masks = [downsample_mask(pad_mask, f.shape[-2:]) for f in features]
         pos = [self.backbone[1](m).to(features[0].dtype) for m in feature_masks]
@@ -143,3 +147,36 @@ class DeformableDETR(nn.Module):
                              valid_ratios=t["valid_ratios"],
                              spatial_shapes=t["spatial_shapes"])
         return out, intermediates
+
+
+def top_k_process(output_prob: torch.Tensor, boxes: torch.Tensor, num_out: int):
+    """Top-k over the flattened query x class axis. output_prob (B, Q, K);
+    boxes (B, Q, 4) → scores, labels, boxes (B, k, 4), query_idx."""
+    B, Q, K = output_prob.shape
+    scores, top_idx = torch.topk(output_prob.reshape(B, Q * K), min(num_out, Q * K),
+                                 dim=1)
+    query_idx = torch.div(top_idx, K, rounding_mode="floor")
+    labels = top_idx % K
+    boxes = torch.gather(boxes, 1, query_idx[..., None].expand(-1, -1, 4))
+    return scores, labels, boxes, query_idx
+
+
+def process_boxes(boxes: torch.Tensor, target_sizes: torch.Tensor) -> torch.Tensor:
+    """cxcywh in [0, 1] → absolute xyxy; target_sizes (B, 2) as (h, w)."""
+    boxes = box_ops.box_cxcywh_to_xyxy(boxes)
+    img_h, img_w = target_sizes[:, 0], target_sizes[:, 1]
+    scale = torch.stack([img_w, img_h, img_w, img_h], dim=1)
+    return boxes * scale[:, None, :]
+
+
+def postprocess_detections(outputs: dict, target_sizes: torch.Tensor,
+                           num_out: int, focal_loss: bool = True) -> dict:
+    """The detection postprocessor: top-k scores, labels, absolute boxes."""
+    logits = outputs["pred_logits"].float()
+    prob = torch.sigmoid(logits) if focal_loss \
+        else torch.softmax(logits, dim=-1)[..., :-1]
+    scores, labels, boxes, query_idx = top_k_process(
+        prob, outputs["pred_boxes"].float(), num_out)
+    return {"scores": scores, "labels": labels,
+            "boxes": process_boxes(boxes, target_sizes),
+            "query_top_k_indexes": query_idx}

@@ -17,8 +17,8 @@ import torch.nn as nn
 
 from . import matcher as matcher_lib
 from .detr import DeformableDETR
-from .segmentation import (MaskHeadConv, MultiScaleMHAttentionMap, RES_TO_IDX,
-                           mask_head_feat_dims, select_mask_head_features)
+from .segmentation import (MaskHeadConv, MultiScaleMHAttentionMap,
+                           attention_and_head_features, mask_head_feat_dims)
 
 
 class DeVIS(nn.Module):
@@ -49,19 +49,6 @@ class DeVIS(nn.Module):
         self.mask_head = MaskHeadConv(hidden, fpn_dims, nheads,
                                       len(self.att_maps_used_res), dtype=dtype)
 
-    def _select_features(self, inter):
-        memories, masks = inter["memories"], inter["masks"]
-        if len(memories) != 1:
-            mem_att = [memories[RES_TO_IDX[r]] for r in self.att_maps_used_res]
-            mask_att = [masks[RES_TO_IDX[r]] for r in self.att_maps_used_res]
-        else:
-            mem_att, mask_att = [memories[0]], [masks[0]]
-        feats = select_mask_head_features(
-            inter["backbone_feats"], inter["srcs"],
-            [m.permute(0, 3, 1, 2) for m in memories],
-            self.mask_head_used_features)
-        return mem_att, mask_att, feats
-
     def _masks_for_trajectories(self, traj_embeddings, mem_att, mask_att, feats):
         """traj_embeddings (T, N, C) → (N, T, h, w) mask logits."""
         T, N, _ = traj_embeddings.shape
@@ -80,7 +67,8 @@ class DeVIS(nn.Module):
         and `pred_masks` on the levels that carry a mask loss."""
         T = self.num_frames
         out, inter = self.def_detr(images, pad_mask)
-        mem_att, mask_att, feats = self._select_features(inter)
+        mem_att, mask_att, feats = attention_and_head_features(
+            inter, self.att_maps_used_res, self.mask_head_used_features)
         hs = inter["hs"]                                  # (n_layers, 1, T*Nq, C)
         Nq = hs.shape[2] // T
 

@@ -1,12 +1,13 @@
-"""Hungarian matching at training time (port of the clip matcher of
+"""Hungarian matching at training time (port of
 `devis_tpu/models/matcher.py`).
 
-Targets are padded to a fixed capacity with validity masks: clip targets are
-labels (N,), boxes (N, T, 4), valid (N, T), per trajectory. The match comes
-back target-aligned: ``traj_idx[n]`` is the query trajectory matched to
-target slot ``n`` (arbitrary where the slot is invalid). The cost matrix is
-built on the device without gradient; the assignment runs on the host
-(`ops/hungarian.py`). The image matcher belongs to the COCO slice.
+Targets are padded to a fixed capacity with validity masks: image targets are
+labels (B, N), boxes (B, N, 4), valid (B, N); clip targets are labels (N,),
+boxes (N, T, 4), valid (N, T), per trajectory. The match comes back
+target-aligned: ``src_idx[b, n]`` (``traj_idx[n]``) is the query (trajectory)
+matched to target slot ``n``, arbitrary where the slot is invalid. The cost
+matrix is built on the device without gradient; the assignment runs on the
+host (`ops/hungarian.py`), once per image.
 """
 from __future__ import annotations
 
@@ -37,6 +38,32 @@ def focal_class_cost(out_prob: torch.Tensor, alpha: float = 0.25,
     neg = (1 - alpha) * (out_prob ** gamma) * (-torch.log(1 - out_prob + 1e-8))
     pos = alpha * ((1 - out_prob) ** gamma) * (-torch.log(out_prob + 1e-8))
     return pos, neg
+
+
+@torch.no_grad()
+def hungarian_match_image(pred_logits, pred_boxes, tgt_labels, tgt_boxes,
+                          tgt_valid, cost_class: float = 2.0,
+                          cost_bbox: float = 5.0, cost_giou: float = 2.0,
+                          focal_loss: bool = True,
+                          focal_alpha: float = 0.25) -> torch.Tensor:
+    """Image-level matcher. pred_logits (B, Q, K), pred_boxes (B, Q, 4),
+    tgt_labels (B, N), tgt_boxes (B, N, 4), tgt_valid (B, N). Costs in f32.
+    Returns src_idx (B, N): the query matched to each target slot."""
+    B, Q, K = pred_logits.shape
+    logits = pred_logits.float()
+    boxes = pred_boxes.float()
+    tgt = tgt_boxes.float()
+    at_label = tgt_labels.long().clamp(0, K - 1)[:, None, :].expand(B, Q, -1)
+    if focal_loss:
+        pos, neg = focal_class_cost(torch.sigmoid(logits), focal_alpha)
+        cls = torch.gather(pos, 2, at_label) - torch.gather(neg, 2, at_label)
+    else:
+        cls = -torch.gather(torch.softmax(logits, dim=-1), 2, at_label)
+    l1 = (boxes[:, :, None, :] - tgt[:, None, :, :]).abs().sum(-1)
+    giou = -box_ops.multi_giou(box_ops.box_cxcywh_to_xyxy(boxes)[:, :, None, :],
+                               box_ops.box_cxcywh_to_xyxy(tgt)[:, None, :, :])
+    cost = cost_bbox * l1 + cost_class * cls + cost_giou * giou
+    return torch.stack([run_lsa(cost[b], tgt_valid[b]) for b in range(B)])
 
 
 @torch.no_grad()

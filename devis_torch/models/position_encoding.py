@@ -36,6 +36,17 @@ def sine_position_encoding(mask: torch.Tensor, num_pos_feats: int,
     return torch.cat([pos_y, pos_x], dim=-1)
 
 
+class PositionEmbeddingSine(nn.Module):
+    """2-d sine encoding of the image model; no parameters."""
+
+    def __init__(self, num_pos_feats: int = 128):
+        super().__init__()
+        self.num_pos_feats = num_pos_feats
+
+    def forward(self, mask: torch.Tensor) -> torch.Tensor:
+        return sine_position_encoding(mask, self.num_pos_feats)
+
+
 class PositionEmbeddingSineWithLearnableTemporal(nn.Module):
     """2-d sine plus a learned embedding per frame; the batch axis is frames."""
 

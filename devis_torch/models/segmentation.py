@@ -1,15 +1,19 @@
-"""Mask head of DeVIS (port of the channel-first path of
-`devis_tpu/models/segmentation.py`).
+"""Mask head and the image instance-segmentation model (port of the
+channel-first path of `devis_tpu/models/segmentation.py`).
 
   * `ModulatedDeformableConv`: a DCNv2 layer run as one K4 launch.
   * `MultiScaleMHAttentionMap`: per-level attention maps between query
     embeddings and encoder memories, softmaxed jointly over heads x space.
-  * `MaskHeadConv`: the FPN-style spine, channel-first, instance-major
-    (sample n*T + t).
+  * `MaskHeadConv`: the FPN-style spine, channel-first; the features are
+    expanded instance-major (``"tile"``, sample n*T + t, DeVIS) or image-major
+    (``"repeat"``, sample b*N + n, the image model).
+  * `DeformableDETRSegm`: Deformable DETR plus the mask head on a batch of
+    images: at eval the masks of the top-k (query, class) pairs, in training
+    the masks of the matched queries on each level that carries a mask loss.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -17,6 +21,8 @@ import torch.nn.functional as F
 
 from ..ops.deform_conv import modulated_deform_conv2d
 from ..ops.interpolate import resize_nearest_hw
+from . import matcher as matcher_lib
+from .detr import DeformableDETR, top_k_process
 from .layers import Conv2d, GroupNorm, Linear
 
 # srcs/memories are ordered [/8, /16, /32, /64]; backbone features
@@ -121,14 +127,35 @@ def select_mask_head_features(backbone_feats, srcs, memories,
     return used
 
 
+def attention_and_head_features(inter, att_maps_used_res, mask_head_used_features):
+    """From a DETR's intermediates: the memories and masks the attention maps
+    are taken on, and the channel-first feature maps of the mask head."""
+    memories, masks = inter["memories"], inter["masks"]
+    if len(memories) != 1:
+        mem_att = [memories[RES_TO_IDX[r]] for r in att_maps_used_res]
+        mask_att = [masks[RES_TO_IDX[r]] for r in att_maps_used_res]
+    else:
+        mem_att, mask_att = [memories[0]], [masks[0]]
+    feats = select_mask_head_features(
+        inter["backbone_feats"], inter["srcs"],
+        [m.permute(0, 3, 1, 2) for m in memories], mask_head_used_features)
+    return mem_att, mask_att, feats
+
+
 class MaskHeadConv(nn.Module):
     """FPN-style mask head with DCNv2 convs, channel-first. `features[0]` is
     the coarsest map; attention maps join at the first `num_att_levels`
-    scales. Features are tiled instance-major to (N*B, ...)."""
+    scales. Features are expanded to (expand*B, ...): ``"tile"`` repeats the
+    batch as a whole (sample n*B + b), ``"repeat"`` each image in turn
+    (sample b*expand + n)."""
 
     def __init__(self, dim: int, fpn_dims: Sequence[int], nheads: int,
-                 num_att_levels: int, dtype=torch.float32):
+                 num_att_levels: int, dtype=torch.float32,
+                 expand_mode: str = "tile"):
         super().__init__()
+        if expand_mode not in ("tile", "repeat"):
+            raise ValueError(f"unknown expand_mode {expand_mode!r}")
+        self.expand_mode = expand_mode
         self.num_att_levels = num_att_levels
         self.compute_dtype = dtype
         n_fpn = len(fpn_dims)
@@ -158,7 +185,9 @@ class MaskHeadConv(nn.Module):
         dt = self.compute_dtype
 
         def tile(t):
-            return t.to(dt).repeat(expand, 1, 1, 1)
+            if self.expand_mode == "tile":
+                return t.to(dt).repeat(expand, 1, 1, 1)
+            return t.to(dt).repeat_interleave(expand, dim=0)
 
         x = torch.cat([tile(features[0]), bbox_masks[0].to(dt)], dim=1)
         x = F.relu(self.gn1(self.lay1(x)))
@@ -171,3 +200,80 @@ class MaskHeadConv(nn.Module):
             x = getattr(self, f"lay{lvl + 3}")(x)
             x = F.relu(getattr(self, f"gn{lvl + 3}")(x))
         return self.out_lay(x)
+
+
+class DeformableDETRSegm(nn.Module):
+    """Image instance-segmentation model. Batch axis = B images."""
+
+    def __init__(self, detr: DeformableDETR,
+                 mask_head_used_features: Sequence = (
+                     ("/32", "encoded"), ("/16", "encoded"), ("/8", "encoded"),
+                     ("/4", "backbone")),
+                 att_maps_used_res: Sequence[str] = ("/32", "/16", "/8"),
+                 mask_aux_loss: Sequence[int] = (2,),
+                 matcher_cfg: Optional[dict] = None, num_out: int = 100,
+                 focal_loss: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.def_detr = detr
+        self.mask_head_used_features = tuple(map(tuple, mask_head_used_features))
+        self.att_maps_used_res = tuple(att_maps_used_res)
+        self.mask_aux_loss = tuple(mask_aux_loss)
+        self.matcher_cfg = dict(matcher_cfg or {})
+        self.num_out = num_out
+        self.focal_loss = focal_loss
+        hidden = detr.hidden_dim
+        nheads = 8
+        self.bbox_attention = MultiScaleMHAttentionMap(
+            hidden, nheads, len(self.att_maps_used_res), dtype=dtype)
+        fpn_dims = mask_head_feat_dims(self.mask_head_used_features,
+                                       detr.backbone_num_channels, hidden)
+        self.mask_head = MaskHeadConv(hidden, fpn_dims, nheads,
+                                      len(self.att_maps_used_res), dtype=dtype,
+                                      expand_mode="repeat")
+
+    def _masks_for_embeddings(self, embeddings, mem_att, mask_att, feats):
+        """embeddings (B, N, C) → (B, N, h, w) mask logits."""
+        B, N, _ = embeddings.shape
+        bbox_masks = self.bbox_attention(embeddings, mem_att, mask_att)
+        bbox_masks = [b.reshape((B * N,) + b.shape[2:]) for b in bbox_masks]
+        m = self.mask_head(feats, bbox_masks, expand=N)    # (B*N, 1, h, w)
+        return m[:, 0].reshape(B, N, m.shape[2], m.shape[3])
+
+    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor,
+                targets: Optional[dict] = None, train: bool = False):
+        """images (B, H, W, 3); pad_mask (B, H, W). With ``targets`` (labels
+        (B, N), boxes (B, N, 4), valid (B, N)) the final level and each level
+        of `mask_aux_loss` get `indices` and slot-aligned `pred_masks`;
+        unless ``train``, `out["top_k"]` holds the scores, labels, boxes,
+        query indices and masks of the top `num_out` (query, class) pairs."""
+        out, inter = self.def_detr(images, pad_mask)
+        mem_att, mask_att, feats = attention_and_head_features(
+            inter, self.att_maps_used_res, self.mask_head_used_features)
+        hs = inter["hs"]                                   # (n_layers, B, Nq, C)
+
+        def gather(level_hs, idx):
+            return torch.gather(level_hs, 1,
+                                idx[..., None].expand(-1, -1, level_hs.shape[-1]))
+
+        if targets is not None:
+            for lvl in (-1,) + self.mask_aux_loss:
+                level_out = out if lvl == -1 else out["aux_outputs"][lvl]
+                src_idx = matcher_lib.hungarian_match_image(
+                    level_out["pred_logits"], level_out["pred_boxes"],
+                    targets["labels"], targets["boxes"], targets["valid"],
+                    **self.matcher_cfg)
+                level_out["indices"] = src_idx
+                level_out["pred_masks"] = self._masks_for_embeddings(
+                    gather(hs[lvl], src_idx), mem_att, mask_att, feats)
+
+        if not train:
+            logits = out["pred_logits"].float()
+            prob = torch.sigmoid(logits) if self.focal_loss \
+                else torch.softmax(logits, dim=-1)[..., :-1]
+            scores, labels, boxes, query_idx = top_k_process(
+                prob, out["pred_boxes"], self.num_out)
+            masks = self._masks_for_embeddings(gather(hs[-1], query_idx),
+                                               mem_att, mask_att, feats)
+            out["top_k"] = {"scores": scores, "labels": labels, "boxes": boxes,
+                            "query_top_k_indexes": query_idx, "masks": masks}
+        return out

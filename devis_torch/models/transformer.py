@@ -1,7 +1,12 @@
-"""Deformable transformer, DeVIS variant (port of the ``variant="devis"`` path
-of `devis_tpu/models/transformer.py`): temporal deformable attention in the
-encoder and the decoder, iterative box refinement, and dropout where the JAX
-package applies it (after each attention, inside and after each FFN)."""
+"""Deformable transformer (port of `devis_tpu/models/transformer.py`), two of
+its variants: ``"devis"``, temporal deformable attention in the encoder and
+the decoder over the T frames of one clip, and ``"image"``, single-frame
+attention over a batch of B images with batched queries and per-image valid
+ratios. Both refine the boxes iteratively and apply dropout where the JAX
+package does (after each attention, inside and after each FFN). In the image
+variant the reference points are 2-d up to the first refinement and 4-d after
+it, so decoder layer 0 and the encoder take the projection-fused attention
+and the later decoder layers the q-major one. ``"devis_ablation"`` raises."""
 from __future__ import annotations
 
 from typing import List, Sequence
@@ -11,8 +16,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..util.misc import inverse_sigmoid
-from .attention import (MultiHeadAttention, TemporalMSDeformAttnDecoder,
-                        TemporalMSDeformAttnEncoder)
+from .attention import (MSDeformAttn, MultiHeadAttention,
+                        TemporalMSDeformAttnDecoder, TemporalMSDeformAttnEncoder)
 from .layers import Dropout, LayerNorm, Linear
 
 
@@ -44,12 +49,17 @@ def encoder_reference_points(spatial_shapes, valid_ratios: torch.Tensor) -> torc
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model, d_ffn, dropout, n_levels, n_heads, n_frames,
-                 t_window, connect_all, n_points, n_temporal_points, dtype):
+                 t_window, connect_all, n_points, n_temporal_points, dtype,
+                 variant="devis"):
         super().__init__()
         self.dropout = Dropout(dropout)
-        self.self_attn = TemporalMSDeformAttnEncoder(
-            n_frames, d_model, n_levels, t_window, n_heads, n_points,
-            n_temporal_points, dtype=dtype, connect_all=connect_all)
+        if variant == "devis":
+            self.self_attn = TemporalMSDeformAttnEncoder(
+                n_frames, d_model, n_levels, t_window, n_heads, n_points,
+                n_temporal_points, dtype=dtype, connect_all=connect_all)
+        else:
+            self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
+                                          dtype=dtype)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.linear1 = Linear(d_model, d_ffn, dtype=dtype)
         self.linear2 = Linear(d_ffn, d_model, dtype=dtype)
@@ -65,14 +75,19 @@ class EncoderLayer(nn.Module):
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model, d_ffn, dropout, n_levels, n_heads, n_frames,
-                 instance_aware, n_points, n_temporal_points, dtype):
+                 instance_aware, n_points, n_temporal_points, dtype,
+                 variant="devis"):
         super().__init__()
         self.dropout = Dropout(dropout)
         self.self_attn = MultiHeadAttention(d_model, n_heads, dropout, dtype=dtype)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
-        self.cross_attn = TemporalMSDeformAttnDecoder(
-            n_frames, d_model, n_levels, n_frames - 1, n_heads, n_points,
-            n_temporal_points, dtype=dtype, instance_aware=instance_aware)
+        if variant == "devis":
+            self.cross_attn = TemporalMSDeformAttnDecoder(
+                n_frames, d_model, n_levels, n_frames - 1, n_heads, n_points,
+                n_temporal_points, dtype=dtype, instance_aware=instance_aware)
+        else:
+            self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
+                                           dtype=dtype)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.linear1 = Linear(d_model, d_ffn, dtype=dtype)
         self.linear2 = Linear(d_ffn, d_model, dtype=dtype)
@@ -102,8 +117,13 @@ class DeformableTransformer(nn.Module):
                  num_frames=6, enc_connect_all=True,
                  enc_temporal_window=2, enc_n_temporal_points=4,
                  dec_n_temporal_points=4, instance_aware=True,
-                 with_gradient=False, dtype=torch.float32):
+                 with_gradient=False, variant="devis", dtype=torch.float32):
         super().__init__()
+        if variant not in ("devis", "image"):
+            raise NotImplementedError(
+                f"transformer variant {variant!r}: the per-frame ablation "
+                "without temporal connections is a ROADMAP item of the port")
+        self.variant = variant
         self.d_model = d_model
         self.with_gradient = with_gradient
         self.compute_dtype = dtype
@@ -114,12 +134,12 @@ class DeformableTransformer(nn.Module):
         self.encoder = _Stack([
             EncoderLayer(d_model, dim_feedforward, dropout, num_feature_levels,
                          n_heads, num_frames, enc_t_window, enc_connect_all,
-                         enc_n_points, enc_n_temporal_points, dtype)
+                         enc_n_points, enc_n_temporal_points, dtype, variant)
             for _ in range(num_encoder_layers)])
         self.decoder = _Stack([
             DecoderLayer(d_model, dim_feedforward, dropout, num_feature_levels,
                          n_heads, num_frames, instance_aware, dec_n_points,
-                         dec_n_temporal_points, dtype)
+                         dec_n_temporal_points, dtype, variant)
             for _ in range(num_decoder_layers)])
 
     def _refine(self, bbox_embed, output, reference_points):
@@ -136,7 +156,8 @@ class DeformableTransformer(nn.Module):
     def forward(self, srcs, masks, pos_embeds, query_embed, bbox_embed):
         """srcs: NCHW per level; masks (T, h, w) bool; pos_embeds
         (T, h, w, C); query_embed (num_queries, 2C); bbox_embed: the DETR's
-        per-layer box heads."""
+        per-layer box heads. The leading axis is the T frames of one clip
+        (``"devis"``) or B images (``"image"``)."""
         spatial_shapes = tuple((int(s.shape[2]), int(s.shape[3])) for s in srcs)
         dt = self.compute_dtype
         T = srcs[0].shape[0]
@@ -153,8 +174,13 @@ class DeformableTransformer(nn.Module):
             memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat)
 
         query_pos, tgt = torch.split(query_embed.to(dt), C, dim=1)
-        query_pos, tgt = query_pos[None], tgt[None]
-        dec_valid_ratios = valid_ratios[0:1]              # the first frame's
+        if self.variant == "image":
+            query_pos = query_pos[None].expand(T, -1, -1)
+            tgt = tgt[None].expand(T, -1, -1)
+            dec_valid_ratios = valid_ratios
+        else:
+            query_pos, tgt = query_pos[None], tgt[None]
+            dec_valid_ratios = valid_ratios[0:1]          # the first frame's
         reference_points = torch.sigmoid(self.reference_points(query_pos))
         init_reference = reference_points
 

@@ -1,5 +1,5 @@
-"""Modulated deformable convolution (DCNv2) of the mask head: K4 and its plain
-version.
+"""Modulated deformable convolution (DCNv2) of the mask head: K4, K10 and
+their plain versions.
 
 The port of `devis_tpu/ops/deform_conv.py` and of the fused banded kernel in
 `devis_tpu/ops/deform_conv_banded.py`. One layer, channel-first:
@@ -16,7 +16,14 @@ Both versions are exact DCNv2 at any offsets (`_mdc_reference` of the JAX
 package). The JAX TPU kernel drops taps outside a rebased band, so the two
 agree only where every tap is in band.
 
-K4 has no backward. Where a gradient is wanted (grad enabled and an input
+`deform_conv2d(x, offset, mask, weight, bias, padding)` is the public op of
+`devis_tpu/ops/deform_conv.py` on given offset and modulation fields, also
+channel-first: offset (B, 2KK, H, W), (y, x) per k; mask (B, KK, H, W). With
+no gradient wanted it is K10 (the kernel of K4 reading its fields from
+memory); with one it runs `deform_conv2d_rows` (K6/K7), as the JAX op's
+custom VJP does.
+
+K4 and K10 have no backward. Where a gradient is wanted (grad enabled and an input
 requires grad) the layer runs `modulated_deform_conv2d_rows`, the port of the
 JAX package's differentiable composition (`_mdc_reference`): the two field
 convolutions, the channel mix U_k = x . W_k as one matrix product BEFORE the
@@ -134,9 +141,17 @@ def _function(name: str):
         P, I = ctypes.c_void_p, ctypes.c_int
         if name == "dcn_layer_smem_bytes":
             fn.argtypes, fn.restype = [I, I, I], ctypes.c_long
+        elif name.startswith("deform_conv2d"):
+            fn.argtypes, fn.restype = [P] * 6 + [I] * 7 + [P], ctypes.c_int
         else:
             fn.argtypes, fn.restype = [P] * 8 + [I] * 7 + [P], ctypes.c_int
     return fn
+
+
+def _check_smem(name, Cin, Cout, K):
+    if _function("dcn_layer_smem_bytes")(Cin, Cout, K) > SMEM_LIMIT:
+        raise ValueError(f"{name}: Cin={Cin}, Cout={Cout} need more shared "
+                         "memory than a block has")
 
 
 def modulated_deform_conv2d(x, w_off, b_off, w_mod, b_mod, weight, bias,
@@ -167,9 +182,7 @@ def modulated_deform_conv2d(x, w_off, b_off, w_mod, b_mod, weight, bias,
     for t in (x, w_off, w_mod, weight, b_off, b_mod, bias):
         if t.device != x.device:
             raise ValueError("modulated_deform_conv2d: tensors on different devices")
-    if _function("dcn_layer_smem_bytes")(Cin, Cout, K) > SMEM_LIMIT:
-        raise ValueError(f"modulated_deform_conv2d: Cin={Cin}, Cout={Cout} "
-                         "need more shared memory than a block has")
+    _check_smem("modulated_deform_conv2d", Cin, Cout, K)
     x, w_off, w_mod, weight = (t.contiguous() for t in (x, w_off, w_mod, weight))
     b_off, b_mod, bias = (t.float().contiguous() for t in (b_off, b_mod, bias))
     out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device)
@@ -186,3 +199,49 @@ def modulated_deform_conv2d(x, w_off, b_off, w_mod, b_mod, weight, bias,
 
 modulated_deform_conv2d.launches = 0
 modulated_deform_conv2d.plain_calls = 0
+
+
+def deform_conv2d(x, offset, mask, weight, bias, padding: int = 1):
+    """Deformable convolution from given fields (module docstring). Where a
+    gradient is wanted it runs the differentiable rows route. Otherwise K10:
+    CPU tensors run the plain version; CUDA tensors launch the kernel in
+    `csrc/deform_conv.cu`. Returns (B, Cout, H, W) in x's dtype."""
+    tensors = (x, offset, mask, weight, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return deform_conv2d_rows(x, offset, mask, weight.to(x.dtype), bias, padding)
+    if not x.is_cuda:
+        deform_conv2d.plain_calls += 1
+        out = deform_conv2d_plain(x, offset, mask, weight, padding)
+        return (out + bias.float()[None, :, None, None]).to(x.dtype)
+    B, Cin, H, W = x.shape
+    K = weight.shape[0]
+    KK = K * K
+    Cout = weight.shape[-1]
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"deform_conv2d: unsupported dtype {x.dtype}")
+    expect = {"offset": (offset, (B, 2 * KK, H, W)), "mask": (mask, (B, KK, H, W)),
+              "weight": (weight, (K, K, Cin, Cout))}
+    for name, (t, shape) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != x.dtype:
+            raise ValueError(f"deform_conv2d: {name} must be {shape} {x.dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    for t in tensors:
+        if t.device != x.device:
+            raise ValueError("deform_conv2d: tensors on different devices")
+    _check_smem("deform_conv2d", Cin, Cout, K)
+    x, offset, mask, weight = (t.contiguous() for t in (x, offset, mask, weight))
+    bias = bias.float().contiguous()
+    out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device)
+    fn = _function(f"deform_conv2d_{_DTYPES[x.dtype]}")
+    with torch.cuda.device(x.device):
+        _build.check(fn(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+                        weight.data_ptr(), bias.data_ptr(), out.data_ptr(), B, Cin,
+                        H, W, Cout, K, padding,
+                        torch.cuda.current_stream(x.device).cuda_stream),
+                     "deform_conv2d")
+    deform_conv2d.launches += 1
+    return out
+
+
+deform_conv2d.launches = 0
+deform_conv2d.plain_calls = 0

@@ -1,10 +1,9 @@
-"""Deformable-attention kernels (K1-K3, K5-K7) and their plain versions.
+"""Deformable-attention kernels (K1-K3, K5-K9) and their plain versions.
 
 The port's counterpart of `devis_tpu/ops/ms_deform_attn_pallas.py`. Each
 public op takes the JAX package's q-major layout and dispatches on where its
 tensors lie: on the CPU it runs the plain PyTorch version; on a CUDA device it
-launches the hand-written kernel from `csrc/ms_deform_attn.cu` or
-`csrc/ms_deform_attn_rows.cu`, or raises. `launches` counts kernel launches
+launches the hand-written kernel from `csrc/ms_deform_attn*.cu`, or raises. `launches` counts kernel launches
 and `plain_calls` CPU dispatches, per op.
 
   * K1 `msda_temporal_proj` (encoder; replaces `_fwd_kernel_temporal_proj`):
@@ -27,9 +26,20 @@ and `plain_calls` CPU dispatches, per op.
     (replaces `_bwd_kernel_rows`): single-frame attention, value
     (B, S, M, D) at any D, loc (B, Q, M, L, P, 2), att (B, Q, M, L, P), and
     its backward.
+  * K8 `msda_proj` (replaces `_fwd_kernel_proj`): single-frame attention
+    from the raw projections, the image model's encoder and first decoder
+    layer: value (B, S, M, D), references (B, Q, L, 2), offsets
+    (B, Q, M*L*P*2), logits (B, Q, M*L*P). Locations = ref + off / (w_l, h_l)
+    and one softmax per (b, q, m) over L*P, both inside the kernel.
+  * K9 `msda_taps_bwd` (replaces `_bwd_kernel`): the backward of the q-major
+    op from precomputed taps: idx, wt (B, MG, Q, L, 4P) from `taps`, the
+    output gradient (B, Q, MG*D) -> grad_value and grad_wt. MG = M * G heads
+    may share the M value heads. `msda_taps` is that op: forward K6,
+    backward K9 plus the chain rule through `taps` (the image decoder's
+    layers with 4-d reference points).
 
-On a CUDA tensor K1, K3 and K6 run as `torch.autograd.Function`s whose
-backward is K5, K5 and K7. K1's backward rebuilds loc and att from the raw projections
+On a CUDA tensor K1, K3, K6 and K8 run as `torch.autograd.Function`s whose
+backward is K5, K5, K7 and K7 (`msda_taps`: K6 forward, K9 backward). K1's backward rebuilds loc and att from the raw projections
 under autograd, launches K5 and lets autograd chain the loc and att gradients
 to references, offsets and logits. On the CPU autograd differentiates the
 plain versions. The value gradient is summed with f32 atomics: equal inputs
@@ -46,7 +56,7 @@ import ctypes
 import torch
 
 from . import _build
-from .ms_deform_attn import (Shapes, ms_deform_attn,
+from .ms_deform_attn import (Shapes, level_start_index, ms_deform_attn,
                              ms_deform_attn_temporal_plain, normalize_shapes,
                              rule_window)
 
@@ -190,14 +200,20 @@ def _rule_args(rule):
     return int(rule[0] == "all"), _build.int_array(offsets)
 
 
+_SINGLE_FRAME = {"msda_rows": "ms_deform_attn_rows",
+                 "msda_proj": "ms_deform_attn_proj",
+                 "msda_taps_bwd": "ms_deform_attn_taps"}
+
+
 def _function(name: str, n_ptrs: int, n_ints: int):
     """A typed C entry: `n_ptrs` device pointers, `n_ints` ints, then the
     level table and L, then W (tap windows) or the rule (flag, offsets, W)
     (temporal attention) or nothing (single-frame attention), then the
     stream."""
-    rows = name.startswith("msda_rows")
-    fn = getattr(_build.library("ms_deform_attn_rows" if rows else "ms_deform_attn"),
-                 name)
+    source = next((lib for prefix, lib in _SINGLE_FRAME.items()
+                   if name.startswith(prefix)), None)
+    rows = source is not None
+    fn = getattr(_build.library(source or "ms_deform_attn"), name)
     if fn.argtypes is None:
         P, I, A = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
         tail = [A, I] if rows else [A, I, I] if name.startswith("msda_tap_window") \
@@ -509,3 +525,249 @@ def msda_rows_bwd(value, spatial_shapes, loc, att, grad_out):
 
 msda_rows_bwd.launches = 0
 msda_rows_bwd.plain_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: single-frame attention from raw projections
+# ---------------------------------------------------------------------------
+
+def proj_locations(spatial_shapes, ref, off, n_heads: int):
+    """(B, Q, M, L, P, 2) f32 locations from references (B, Q, L, 2) and raw
+    offsets (B, Q, M*L*P*2), with the same f32 operations as K8."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    B, Q, L, _ = ref.shape
+    o = off.float().reshape(B, Q, n_heads, L, -1, 2)
+    inv_w, inv_h = _inv(spatial_shapes, ref.device)
+    ref = ref.float()
+    lx = ref[:, :, None, :, None, 0] + o[..., 0] * inv_w[:, None]
+    ly = ref[:, :, None, :, None, 1] + o[..., 1] * inv_h[:, None]
+    return torch.stack([lx, ly], -1)
+
+
+def proj_weights(logit, n_heads: int, n_levels: int):
+    """(B, Q, M, L, P) f32 softmax per head over the L*P logits."""
+    B, Q, _ = logit.shape
+    att = torch.softmax(logit.float().reshape(B, Q, n_heads, -1), dim=-1)
+    return att.reshape(B, Q, n_heads, n_levels, -1)
+
+
+def msda_proj_plain(value, spatial_shapes, ref, off, logit):
+    """Plain K8: the rows are built in PyTorch, then sampled."""
+    M = value.shape[2]
+    loc = proj_locations(spatial_shapes, ref, off, M)
+    att = proj_weights(logit, M, len(spatial_shapes))
+    return ms_deform_attn(value, spatial_shapes, loc, att)
+
+
+def _launch_proj(value, spatial_shapes, ref, off, logit):
+    B, S, M, D = value.shape
+    _, Q, L, _ = ref.shape
+    P = logit.shape[-1] // (M * L)
+    _check_geometry("msda_proj", spatial_shapes, D, 0)
+    _check_cuda("msda_proj", value.device, (value, off, logit), value.dtype)
+    _check_cuda("msda_proj", value.device, (ref,), torch.float32)
+    if value.dtype not in _DTYPES:
+        raise ValueError(f"msda_proj: unsupported dtype {value.dtype}")
+    if (S != sum(h * w for h, w in spatial_shapes) or L != len(spatial_shapes)
+            or tuple(ref.shape) != (B, Q, L, 2)
+            or tuple(off.shape) != (B, Q, M * L * P * 2)
+            or tuple(logit.shape) != (B, Q, M * L * P)):
+        raise ValueError("msda_proj: inconsistent shapes")
+    out = torch.empty((B, Q, M * D), dtype=value.dtype, device=value.device)
+    fn = _function(f"msda_proj_{_DTYPES[value.dtype]}", 5, 6)
+    with torch.cuda.device(value.device):
+        _build.check(fn(value.data_ptr(), ref.data_ptr(), off.data_ptr(),
+                        logit.data_ptr(), out.data_ptr(), B, Q, S, M, D, P,
+                        _levels(spatial_shapes), L, _stream(value)), "msda_proj")
+    msda_proj.launches += 1
+    return out
+
+
+class MSDAProjFunction(torch.autograd.Function):
+    """K8 forward. The backward splits as the JAX package's VJP does: loc and
+    att are rebuilt from the raw projections under autograd, K7 gives their
+    gradients and the value's, and autograd chains them to the references,
+    offsets and logits."""
+
+    @staticmethod
+    def forward(ctx, value, ref, off, logit, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, ref, off, logit)
+        return _launch_proj(value, spatial_shapes, ref, off, logit)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, *proj = ctx.saved_tensors
+        M = value.shape[2]
+        needs = ctx.needs_input_grad[1:4]
+        with torch.enable_grad():
+            ref, off, logit = (t.detach().requires_grad_(n)
+                               for t, n in zip(proj, needs))
+            loc = proj_locations(ctx.spatial_shapes, ref, off, M)
+            att = proj_weights(logit, M, len(ctx.spatial_shapes))
+        g_value, g_loc, g_att = msda_rows_bwd(
+            value, ctx.spatial_shapes, loc.detach().contiguous(),
+            att.detach().contiguous(), grad_out.contiguous())
+        leaves = [t for t in (ref, off, logit) if t.requires_grad]
+        grads = iter(torch.autograd.grad([loc, att], leaves, [g_loc, g_att],
+                                         allow_unused=True) if leaves else ())
+        g_proj = [next(grads) if n else None for n in needs]
+        return (g_value if ctx.needs_input_grad[0] else None, *g_proj, None)
+
+
+def msda_proj(value, spatial_shapes, ref, off, logit):
+    """K8 (see module docstring). Returns (B, Q, M*D) in the value's dtype."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    if not value.is_cuda:
+        msda_proj.plain_calls += 1
+        return msda_proj_plain(value, spatial_shapes, ref, off, logit)
+    return MSDAProjFunction.apply(value, ref, off, logit, spatial_shapes)
+
+
+msda_proj.launches = 0
+msda_proj.plain_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: the q-major op's backward from precomputed taps
+# ---------------------------------------------------------------------------
+
+def taps(spatial_shapes, loc, att):
+    """The four bilinear entries of every sampling point.
+
+    loc (B, Q, M, L, P, 2); att (B, Q, M, L, P) -> idx (B, M, Q, L, 4P) int32,
+    the level-local raster index of each entry's pixel (clamped into the
+    level), and wt (B, M, Q, L, 4P) f32 = bilinear weight * validity *
+    attention weight. The entries of point p are 4p .. 4p+3 in the order
+    top-left, top-right, bottom-left, bottom-right. wt is differentiable with
+    respect to loc and att; an entry outside the level has weight 0 and gives
+    both a zero gradient."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    B, Q, M, L, P, _ = loc.shape
+    dev = loc.device
+    hs = torch.tensor([h for h, _ in spatial_shapes], device=dev).view(1, 1, 1, L, 1)
+    ws = torch.tensor([w for _, w in spatial_shapes], device=dev).view(1, 1, 1, L, 1)
+    x = loc[..., 0].float() * ws - 0.5                     # (B, Q, M, L, P)
+    y = loc[..., 1].float() * hs - 0.5
+    x0 = torch.floor(x).detach()
+    y0 = torch.floor(y).detach()
+    dx = x - x0
+    dy = y - y0
+    x0i = x0.long()
+    y0i = y0.long()
+    attf = att.float()
+    idxs, wts = [], []
+    for oy, ox, tw in ((0, 0, (1 - dy) * (1 - dx)), (0, 1, (1 - dy) * dx),
+                       (1, 0, dy * (1 - dx)), (1, 1, dy * dx)):
+        yi, xi = y0i + oy, x0i + ox
+        valid = ((xi >= 0) & (xi < ws) & (yi >= 0) & (yi < hs)).float()
+        idxs.append(torch.minimum(yi.clamp(min=0), hs - 1) * ws
+                    + torch.minimum(xi.clamp(min=0), ws - 1))
+        wts.append(tw * valid * attf)
+    idx = torch.stack(idxs, -1).reshape(B, Q, M, L, P * 4).to(torch.int32)
+    wt = torch.stack(wts, -1).reshape(B, Q, M, L, P * 4)
+    return idx.permute(0, 2, 1, 3, 4).contiguous(), wt.permute(0, 2, 1, 3, 4).contiguous()
+
+
+def msda_taps_bwd_plain(value, spatial_shapes, idx, wt, grad_out):
+    """Plain K9. value (B, S, M, D); idx, wt (B, MG, Q, L, K4); grad_out
+    (B, Q, MG*D). Returns (grad_value (B, S, M, D) in the value's dtype,
+    grad_wt f32 like wt). An index outside its level contributes nothing."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    B, S, M, D = value.shape
+    _, MG, Q, L, K4 = idx.shape
+    G = MG // M
+    g = grad_out.float().reshape(B, Q, MG, D).permute(0, 2, 1, 3)     # (B, MG, Q, D)
+    v = value.float().permute(0, 2, 1, 3).repeat_interleave(G, dim=1)  # (B, MG, S, D)
+    grad_v = torch.zeros_like(v)
+    grad_wt = []
+    for lvl, ((h, w), start) in enumerate(zip(spatial_shapes,
+                                              level_start_index(spatial_shapes))):
+        i = idx[:, :, :, lvl].long()                                  # (B, MG, Q, K4)
+        ok = (i >= 0) & (i < h * w)
+        rows = (i.clamp(0, h * w - 1) + start).reshape(B, MG, Q * K4, 1).expand(-1, -1, -1, D)
+        gathered = torch.gather(v, 2, rows).reshape(B, MG, Q, K4, D)
+        grad_wt.append((gathered * g[:, :, :, None]).sum(-1) * ok)
+        contrib = (wt[:, :, :, lvl].float() * ok)[..., None] * g[:, :, :, None]
+        grad_v.scatter_add_(2, rows, contrib.reshape(B, MG, Q * K4, D))
+    grad_v = grad_v.reshape(B, M, G, S, D).sum(2).permute(0, 2, 1, 3)
+    return grad_v.to(value.dtype).contiguous(), torch.stack(grad_wt, 3)
+
+
+def msda_taps_bwd(value, spatial_shapes, idx, wt, grad_out):
+    """K9 (see module docstring). Returns (grad_value in the value's dtype,
+    grad_wt f32)."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    if not value.is_cuda:
+        msda_taps_bwd.plain_calls += 1
+        return msda_taps_bwd_plain(value, spatial_shapes, idx, wt, grad_out)
+    B, S, M, D = value.shape
+    _, MG, Q, L, K4 = idx.shape
+    if L > _MAX_LEVELS or L != len(spatial_shapes):
+        raise ValueError(f"msda_taps_bwd: {L} levels for {len(spatial_shapes)} "
+                         f"shapes (at most {_MAX_LEVELS})")
+    if value.dtype not in _DTYPES:
+        raise ValueError(f"msda_taps_bwd: unsupported dtype {value.dtype}")
+    _check_cuda("msda_taps_bwd", value.device, (value, grad_out), value.dtype)
+    _check_cuda("msda_taps_bwd", value.device, (idx,), torch.int32)
+    _check_cuda("msda_taps_bwd", value.device, (wt,), torch.float32)
+    if (S != sum(h * w for h, w in spatial_shapes) or MG % M
+            or tuple(wt.shape) != tuple(idx.shape)
+            or tuple(grad_out.shape) != (B, Q, MG * D)):
+        raise ValueError("msda_taps_bwd: inconsistent shapes")
+    g_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+    g_wt = torch.empty_like(wt)
+    fn = _function(f"msda_taps_bwd_{_DTYPES[value.dtype]}", 6, 7)
+    with torch.cuda.device(value.device):
+        _build.check(fn(value.data_ptr(), idx.data_ptr(), wt.data_ptr(),
+                        grad_out.data_ptr(), g_value.data_ptr(), g_wt.data_ptr(),
+                        B, Q, S, M, MG // M, D, K4, _levels(spatial_shapes), L,
+                        _stream(value)), "msda_taps_bwd")
+    msda_taps_bwd.launches += 1
+    return g_value.to(value.dtype), g_wt
+
+
+msda_taps_bwd.launches = 0
+msda_taps_bwd.plain_calls = 0
+
+
+class MSDATapsFunction(torch.autograd.Function):
+    """The q-major op: K6 forward; backward K9 on the taps of (loc, att),
+    then the chain rule through `taps` for grad_loc and grad_att."""
+
+    @staticmethod
+    def forward(ctx, value, loc, att, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, att)
+        return _launch_rows(value, spatial_shapes, loc, att)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, att = ctx.saved_tensors
+        needs = ctx.needs_input_grad[1:3]
+        with torch.enable_grad():
+            loc, att = (t.detach().requires_grad_(n)
+                        for t, n in zip((loc, att), needs))
+            idx, wt = taps(ctx.spatial_shapes, loc, att)
+        g_value, g_wt = msda_taps_bwd(value, ctx.spatial_shapes, idx, wt.detach(),
+                                      grad_out.contiguous().to(value.dtype))
+        leaves = [t for t in (loc, att) if t.requires_grad]
+        grads = iter(torch.autograd.grad(wt, leaves, g_wt, allow_unused=True)
+                     if leaves else ())
+        g_rows = [next(grads) if n else None for n in needs]
+        return (g_value if ctx.needs_input_grad[0] else None, *g_rows, None)
+
+
+def msda_taps(value, spatial_shapes, loc, att):
+    """The generic q-major attention `ms_deform_attn(value, shapes, loc, att)`
+    of the JAX package's Pallas route: K6 forward, K9 backward. loc
+    (B, Q, M, L, P, 2) f32, att (B, Q, M, L, P) f32 with the value's M heads
+    (K6 has no grouped heads; K9 alone takes them). Returns (B, Q, M*D)."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    if not value.is_cuda:
+        msda_taps.plain_calls += 1
+        return ms_deform_attn(value, spatial_shapes, loc, att)
+    return MSDATapsFunction.apply(value, loc, att, spatial_shapes)
+
+
+msda_taps.plain_calls = 0     # its launches count as K6's (`msda_rows`) and K9's

@@ -3,7 +3,11 @@
 `from_jax_params` is the inverse of the torch→flax loader of the JAX package
 (`devis_tpu/util/checkpoint.py`), with its own copy of the name mapping: the
 port's parameters carry the reference torch `state_dict` names, so the same
-mapping serves reference checkpoints. The layout changes are transposes, so
+mapping serves reference checkpoints. One rule set covers the clip model
+(`DeVIS`) and the image models (`DeformableDETRSegm`, `DeformableDETR`):
+`detr` → `def_detr`, indexed layers and heads, the `MSDeformAttn` and
+temporal attention projections by their own names, the mask head's
+`regular_conv`. The layout changes are transposes, so
 the same function carries a JAX gradient tree (its leaves under `params/`)
 to the port's parameter names.
 """

@@ -16,7 +16,11 @@ PORT_MODULES = ("devis_torch", "devis_torch.config", "devis_torch.models",
                 "devis_torch.ops.deform_conv", "devis_torch.ops.interpolate",
                 "devis_torch.ops.hungarian", "devis_torch.models.matcher",
                 "devis_torch.models.criterion", "devis_torch.engine",
-                "devis_torch.util.misc", "devis_torch.util.synthetic")
+                "devis_torch.util.misc", "devis_torch.util.synthetic",
+                "devis_torch.ops.ms_deform_attn", "devis_torch.ops._build",
+                "devis_torch.models.attention", "devis_torch.models.transformer",
+                "devis_torch.models.position_encoding", "devis_torch.models.detr",
+                "devis_torch.models.segmentation", "devis_torch.models.devis_model")
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -77,12 +81,37 @@ def test_entry_points_need_an_explicit_cpu(monkeypatch):
     VISInferFn(model, 2, [(64, 64)], device="cpu")
 
 
+def test_image_entry_points_need_an_explicit_cpu(monkeypatch):
+    """`build_model` for `coco` and `evaluate_coco` raise without a GPU
+    rather than run on the CPU, unless the caller asks for the CPU."""
+    from devis_torch.inference import evaluate_coco
+    from devis_torch.models import build_model
+    from devis_torch.util.synthetic import SyntheticImageDataset
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mask_on in (True, False):
+        cfg = _small_cfg()
+        cfg.DATASETS.TYPE = "coco"
+        cfg.MODEL.MASK_ON = mask_on
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(91, cfg)
+        model = build_model(91, cfg, device="cpu")
+        assert type(model).__name__ == ("DeformableDETRSegm" if mask_on else "DeformableDETR")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_coco(model, SyntheticImageDataset(0, []), cfg, None)
+
+
 def test_other_model_families_name_their_roadmap_item():
     from devis_torch.models import build_model
     cfg = _small_cfg()
-    cfg.DATASETS.TYPE = "coco"
+    cfg.DATASETS.TYPE = "coco_panoptic"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(91, cfg, device="cpu")
+    for key in ("WITH_BBX_REFINE", "WITH_REF_POINT_REFINE"):
+        cfg = _small_cfg()
+        cfg.DATASETS.TYPE = "coco"
+        setattr(cfg.MODEL, key, key == "WITH_REF_POINT_REFINE")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(91, cfg, device="cpu")
     cfg = _small_cfg()
     cfg.MODEL.BACKBONE = "swin_t"
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -6,7 +6,8 @@ import pytest
 import torch
 
 from devis_torch.ops import ms_deform_attn_cuda as K
-from devis_torch.ops.deform_conv import (modulated_deform_conv2d,
+from devis_torch.ops.deform_conv import (deform_conv2d, deform_conv2d_plain,
+                                         modulated_deform_conv2d,
                                          modulated_deform_conv2d_plain)
 from devis_torch.ops.ms_deform_attn import (ms_deform_attn,
                                             ms_deform_attn_temporal_plain,
@@ -56,6 +57,15 @@ def test_tap_window_kernel(dev, rule):
     _, ref, c_off, t_off, _, _ = _proj(dev, rule)
     assert torch.equal(K.msda_tap_window(SHAPES, ref, c_off, t_off, 2),
                        K.msda_tap_window_plain(SHAPES, ref, c_off, t_off, 2))
+
+
+def test_tap_window_kernel_takes_an_empty_temporal_part(dev):
+    """F = 1: the windows of the single-frame projection-fused attention."""
+    _, ref, c_off, _, _, _ = _proj(dev, ("all",))
+    t_off = c_off.new_zeros(c_off.shape[:2] + (0,))
+    got = K.msda_tap_window(SHAPES, ref, c_off, t_off, 2)
+    assert got.shape == (3, 2, 2, L, 2)
+    assert torch.equal(got, K.msda_tap_window_plain(SHAPES, ref, c_off, t_off, 2))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -185,3 +195,121 @@ def test_dcn_layer_gives_gradients(dev, cin, cout):
         k4 = modulated_deform_conv2d(*a)
     leaves = [t.detach().requires_grad_(True) for t in a]
     _close(modulated_deform_conv2d(*leaves), k4, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the image model's kernels: K8 (projection-fused forward), K9 (backward from
+# precomputed taps) and K10 (deformable conv from given fields)
+# ---------------------------------------------------------------------------
+
+def _proj_single(dev, B=2, Q=150, M=2, D=16, P=2, dtype=torch.float32, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, k=1.0: (torch.randn(*s, generator=g, device=dev) * k).to(dtype)  # noqa: E731
+    return (r(B, S, M, D), torch.rand(B, Q, L, 2, generator=g, device=dev),
+            r(B, Q, M * L * P * 2, k=3.0), r(B, Q, M * L * P))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D,P,Q", [(2, 16, 2, 150), (8, 32, 4, 37), (1, 5, 3, 9)])
+def test_proj_kernel(dev, dtype, M, D, P, Q):
+    a = _proj_single(dev, Q=Q, M=M, D=D, P=P, dtype=dtype)
+    before = K.msda_proj.launches
+    got = K.msda_proj(a[0], SHAPES, *a[1:])
+    assert K.msda_proj.launches == before + 1
+    _close(got, K.msda_proj_plain(a[0], SHAPES, *a[1:]), dtype)
+
+
+def test_proj_kernel_and_plain_version_share_their_locations(dev):
+    """Equal f32 locations: with one-hot attention on one tap and a value
+    that is its own raster index, a tap that floors differently would move
+    the output by a whole pixel."""
+    value, ref, off, logit = _proj_single(dev, M=1, D=1, P=1, Q=4000)
+    logit = torch.full_like(logit, -30.0)
+    logit[..., 0] = 30.0
+    value = torch.arange(S, device=dev, dtype=torch.float32).reshape(1, S, 1, 1).repeat(2, 1, 1, 1)
+    got = K.msda_proj(value, SHAPES, ref, off, logit)
+    want = K.msda_proj_plain(value, SHAPES, ref, off, logit)
+    assert (got - want).abs().max() < 1e-3
+
+
+def test_proj_function_gives_gradients(dev):
+    """K8 on inputs that require grad: K7 gives the gradients of the value,
+    references, offsets and logits, none zero, equal to the plain version's."""
+    a = _proj_single(dev)
+    before = (K.msda_proj.launches, K.msda_rows_bwd.launches)
+    got = _grads(lambda *t: K.msda_proj(t[0], SHAPES, *t[1:]), a)
+    assert (K.msda_proj.launches, K.msda_rows_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = _grads(lambda *t: K.msda_proj_plain(t[0], SHAPES, *t[1:]), a)
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        assert g.abs().max() > 0
+        _close(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,G,D,Q", [(2, 1, 32, 9), (1, 3, 5, 33), (2, 2, 72, 20)])
+def test_taps_bwd_kernel(dev, dtype, M, G, D, Q):
+    """K9 at grouped heads and ragged widths; bf16 against the plain version
+    on the upcast inputs. Some indices lie outside their level."""
+    value, loc, att, grad = _rows_inputs(dev, dtype, 2, Q, M * G, D, 2, L, seed=6)
+    value = value[:, :, :M].contiguous()
+    idx, wt = K.taps(SHAPES, loc, att)
+    idx[:, :, ::3, :, 0] = -1
+    idx[:, :, 1::3, :, 1] = 10 ** 6
+    got_v, got_w = K.msda_taps_bwd(value, SHAPES, idx, wt, grad)
+    want_v, want_w = K.msda_taps_bwd_plain(value.float(), SHAPES, idx, wt, grad.float())
+    assert got_v.dtype == dtype and got_w.dtype == torch.float32
+    _close(got_v, want_v, dtype)
+    _close(got_w, want_w, torch.float32)
+    assert (got_w[:, :, ::3, :, 0] == 0).all() and (got_w[:, :, 1::3, :, 1] == 0).all()
+
+
+def test_taps_function_gives_gradients(dev):
+    """The q-major op on inputs that require grad: K6 forward, K9 backward,
+    gradients of the value, locations and weights equal to the plain
+    version's; taps outside the map get exactly zero."""
+    value, loc, att, _ = _rows_inputs(dev, torch.float32, 2, 9, 2, 32, 2, L, seed=7)
+    loc[:, 0] = -3.0                                     # every tap of query 0 is dead
+    before = (K.msda_rows.launches, K.msda_taps_bwd.launches, K.msda_rows_bwd.launches)
+    got = _grads(lambda v, l, a: K.msda_taps(v, SHAPES, l, a), (value, loc, att))
+    assert (K.msda_rows.launches, K.msda_taps_bwd.launches, K.msda_rows_bwd.launches) \
+        == (before[0] + 1, before[1] + 1, before[2])
+    want = _grads(lambda v, l, a: ms_deform_attn(v, SHAPES, l, a), (value, loc, att))
+    for g, w in zip(got, want):
+        assert g.abs().max() > 0
+        _close(g, w, torch.float32)
+    assert (got[1][:, 0] == 0).all() and (got[2][:, 0] == 0).all()
+
+
+def _fields(dev, dtype, cin, cout, h, w, seed=8):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, k=1.0: torch.randn(*s, generator=g, device=dev) * k  # noqa: E731
+    return [r(3, cin, h, w).to(dtype), r(3, 18, h, w, k=2.5).to(dtype),
+            (torch.rand(3, 9, h, w, generator=g, device=dev) * 2).to(dtype),
+            r(3, 3, cin, cout, k=1 / (9 * cin) ** 0.5).to(dtype), r(cout)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,h,w", [(40, 24, 7, 9), (16, 1, 20, 30)])
+def test_deform_conv2d_kernel(dev, dtype, cin, cout, h, w):
+    x, offset, mask, weight, bias = _fields(dev, dtype, cin, cout, h, w)
+    before = deform_conv2d.launches
+    got = deform_conv2d(x, offset, mask, weight, bias)
+    assert deform_conv2d.launches == before + 1 and got.dtype == dtype
+    want = deform_conv2d_plain(x, offset, mask, weight) + bias[None, :, None, None]
+    _close(got, want, dtype)
+
+
+def test_deform_conv2d_gives_gradients(dev):
+    """With a gradient wanted the op takes the K6/K7 route, not K10."""
+    a = _fields(dev, torch.float32, 40, 24, 7, 9)
+    before = (K.msda_rows.launches, K.msda_rows_bwd.launches, deform_conv2d.launches)
+    got = _grads(lambda *t: deform_conv2d(*t), a)
+    assert (K.msda_rows.launches, K.msda_rows_bwd.launches, deform_conv2d.launches) \
+        == (before[0] + 1, before[1] + 1, before[2])
+    want = _grads(lambda x, o, m, w, b: deform_conv2d_plain(x, o, m, w)
+                  + b[None, :, None, None], a)
+    assert len(got) == 5
+    for g, w in zip(got, want):
+        assert g.abs().max() > 0
+        _close(g, w, torch.float32)
