@@ -9,7 +9,9 @@
    main-path shapes: f32 with TF32 off to 1e-4 of max|plain|, bf16 to 2e-2.
    Offsets are random and off the pixel grid. Times kernel and plain version
    with CUDA events. K1 encoder temporal attention, K2 tap windows, K3
-   decoder temporal attention, K4 DCNv2 layer; K5 backward of K1/K3 at the
+   decoder temporal attention, K4 DCNv2 layer (each layer also timed beside
+   the route the layer takes under a gradient, `modulated_deform_conv2d_rows`,
+   run without one: the yardstick of the fused kernel); K5 backward of K1/K3 at the
    encoder's and the decoder's shapes; K6 and K7, single-frame attention
    forward and backward, at the six mask-head layers; the differentiable
    DCNv2 route (K6) against K4. A backward kernel's bf16 run is held against
@@ -41,7 +43,8 @@
    canvas). K8 (projection-fused attention) at the encoder's and at decoder
    layer 0's shape, K9 (backward from taps) at the decoder's shape, K10
    (deformable conv from given fields) and K4 at the six mask-head layers at
-   batch 50, K6 and K7 at the decoder's shape (1 and 2 images) and K7 at the
+   batch 50 (each beside its route: `deform_conv2d_rows`,
+   `modulated_deform_conv2d_rows`), K6 and K7 at the decoder's shape (1 and 2 images) and K7 at the
    encoder's (Q = S, 2 images), each against its plain version. The
    inference path:
    `build_model` and `evaluate_coco` over a seeded synthetic dataset, 1
@@ -282,11 +285,18 @@ def tap_window_phase(torch, model, x, pad, results):
 
 
 def dcn_phase(torch, dev, gen, results):
+    """K4 at the clip's six mask-head layers against its plain version, and
+    timed beside the route the layer takes under a gradient
+    (`modulated_deform_conv2d_rows`: cuDNN field convolutions, a cuBLAS
+    premix and K6's gather), here without one: the yardstick the fused
+    kernel has to beat."""
     from devis_torch.ops.deform_conv import (modulated_deform_conv2d,
-                                             modulated_deform_conv2d_plain)
+                                             modulated_deform_conv2d_plain,
+                                             modulated_deform_conv2d_rows)
     log(f"K4 modulated_deform_conv2d, B={DCN_B}, per mask-head layer")
     K = 3
-    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0)
+    tot = dict(ms=0.0, plain_ms=0.0, route_ms=0.0, bytes=0, flops=0)
+    layers = []
     err_max = 0.0
     for name, cin, cout, h, w in DCN_LAYERS:
         def rnd(*shape, scale=1.0):
@@ -306,19 +316,25 @@ def dcn_phase(torch, dev, gen, results):
         err_max = max(err_max, err)
         ms = cuda_time(lambda: modulated_deform_conv2d(*a16), 10)
         plain_ms = cuda_time(lambda: modulated_deform_conv2d_plain(*a16), 2, 1)
+        route = [t.to(torch.bfloat16) for t in args]      # the model's bf16 biases
+        route_ms = cuda_time(lambda: modulated_deform_conv2d_rows(*route), 10)
         hw = h * w
         flops = 2 * DCN_B * hw * K * K * (3 * K * K * cin + 4 * cin + cin * cout)
         nbytes = (x.numel() + sum(t.numel() for t in a16[1::2]) + DCN_B * cout * hw) * 2
-        log(f"    {name} {cin}->{cout} at {h}x{w}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        log(f"    {name} {cin}->{cout} at {h}x{w}: kernel {ms:.3f} ms, route {route_ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms")
+        layers.append(dict(layer=name, ms=ms, route_ms=route_ms))
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
+        tot["route_ms"] += route_ms
         tot["bytes"] += nbytes
         tot["flops"] += flops
     results["K4"] = dict(
         name="modulated_deform_conv2d", route="cuda", source="devis_torch/csrc/deform_conv.cu",
         replaces="devis_tpu/ops/deform_conv_banded.py:169", max_abs_err=err_max,
         ms=tot["ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"], flops=tot["flops"],
-        flop_rate=BF16_TC_FLOPS, library_ms=None)
+        flop_rate=BF16_TC_FLOPS, library_ms=None, route_ms=tot["route_ms"], layers=layers)
+    log(f"    six layers: K4 {tot['ms']:.3f} ms, route {tot['route_ms']:.3f} ms")
 
 
 def backward_cost(loc, att, value, shapes, frames, d):
@@ -492,7 +508,7 @@ KERNEL_GROUPS = {"K1 msda_temporal_proj": "msda_temporal_proj_kernel",
                  "K6 msda_rows": "msda_rows_kernel",
                  "K8 msda_proj": "msda_proj_kernel",
                  "K9 msda_taps_bwd": "msda_taps_bwd_kernel",
-                 "K4 / K10 dcn_layer": "dcn_layer_kernel"}
+                 "K4 / K10 dcn_layer": "dcn_layer_"}   # dcn_layer_mma_kernel, _f32_kernel
 
 
 def profile_run(torch, what, fn):
@@ -934,8 +950,9 @@ def coco_kernel_phases(torch, dev, gen, results):
     against their plain versions."""
     from devis_torch.ops import ms_deform_attn_cuda as K
     from devis_torch.ops.deform_conv import (deform_conv2d, deform_conv2d_plain,
-                                             modulated_deform_conv2d,
-                                             modulated_deform_conv2d_plain)
+                                             deform_conv2d_rows, modulated_deform_conv2d,
+                                             modulated_deform_conv2d_plain,
+                                             modulated_deform_conv2d_rows)
     from devis_torch.ops.ms_deform_attn import ms_deform_attn
 
     L = len(COCO_SHAPES)
@@ -1059,8 +1076,11 @@ def coco_kernel_phases(torch, dev, gen, results):
     rows_at(f"encoder B={B} Q={S}", value, loc, att, rnd(B, S, M * D), forward=False)
     del value, loc, att
 
-    log(f"K10 deform_conv2d (and K4 on the same layers), B={COCO_OUT}, per mask-head layer")
-    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, k4=0.0)
+    log(f"K10 deform_conv2d (and K4 on the same layers), B={COCO_OUT}, per mask-head layer; "
+        "each beside its route without a gradient (cuDNN fields, cuBLAS premix, K6)")
+    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, k4=0.0, route_ms=0.0,
+               k4_route=0.0, k4_flops=0, k4_bytes=0)
+    layers, k4_layers = [], []
     with torch.inference_mode():
         for name, cin, cout, h, w in COCO_DCN_LAYERS:
             hw = h * w
@@ -1080,32 +1100,46 @@ def coco_kernel_phases(torch, dev, gen, results):
                                                  plain16(), 2e-2))
             ms = cuda_time(lambda: deform_conv2d(*a16), 5)
             plain_ms = cuda_time(plain16, 2, 1)
+            route_ms = cuda_time(lambda: deform_conv2d_rows(*a16), 5)
             k4 = [a16[0], bf(rnd(3, 3, cin, 18, scale=2.0 / fan)), rnd(18, scale=0.5),
                   bf(rnd(3, 3, cin, 9, scale=1.0 / fan)), rnd(9), a16[3], bias]
             if name in ("lay1", "lay5"):
                 k4_32 = [t.float() for t in k4]
                 compare(f"{name} K4 f32 ", modulated_deform_conv2d(*k4_32),
                         modulated_deform_conv2d_plain(*k4_32), 1e-4)
-                compare(f"{name} K4 bf16", modulated_deform_conv2d(*k4),
-                        modulated_deform_conv2d_plain(*k4), 2e-2)
                 del k4_32
+            compare(f"{name} K4 bf16", modulated_deform_conv2d(*k4),
+                    modulated_deform_conv2d_plain(*k4), 2e-2)
             k4_ms = cuda_time(lambda: modulated_deform_conv2d(*k4), 5)
-            log(f"    {name} {cin}->{cout} at {h}x{w}: K10 {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-                f"K4 (fields computed) {k4_ms:.3f} ms")
+            k4_route = [bf(t) for t in k4]                  # the model's bf16 biases
+            k4_route_ms = cuda_time(lambda: modulated_deform_conv2d_rows(*k4_route), 5)
+            log(f"    {name} {cin}->{cout} at {h}x{w}: K10 {ms:.3f} ms, route {route_ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms; K4 (fields computed) {k4_ms:.3f} ms, route "
+                f"{k4_route_ms:.3f} ms")
+            layers.append(dict(layer=name, ms=ms, route_ms=route_ms))
+            k4_layers.append(dict(layer=name, ms=k4_ms, route_ms=k4_route_ms))
             tot["ms"] += ms
             tot["plain_ms"] += plain_ms
+            tot["route_ms"] += route_ms
             tot["k4"] += k4_ms
+            tot["k4_route"] += k4_route_ms
+            tot["k4_flops"] += 2 * COCO_OUT * hw * 9 * (27 * cin + 4 * cin + cin * cout)
+            tot["k4_bytes"] += (x.numel() + 9 * cin * (27 + cout) + COCO_OUT * cout * hw) * 2
             tot["bytes"] += (x.numel() + offset.numel() + mask.numel() + weight.numel()
                              + COCO_OUT * cout * hw) * 2 + cout * 4
             tot["flops"] += 2 * COCO_OUT * hw * 9 * (4 * cin + cin * cout)
-            del x, offset, mask, a16, k4
+            del x, offset, mask, a16, k4, k4_route
             torch.cuda.empty_cache()
-    log(f"    six layers: K10 {tot['ms']:.3f} ms, K4 {tot['k4']:.3f} ms")
+    k4_bound = max(tot["k4_bytes"] / HBM_BYTES_PER_S, tot["k4_flops"] / BF16_TC_FLOPS) * 1e3
+    log(f"    six layers: K10 {tot['ms']:.3f} ms (route {tot['route_ms']:.3f}), "
+        f"K4 {tot['k4']:.3f} ms (route {tot['k4_route']:.3f}, bound {k4_bound:.4f})")
+    results["K4"].setdefault("coco_shapes", {})[f"six layers B={COCO_OUT}"] = dict(
+        ms=tot["k4"], route_ms=tot["k4_route"], bound_ms=k4_bound, layers=k4_layers)
     results["K10"] = dict(
         name="deform_conv2d", route="cuda", source="devis_torch/csrc/deform_conv.cu",
         replaces="devis_tpu/ops/deform_conv_banded.py:72", max_abs_err=tot["err"],
         ms=tot["ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"], flops=tot["flops"],
-        flop_rate=BF16_TC_FLOPS, library_ms=None)
+        flop_rate=BF16_TC_FLOPS, library_ms=None, route_ms=tot["route_ms"], layers=layers)
     return tot["k4"]
 
 
@@ -1493,7 +1527,8 @@ def main() -> int:
             "train_launches": train_launches.get(r["name"], 0),
             "coco_image_launches": coco_launches.get(r["name"], 0),
             "coco_train_launches": coco_train_launches.get(r["name"], 0),
-            **{k: r[k] for k in ("atomic_bytes", "coco_shapes") if k in r}})
+            **{k: r[k] for k in ("atomic_bytes", "coco_shapes", "route_ms", "layers")
+               if k in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"clip_ms": clip_ms, "fps": STRIDE / clip_ms * 1e3, "card": card}))
     print(json.dumps({"train_step_ms": step_ms, "train_peak_gib": peak_gib, "card": card}))

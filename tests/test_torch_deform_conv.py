@@ -1,6 +1,9 @@
 """Plain version of the port's fused DCNv2 kernel (K4) against the JAX
 package: the exact composition `_mdc_reference` at any offsets, and the
-banded TPU kernel (interpret mode) where every tap is in its band. f32."""
+banded TPU kernel (interpret mode) where every tap is in its band. f32. And
+the plain emulation of the bf16 tensor-core kernel's arithmetic on its
+packed operands (the kernel itself runs only on the card) against
+`_mdc_reference`."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,7 +12,8 @@ import torch.nn.functional as F
 
 from devis_tpu.ops.deform_conv import _mdc_reference
 from devis_tpu.ops.deform_conv_banded import deform_conv2d_banded_fused
-from devis_torch.ops.deform_conv import (modulated_deform_conv2d,
+from devis_torch.ops.deform_conv import (mma_plan, modulated_deform_conv2d,
+                                         modulated_deform_conv2d_emulated,
                                          modulated_deform_conv2d_plain)
 
 B, CIN, COUT, H, W, K = 2, 8, 6, 10, 12, 3
@@ -86,3 +90,46 @@ def test_plain_keeps_input_dtype(rng, dtype):
     assert out.dtype == dtype
     # the plain version computes in f32 and rounds its output once to bf16
     torch.testing.assert_close(out.float(), ref.to(dtype).float(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cin,cout,plan", [
+    (264, 264, (272, 9, 2)), (264, 128, (272, 8, 1)), (136, 64, (144, 4, 1)),
+    (72, 32, (80, 2, 1)), (32, 16, (32, 1, 1)), (16, 1, (16, 1, 1)), (33, 24, (48, 2, 1))])
+def test_mma_plan(cin, cout, plan):
+    """The bf16 kernel's padding and channel tiles at the mask head's widths
+    (and a ragged Cin): Cin to a multiple of 16, at most 144 output channels
+    a block, the fewest blocks."""
+    cin_pad, nt, n_tiles = mma_plan(cin, cout)
+    assert (cin_pad, nt, n_tiles) == plan
+    assert 16 * nt * n_tiles >= cout > 16 * nt * n_tiles - 16 * n_tiles
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("cin,cout,plan", [(40, 150, (48, 5, 2)), (32, 16, (32, 1, 1))])
+def test_kernel_emulation_matches_exact_reference(rng, dtype, tol, cin, cout, plan):
+    """The bf16 kernel's arithmetic on the operands its wrapper packs: Cin 40
+    zero-padded to 48 and Cout 150 in two 80-wide channel tiles; Cin 32 with
+    no padding and Cout 16 in one 16-wide tile (lay5's widths). Taps a few
+    pixels out and some off the map. f32 rounds nothing: summation order
+    only, 1e-5 of max|ref|. bf16 (inputs rounded to bf16, the reference run
+    on the same values in f32): each sampled column and the output are
+    rounded to bf16 once, 1e-2 of max|ref| (about 4e-3 here)."""
+    b, h, w = 2, 6, 7
+    assert mma_plan(cin, cout) == plan
+    fan = np.sqrt(K * K * cin)
+    a = dict(x=rng.randn(b, cin, h, w), w_off=rng.randn(K, K, cin, 2 * K * K) * 3 / fan,
+             b_off=rng.randn(2 * K * K) * 0.3, w_mod=rng.randn(K, K, cin, K * K) / fan,
+             b_mod=rng.randn(K * K), weight=rng.randn(K, K, cin, cout) / fan,
+             bias=rng.randn(cout))
+    t = {k: torch.from_numpy(v.astype(np.float32)) for k, v in a.items()}
+    for k in ("x", "w_off", "w_mod", "weight"):
+        t[k] = t[k].to(dtype)
+    got = modulated_deform_conv2d_emulated(*(t[k] for k in (
+        "x", "w_off", "b_off", "w_mod", "b_mod", "weight", "bias")))
+    assert got.dtype == dtype and got.shape == (b, cout, h, w)
+    want = np.asarray(_mdc_reference(
+        jnp.asarray(t["x"].float().numpy().transpose(0, 2, 3, 1)),
+        *(jnp.asarray(t[k].float().numpy()) for k in (
+            "w_off", "b_off", "w_mod", "b_mod", "weight", "bias")), 1)).transpose(0, 3, 1, 2)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= tol * np.abs(want).max()

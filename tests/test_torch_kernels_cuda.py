@@ -80,8 +80,17 @@ def test_temporal_kernel(dev, dtype):
            ms_deform_attn_temporal_plain(value, SHAPES, loc, att, ("all",)), dtype)
 
 
+# DCNv2 layer shapes, B = 3: Cin not a multiple of 16 (33, 40) and above one
+# 64-wide depth chunk (72, 136, 264); Cout 1, 24 and 264 (two 144-wide
+# channel tiles of the bf16 kernel); H*W never a multiple of its 128-pixel
+# tile. Offsets of 2-3 pixels, some landing off the map. bf16: the tensor-core
+# kernel rounds each sampled column to bf16 (within the bf16 tolerance).
+DCN_SHAPES = [(40, 24, 7, 9), (16, 1, 20, 30), (33, 264, 9, 11), (72, 24, 13, 10),
+              (136, 1, 6, 25), (264, 264, 5, 7)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin,cout,h,w", [(40, 24, 7, 9), (16, 1, 20, 30)])
+@pytest.mark.parametrize("cin,cout,h,w", DCN_SHAPES)
 def test_dcn_kernel(dev, dtype, cin, cout, h, w):
     g = torch.Generator(device=dev).manual_seed(2)
     r = lambda *s, k=1.0: torch.randn(*s, generator=g, device=dev) * k  # noqa: E731
@@ -99,6 +108,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     a = _proj(dev, ("all",))
     with pytest.raises(ValueError, match="float32"):
         K.msda_temporal_proj(a[0], SHAPES, a[1].double(), *a[2:], ("all",))
+    # the bf16 DCNv2 kernel's field GEMM holds 3KK <= 32 channels: K <= 3
+    r = lambda *s: torch.randn(*s, device=dev, dtype=torch.bfloat16)  # noqa: E731
+    with pytest.raises(ValueError, match="K <= 3"):
+        modulated_deform_conv2d(r(1, 8, 6, 6), r(5, 5, 8, 50), r(50), r(5, 5, 8, 25), r(25),
+                                r(5, 5, 8, 4), r(4), 2)
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +304,7 @@ def _fields(dev, dtype, cin, cout, h, w, seed=8):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin,cout,h,w", [(40, 24, 7, 9), (16, 1, 20, 30)])
+@pytest.mark.parametrize("cin,cout,h,w", DCN_SHAPES)
 def test_deform_conv2d_kernel(dev, dtype, cin, cout, h, w):
     x, offset, mask, weight, bias = _fields(dev, dtype, cin, cout, h, w)
     before = deform_conv2d.launches
