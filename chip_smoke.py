@@ -8,7 +8,13 @@
 2. Holds each kernel against its plain PyTorch version at the YT-VIS-19
    main-path shapes: f32 with TF32 off to 1e-4 of max|plain|, bf16 to 2e-2.
    Offsets are random and off the pixel grid. Times kernel and plain version
-   with CUDA events. K1 encoder temporal attention, K2 tap windows, K3
+   with CUDA events. K1 encoder temporal attention on K2's tap windows, at
+   raster references (the encoder's own, with the reference init's offsets)
+   and at random ones (the windows' worst case): the windows' sizes per
+   stage, the corners read from global memory (none may lie in a window
+   that fits its capacity), K1 and K2 apart and together, and the kernel lab
+   (`devis_torch.ops.msda_lab`: every cost-isolation mode's time, `full`
+   over three capacity plans). K3
    decoder temporal attention, K4 DCNv2 layer (each layer also timed beside
    the route the layer takes under a gradient, `modulated_deform_conv2d_rows`,
    run without one: the yardstick of the fused kernel); K5 backward of K1/K3 at the
@@ -21,15 +27,15 @@
    6+6 layers, 60 queries, seeded random weights) and `VISInferFn` over 3
    consecutive clips of a seeded synthetic 360x640 uint8 video. Launch
    counters are zeroed just before and read just after; each clip must
-   launch K1, K3 and K4 six times and no plain path. One clip also runs
-   with the plain versions on the card, and the two are compared. K2 runs
-   on the first encoder layer's inputs. One clip is profiled: device time
-   by kernel group and the device's idle share.
+   launch K1, K2, K3 and K4 six times and no plain path. One clip also runs
+   with the plain versions on the card, and the two are compared. K2 and K1
+   run alone on the first encoder layer's inputs. One clip is profiled:
+   device time by kernel group and the device's idle share.
 4. Drives the train path: the same model in training mode (dropout 0.1,
    mask loss on decoder levels -1 and 2), `create_train_state` and
    `make_train_step` on a seeded synthetic clip with 4 instances in 10
    target slots: 1 warm-up step, then 3 timed steps with the counters zeroed
-   before and read after. Each step must launch K1 and K3 6 times, K5 12
+   before and read after. Each step must launch K1, K2 and K3 6 times, K5 12
    times, K6 and K7 12 times each, K4 never, and no plain path; every loss
    finite, every parameter with a gradient, every trained tensor changed
    (counted), frozen ones not. One step is profiled and one more goes
@@ -183,49 +189,174 @@ def touched_value_bytes(loc, spatial_shapes, table, itemsize):
     return corner_stats(loc, spatial_shapes, frames)[2] * D * itemsize
 
 
+def window_stats(torch, windows, plan, L):
+    """Logs the rows a K2 window spans at each stage (frame slot j, level l):
+    quartiles and maximum over the (t, m, q-block) blocks, the share of
+    blocks over the level's capacity, and the rows a block stages against
+    the corners it reads. Returns the summary for the JSON line."""
+    from devis_torch.ops.ms_deform_attn_cuda import Q_BLOCK
+    n = (windows[..., 1] - windows[..., 0] + 1).clamp(min=0).float()    # (T, M, nqb, Lf)
+    Lf = n.shape[-1]
+    n = n.reshape(-1, Lf)
+    caps = torch.tensor([plan[s % L] for s in range(Lf)], device=n.device, dtype=n.dtype)
+    over = (n > caps).float()
+    qs = torch.quantile(n, torch.tensor([0.25, 0.5, 0.75], device=n.device), dim=0)
+    for j in range(Lf // L):
+        cells = [f"l{l} {qs[0, j * L + l]:.0f}/{qs[1, j * L + l]:.0f}/{qs[2, j * L + l]:.0f} "
+                 f"max {n[:, j * L + l].max():.0f} over {over[:, j * L + l].mean():.3f}"
+                 for l in range(L)]
+        log(f"    window rows j={j} (quartiles, max, share over capacity): " + "; ".join(cells))
+    staged = torch.minimum(n, caps).sum(1).mean().item()
+    corners = Q_BLOCK * Lf * P * 4
+    log(f"    a block stages {staged:.0f} rows on average and reads {corners} corners; "
+        f"{over.mean().item():.3f} of the (block, stage) pairs are over capacity {tuple(plan)}")
+    return dict(quartiles_by_stage=qs.T.tolist(), max_by_stage=n.max(0).values.tolist(),
+                over_share=over.mean().item(), over_by_stage=over.mean(0).tolist(),
+                staged_rows_per_block=staged, corners_per_block=corners)
+
+
+def encoder_inputs(torch, dev, gen, refs):
+    """K1's f32 inputs at the clip's shapes. "raster": the encoder's own
+    references, every pixel of the pyramid a query at its pixel centre, and
+    the reference init's offsets (head direction times point index + 1
+    pixels) plus N(0, 1) pixels. "random": references uniform over the image
+    and offsets N(0, 9) pixels, the worst case for the windows."""
+    from devis_torch.models.attention import (sampling_offsets_bias_init,
+                                              temporal_sampling_offsets_bias_init)
+    from devis_torch.models.transformer import encoder_reference_points
+    L, W = len(SHAPES), T - 1
+    S = Q = sum(h * w for h, w in SHAPES)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    value = rnd(T, S, M, D)
+    if refs == "raster":
+        ref = encoder_reference_points(SHAPES, torch.ones(1, L, 2, device=dev))
+        ref = ref.expand(T, Q, L, 2).contiguous()
+        c_bias = torch.from_numpy(sampling_offsets_bias_init(M, L, P)).to(dev)
+        t_bias = torch.from_numpy(temporal_sampling_offsets_bias_init(M, L, W, P)).to(dev)
+        c_off = c_bias + rnd(T, Q, M * L * P * 2)
+        t_off = t_bias + rnd(T, Q, M * W * L * P * 2)
+    else:
+        ref = torch.rand(T, Q, L, 2, generator=gen, device=dev)
+        c_off = rnd(T, Q, M * L * P * 2, scale=3.0)      # pixels, off the grid
+        t_off = rnd(T, Q, M * W * L * P * 2, scale=3.0)
+    return (value, SHAPES, ref, c_off, t_off, rnd(T, Q, M * L * P), rnd(T, Q, M * W * L * P),
+            ("all",))
+
+
+def k1_phase(torch, dev, gen, results):
+    """K1 (with K2 before it, as the op runs them) at raster and at random
+    references: f32 and bf16 against the plain version, the `count` mode's
+    corners read from global memory (none in a window that fits), the
+    windows' sizes, times; then the kernel lab on the same bf16 inputs."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.ms_deform_attn import temporal_frame_table
+
+    L, W = len(SHAPES), T - 1
+    S = Q = sum(h * w for h, w in SHAPES)
+    table = torch.as_tensor(temporal_frame_table(("all",), T), device=dev)
+    plan = K.window_plan(SHAPES, torch.bfloat16, D, P)
+    out = {}
+    for refs in ("raster", "random"):
+        args32 = encoder_inputs(torch, dev, gen, refs)
+        args16 = tuple(t.to(torch.bfloat16) if torch.is_tensor(t) and t is not args32[2] else t
+                       for t in args32)
+        log(f"K1 msda_temporal_proj (encoder) on K2's windows, {refs} references, "
+            f"T={T} Q=S={S} M={M} D={D} Lf={(1 + W) * L} P={P}, bf16 plan {plan}")
+        compare("f32 ", K.msda_temporal_proj(*args32), K.msda_temporal_proj_plain(*args32),
+                1e-4)
+        err = compare("bf16", K.msda_temporal_proj(*args16),
+                      K.msda_temporal_proj_plain(*args16), 2e-2)
+        windows = K.msda_tap_window(SHAPES, args16[2], args16[3], args16[4], M)
+        stats = window_stats(torch, windows, plan, L)
+        _, reads = K.launch_k1(*args16, windows, plan, "count")
+        log(f"    corners read from global memory: {reads[0].item()} in windows that fit, "
+            f"{reads[1].item()} in windows over capacity (of {T * Q * M * (1 + W) * L * P * 4} "
+            f"corners)")
+        if reads[0].item() != 0:
+            raise AssertionError("a K2 window missed a tap of K1")
+        op_ms = cuda_time(lambda: K.msda_temporal_proj(*args16), 20)
+        k1_ms = cuda_time(lambda: K.launch_k1(*args16, windows, plan), 20)
+        k2_ms = cuda_time(lambda: K.msda_tap_window(SHAPES, args16[2], args16[3], args16[4], M),
+                          20)
+        plain_ms = cuda_time(lambda: K.msda_temporal_proj_plain(*args16), 3, 1)
+        loc = K.temporal_proj_locations(SHAPES, args16[2], args16[3], args16[4], M)
+        io = sum(t.numel() * t.element_size() for t in args16[2:] if torch.is_tensor(t)) \
+            + T * Q * M * D * 2
+        nbytes = io + touched_value_bytes(loc, SHAPES, table, 2)
+        flops = T * Q * M * (1 + W) * L * P * (8 * D + 40)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+        log(f"    K1 + K2 {op_ms:.4f} ms (K1 {k1_ms:.4f}, K2 {k2_ms:.4f}); plain {plain_ms:.3f} "
+            f"ms; bound {bound:.4f} ms")
+        out[refs] = dict(max_abs_err=err, ms=k1_ms, op_ms=op_ms, k2_ms=k2_ms,
+                         plain_ms=plain_ms, bytes=nbytes, flops=flops, bound_ms=bound,
+                         reads=reads.tolist(), windows=stats,
+                         lab=lab_phase(torch, args16, windows, plan, bound))
+        del args32, args16, loc, windows
+        torch.cuda.empty_cache()
+    r = out["raster"]
+    results["K1"] = dict(
+        name="msda_temporal_proj", route="cuda", source="devis_torch/csrc/ms_deform_attn.cu",
+        replaces="devis_tpu/ops/ms_deform_attn_pallas.py:1748",
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bytes=r["bytes"],
+        flops=r["flops"], flop_rate=F32_FLOPS, library_ms=None, op_ms=r["op_ms"],
+        k2_ms=r["k2_ms"], windows=r["windows"], lab=r["lab"],
+        random_refs={k: v for k, v in out["random"].items() if k not in ("bytes", "flops")})
+
+
+def lab_phase(torch, args16, windows, plan, bound):
+    """The kernel lab (`devis_torch.ops.msda_lab`) on K1's bf16 inputs: each
+    mode's time at the default plan, and `full` and `count` over the
+    capacity plans for 1, 2 and 3 blocks an SM. `nostage` must equal `full`
+    to the bit; `count` must read no corner of a fitted window from global
+    memory."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.msda_lab import MODES, lab_temporal_proj
+
+    L = len(SHAPES)
+    full, _ = lab_temporal_proj(*args16, windows, plan, "full")
+    nostage, _ = lab_temporal_proj(*args16, windows, plan, "nostage")
+    if not torch.equal(full, nostage):
+        raise AssertionError("K1 without its window differs from K1")
+    modes = {m: cuda_time(lambda m=m: lab_temporal_proj(*args16, windows, plan, m), 20)
+             for m in MODES}
+    log(f"    lab modes at plan {tuple(plan)}: "
+        + ", ".join(f"{m} {v:.4f} ms" for m, v in modes.items()) + f" (bound {bound:.4f} ms)")
+    sweep = []
+    for blocks in (1, 2, 3):
+        p = K.window_plan(SHAPES, torch.bfloat16, D, P, blocks_per_sm=blocks)
+        ms = cuda_time(lambda: lab_temporal_proj(*args16, windows, p, "full"), 20)
+        _, reads = lab_temporal_proj(*args16, windows, p, "count")
+        caps = torch.tensor([p[s % L] for s in range(windows.shape[-2])], device=windows.device)
+        over = ((windows[..., 1] - windows[..., 0] + 1) > caps).float().mean().item()
+        smem = K.k1_smem_bytes(p, L, T - 1, torch.bfloat16, D, P)
+        log(f"    plan for {blocks} block(s) an SM {p} ({smem} bytes): full {ms:.4f} ms; "
+            f"over capacity {over:.3f}; global reads {reads.tolist()}")
+        if reads[0].item() != 0:
+            raise AssertionError("a K2 window missed a tap of K1")
+        sweep.append(dict(blocks_per_sm=blocks, plan=list(p), smem=smem, ms=ms,
+                          over_share=over, reads=reads.tolist()))
+    return dict(modes=modes, sweep=sweep)
+
+
 def msda_phases(torch, dev, gen, results):
     from devis_torch.ops import ms_deform_attn_cuda as K
     from devis_torch.ops.ms_deform_attn import temporal_frame_table
 
     L = len(SHAPES)
     W = T - 1
-    S = Q = sum(h * w for h, w in SHAPES)
+    S = sum(h * w for h, w in SHAPES)
     rule = ("all",)
     table = torch.as_tensor(temporal_frame_table(rule, T), device=dev)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
+    k1_phase(torch, dev, gen, results)
     value = rnd(T, S, M, D)
-    ref = torch.rand(T, Q, L, 2, generator=gen, device=dev)
-    c_off = rnd(T, Q, M * L * P * 2, scale=3.0)      # pixels, off the grid
-    t_off = rnd(T, Q, M * W * L * P * 2, scale=3.0)
-    c_logit = rnd(T, Q, M * L * P)
-    t_logit = rnd(T, Q, M * W * L * P)
-    args32 = (value, SHAPES, ref, c_off, t_off, c_logit, t_logit, rule)
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
-    args16 = (bf(value), SHAPES, ref, bf(c_off), bf(t_off), bf(c_logit),
-              bf(t_logit), rule)
-
-    log("K1 msda_temporal_proj (encoder), T=6 Q=S=5100 M=8 D=32 Lf=24 P=4")
-    compare("f32 ", K.msda_temporal_proj(*args32), K.msda_temporal_proj_plain(*args32), 1e-4)
-    err = compare("bf16", K.msda_temporal_proj(*args16),
-                  K.msda_temporal_proj_plain(*args16), 2e-2)
-    ms = cuda_time(lambda: K.msda_temporal_proj(*args16), 20)
-    plain_ms = cuda_time(lambda: K.msda_temporal_proj_plain(*args16), 3, 1)
-    loc = K.temporal_proj_locations(SHAPES, ref, args16[3], args16[4], M)
-    io = sum(t.numel() * t.element_size() for t in args16 if torch.is_tensor(t)
-             and t is not args16[0]) + T * Q * M * D * 2
-    vbytes = touched_value_bytes(loc, SHAPES, table, 2)
-    flops = T * Q * M * (1 + W) * L * P * (8 * D + 40)
-    results["K1"] = dict(
-        name="msda_temporal_proj", route="cuda", source="devis_torch/csrc/ms_deform_attn.cu",
-        replaces="devis_tpu/ops/ms_deform_attn_pallas.py:1748",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bytes=io + vbytes, flops=flops, flop_rate=F32_FLOPS, library_ms=None)
-    del loc
-
-    del args32, args16, c_off, t_off, c_logit, t_logit
 
     log("K3 msda_temporal (decoder), T=6 Q=10 M=8 Lf=24 P=4")
     Qd = NQ // T
@@ -249,7 +380,10 @@ def msda_phases(torch, dev, gen, results):
 
 
 def tap_window_phase(torch, model, x, pad, results):
-    """K2 on the inputs the main path gives the first encoder layer."""
+    """K2, and K1 on its windows, on the inputs the main path gives the
+    first encoder layer: K2 against its plain version, the windows' sizes,
+    the `count` mode's reads from global memory, K1 against its plain
+    version and the two times."""
     from devis_torch.ops import ms_deform_attn_cuda as K
     enc = model.def_detr.transformer.encoder.layers[0].self_attn
     captured = {}
@@ -258,7 +392,7 @@ def tap_window_phase(torch, model, x, pad, results):
         model(x, pad)
     finally:
         hook.remove()
-    query, ref, _, shapes = captured["a"][:4]
+    query, ref, src, shapes, padding = captured["a"][:5]
     ref = ref.float().contiguous()
     c_off = enc.sampling_offsets(query).contiguous()
     t_off = enc.temporal_sampling_offsets(query).contiguous()
@@ -275,6 +409,19 @@ def tap_window_phase(torch, model, x, pad, results):
     ms = cuda_time(lambda: K.msda_tap_window(shapes, ref, c_off, t_off, M), 20)
     plain_ms = cuda_time(lambda: K.msda_tap_window_plain(shapes, ref, c_off, t_off, M), 3, 1)
     P = c_off.shape[-1] // (M * L * 2)
+    value = enc._value(src, padding).contiguous()
+    args = (value, shapes, ref, c_off, t_off, enc.attention_weights(query).contiguous(),
+            enc.temporal_attention_weights(query).contiguous(), ("all",))
+    plan = K.window_plan(shapes, value.dtype, value.shape[-1], P)
+    stats = window_stats(torch, got, plan, L)
+    _, reads = K.launch_k1(*args, got, plan, "count")
+    err = compare("  K1 on them, bf16", K.msda_temporal_proj(*args),
+                  K.msda_temporal_proj_plain(*args), 2e-2)
+    k1_ms = cuda_time(lambda: K.launch_k1(*args, got, plan), 20)
+    log(f"  corners read from global memory {reads.tolist()} (in fitted windows, in windows "
+        f"over capacity); K1 {k1_ms:.4f} ms, K2 {ms:.4f} ms")
+    if reads[0].item() != 0:
+        raise AssertionError("a K2 window missed a tap of K1")
     results["K2"] = dict(
         name="msda_tap_window", route="cuda", source="devis_torch/csrc/ms_deform_attn.cu",
         replaces="devis_tpu/ops/ms_deform_attn_pallas.py:1935",
@@ -282,6 +429,8 @@ def tap_window_phase(torch, model, x, pad, results):
         bytes=ref.numel() * 4 + (c_off.numel() + t_off.numel()) * c_off.element_size()
         + got.numel() * 4,
         flops=Tn * Q * M * (1 + W) * L * P * 12, flop_rate=F32_FLOPS, library_ms=None)
+    results["K1"]["path_inputs"] = dict(ms=k1_ms, max_abs_err=err, reads=reads.tolist(),
+                                        windows=stats)
 
 
 def dcn_phase(torch, dev, gen, results):
@@ -501,7 +650,8 @@ def rows_phase(torch, dev, gen, results):
                     modulated_deform_conv2d(*a16), 3e-2)
 
 
-KERNEL_GROUPS = {"K1 msda_temporal_proj": "msda_temporal_proj_kernel",
+KERNEL_GROUPS = {"K1 msda_temporal_proj": "msda_temporal_proj_win_kernel",
+                 "K2 msda_tap_window": "msda_tap_window_kernel",
                  "K5 msda_temporal_bwd": "msda_temporal_bwd_kernel",
                  "K3 msda_temporal": "msda_temporal_kernel",
                  "K7 msda_rows_bwd": "msda_rows_bwd_kernel",
@@ -667,7 +817,9 @@ def main_path(torch, dev, card, cfg, model, results):
     plain = {fn.__name__: fn.plain_calls for fn in ops}
     log(f"  launches over 3 clips: {launches}; plain calls: {plain}")
     n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
-    check_counts(ops, (3 * cfg.MODEL.TRANSFORMER.ENCODER_LAYERS, 0,
+    # K1's op launches K2 before K1 in every encoder layer
+    check_counts(ops, (3 * cfg.MODEL.TRANSFORMER.ENCODER_LAYERS,
+                       3 * cfg.MODEL.TRANSFORMER.ENCODER_LAYERS,
                        3 * cfg.MODEL.TRANSFORMER.DECODER_LAYERS, 3 * n_dcn))
 
     hv, wv = round(VIDEO_HW[0] / 4), round(VIDEO_HW[1] / 4)
@@ -826,7 +978,7 @@ def train_path(torch, dev, card, cfg, model):
     n_dec = cfg.MODEL.TRANSFORMER.DECODER_LAYERS
     n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
     n_mask = 1 + len(cfg.MODEL.LOSS.MASK_AUX_LOSS)
-    check_counts(ops, [n_steps * c for c in (n_enc, 0, n_dec, n_enc + n_dec,
+    check_counts(ops, [n_steps * c for c in (n_enc, n_enc, n_dec, n_enc + n_dec,
                                              n_dcn * n_mask, n_dcn * n_mask, 0)])
     if state.step != 1 + n_steps:
         raise AssertionError(f"{state.step} updates after {1 + n_steps} steps")
@@ -1527,7 +1679,8 @@ def main() -> int:
             "train_launches": train_launches.get(r["name"], 0),
             "coco_image_launches": coco_launches.get(r["name"], 0),
             "coco_train_launches": coco_train_launches.get(r["name"], 0),
-            **{k: r[k] for k in ("atomic_bytes", "coco_shapes", "route_ms", "layers")
+            **{k: r[k] for k in ("atomic_bytes", "coco_shapes", "route_ms", "layers", "op_ms",
+                                 "k2_ms", "windows", "lab", "random_refs", "path_inputs")
                if k in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"clip_ms": clip_ms, "fps": STRIDE / clip_ms * 1e3, "card": card}))

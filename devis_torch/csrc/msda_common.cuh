@@ -51,19 +51,40 @@ __device__ __forceinline__ float tap_loc(float ref, float off, float inv) {
   return __fadd_rn(ref, __fmul_rn(off, inv));
 }
 
-// Pixel geometry of a tap at normalized (lx, ly) of an (h, w) level: false
-// where all four corners are outside the level (the tap contributes nothing).
-__device__ __forceinline__ bool tap_geometry(int h, int w, float lx, float ly, int& x0, int& y0,
-                                             float& dx, float& dy) {
-  float x = __fsub_rn(__fmul_rn(lx, (float)w), 0.5f);
-  float y = __fsub_rn(__fmul_rn(ly, (float)h), 0.5f);
-  if (!(x > -1.f && x < (float)w && y > -1.f && y < (float)h)) return false;
-  float x0f = floorf(x), y0f = floorf(y);
+// Pixel coordinate of a normalized location on a side of `size` pixels.
+__device__ __forceinline__ float tap_px(float l, int size) {
+  return __fsub_rn(__fmul_rn(l, (float)size), 0.5f);
+}
+
+// Top-left corner and bilinear fractions of the pixel point (x, y).
+__device__ __forceinline__ void tap_floor(float x, float y, int& x0, int& y0, float& dx,
+                                          float& dy) {
+  const float x0f = floorf(x), y0f = floorf(y);
   dx = x - x0f;
   dy = y - y0f;
   x0 = (int)x0f;
   y0 = (int)y0f;
+}
+
+// Pixel geometry of a tap at normalized (lx, ly) of an (h, w) level: false
+// where all four corners are outside the level (the tap contributes nothing
+// and has no gradient). On the lines x = -1 and y = -1 the corners inside
+// the level carry weight 0 but the location's gradient does not vanish, as
+// in the plain versions and the JAX kernels.
+__device__ __forceinline__ bool tap_geometry(int h, int w, float lx, float ly, int& x0, int& y0,
+                                             float& dx, float& dy) {
+  const float x = tap_px(lx, w), y = tap_px(ly, h);
+  if (!(x >= -1.f && x < (float)w && y >= -1.f && y < (float)h)) return false;
+  tap_floor(x, y, x0, y0, dx, dy);
   return true;
+}
+
+// The window rule of K2 (and of the JAX package's `_ranges_proj_kernel`): a
+// tap's rows belong to a window where x > -1 and y > -1. On the lines
+// x = -1 and y = -1 a tap's corners inside the level carry weight 0, so a
+// forward kernel that reads K2's windows skips such a tap as K2 does.
+__device__ __forceinline__ bool in_window(int h, int w, float x, float y) {
+  return x > -1.f && x < (float)w && y > -1.f && y < (float)h;
 }
 
 // Bilinear sample of channel d at normalized (lx, ly) of one level, zero

@@ -147,11 +147,15 @@ def pack_mask_bits(logits: torch.Tensor, canvas: Tuple[int, int]) -> torch.Tenso
 
 def resize_nearest_numpy(mask: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """Nearest resize of an (h, w) array to `size` = (oh, ow) by the index
-    rule of OpenCV's INTER_NEAREST: source = min(floor(dst * in / out), in - 1)."""
+    rule of OpenCV's INTER_NEAREST: source = min(floor(dst * (1 / (out / in))),
+    in - 1), the scale taken as the f64 reciprocal of out / in as OpenCV
+    takes it (`in / out` differs from it in the last bit at some sizes, and
+    then picks the neighbouring source row where dst * scale is near an
+    integer)."""
     h, w = mask.shape
     oh, ow = size
-    ys = np.minimum(np.floor(np.arange(oh) * (h / oh)).astype(np.int64), h - 1)
-    xs = np.minimum(np.floor(np.arange(ow) * (w / ow)).astype(np.int64), w - 1)
+    ys = np.minimum(np.floor(np.arange(oh) * (1.0 / (oh / h))).astype(np.int64), h - 1)
+    xs = np.minimum(np.floor(np.arange(ow) * (1.0 / (ow / w))).astype(np.int64), w - 1)
     return mask[ys][:, xs]            # rows, then columns: two takes, no 2-d index
 
 

@@ -12,11 +12,14 @@ and `plain_calls` CPU dispatches, per op.
     offsets (T, Q, M*W*L*P*2), current logits (T, Q, M*L*P), temporal
     logits (T, Q, M*W*L*P). Locations = ref + off / (w_l, h_l) with the
     temporal reference pinned to level 0; weights = one softmax per
-    (t, q, m) over the current and temporal logits together.
+    (t, q, m) over the current and temporal logits together. On the card
+    the op launches K2, then K1 on K2's windows: per (t, m, q-block) and
+    (frame slot, level) K1 stages the first `window_plan` rows of the window
+    in shared memory and reads every other live corner where it lies.
   * K2 `msda_tap_window` (replaces `_ranges_proj_kernel`): per
     (t, m, q-block, level) the first and last raster row of the level that a
     live K1 tap touches, (0, -1) where none does. Unpacked rows, q-blocks of
-    `Q_BLOCK`. The main path does not consume it yet: K1 gathers directly.
+    `Q_BLOCK`.
   * K3 `msda_temporal` (decoder; replaces `_fwd_kernel_temporal`):
     precomputed loc (T, Q, M, Lf, P, 2) and att (T, Q, M, Lf, P) over the
     fused level stack.
@@ -52,18 +55,30 @@ frame; no stacked copy is made.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 from .ms_deform_attn import (Shapes, level_start_index, ms_deform_attn,
                              ms_deform_attn_temporal_plain, normalize_shapes,
-                             rule_window)
+                             rule_window, temporal_frame_table)
 
 Q_BLOCK = 128
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MAX_LEVELS = 16
 _MAX_WINDOW = 16
+# K1's shared memory (csrc/ms_deform_attn.cu): a head of softmax statistics
+# and window bounds, 32 bytes of tap (rows and weights) per (query, point),
+# and two stage buffers of value rows padded to 16 bytes
+K1_HEAD_BYTES = 2 * Q_BLOCK * 4 + 3 * (1 + _MAX_WINDOW) * _MAX_LEVELS * 4
+K1_TAP_BYTES = 32
+SMEM_PER_SM = 233472          # 228 KB on an H100 SM
+SMEM_PER_BLOCK = 232448       # 227 KB, the most one block may take
+SMEM_RESERVED = 1024          # the runtime's share of every block
+# the kernel lab's variants of K1 (csrc/ms_deform_attn.cu, `K1_*`); only
+# "full" runs on a model path
+K1_MODES = ("full", "nostage", "noloc", "nogather", "noacc", "count")
 
 
 def _inv(spatial_shapes: Shapes, device):
@@ -116,6 +131,57 @@ def msda_temporal_proj_plain(value, spatial_shapes, ref, c_off, t_off,
     return ms_deform_attn_temporal_plain(value, spatial_shapes, loc, att, rule)
 
 
+def stage_buffer_rows(caps, n_levels: int, window: int):
+    """Rows of K1's two stage buffers for per-level capacities `caps`:
+    stage s = j * L + l (frame slot j, level l) loads into buffer s % 2."""
+    n_stages = (1 + window) * n_levels
+    return tuple(max([caps[s % n_levels] for s in range(b, n_stages, 2)], default=0)
+                 for b in (0, 1))
+
+
+def k1_smem_bytes(caps, n_levels: int, window: int, dtype, head_dim: int,
+                  n_points: int) -> int:
+    """Dynamic shared memory of one K1 block, as the kernel lays it out."""
+    item = torch.finfo(dtype).bits // 8
+    vec = 16 // item
+    row = -(-head_dim // vec) * vec * item
+    return (K1_HEAD_BYTES + Q_BLOCK * n_points * K1_TAP_BYTES
+            + sum(stage_buffer_rows(caps, n_levels, window)) * row)
+
+
+def window_plan(spatial_shapes, dtype, head_dim: int = 32, n_points: int = 4,
+                blocks_per_sm: int = 2):
+    """K1's staging capacity per level, in value rows: the same number k of
+    raster lines of every level (its whole height where that is less), k as
+    large as lets `blocks_per_sm` blocks share an SM's shared memory. A
+    window holds the rows that a block's 128 raster-ordered queries reach,
+    a band of lines at every level, so a band of k lines is the natural unit.
+    The plan assumes temporal frames (W >= 1), whose stages alternate
+    buffers across frames when L is odd."""
+    return _window_plan(normalize_shapes(spatial_shapes), dtype, head_dim, n_points,
+                        blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _window_plan(spatial_shapes, dtype, head_dim, n_points, blocks_per_sm):
+    L = len(spatial_shapes)
+    budget = min(SMEM_PER_BLOCK, SMEM_PER_SM // blocks_per_sm - SMEM_RESERVED)
+
+    def caps(k):
+        return tuple(min(h, k) * w for h, w in spatial_shapes)
+
+    def fits(k):
+        return k1_smem_bytes(caps(k), L, 1, dtype, head_dim, n_points) <= budget
+
+    if not fits(0):
+        raise ValueError(f"window_plan: {n_points} points a level leave no shared memory "
+                         f"for {blocks_per_sm} blocks an SM")
+    k = 0
+    while k < max(h for h, _ in spatial_shapes) and fits(k + 1):
+        k += 1
+    return caps(k)
+
+
 def msda_tap_window_plain(spatial_shapes, ref, c_off, t_off, n_heads: int,
                           q_block: int = Q_BLOCK):
     """Plain K2 → (T, M, n_qblocks, Lf, 2) int32 [first, last] rows."""
@@ -146,6 +212,79 @@ def msda_tap_window_plain(spatial_shapes, ref, c_off, t_off, n_heads: int,
         lasts.append(hi)
     out = torch.stack([torch.stack(firsts, -1), torch.stack(lasts, -1)], -1)
     return out.permute(0, 2, 1, 3, 4).to(torch.int32).contiguous()
+
+
+def msda_temporal_proj_windowed_plain(value, spatial_shapes, ref, c_off, t_off,
+                                      c_logit, t_logit, rule, windows, plan,
+                                      q_block: int = Q_BLOCK):
+    """Plain K1 as the windowed kernel reads its value: per (t, m, q-block)
+    and stage (frame slot j, level l) the first min(n, plan[l]) rows of K2's
+    window [first, first + n) are copied to a stage buffer (its other rows
+    are NaN); a live corner inside the copied rows reads the buffer, every
+    other live corner reads the value where it lies. `windows` is K2's
+    (T, M, n_qblocks, Lf, 2) output for `q_block`. Returns (out (T, Q, M*D)
+    in the value's dtype, reads): reads[0] counts the corners read from the
+    value in windows that fit their capacity (0 wherever the windows cover
+    every tap), reads[1] those in windows that do not."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    T, _, M, D = value.shape
+    L = len(spatial_shapes)
+    loc = temporal_proj_locations(spatial_shapes, ref, c_off, t_off, M)
+    att = temporal_proj_weights(c_logit, t_logit, M, L)
+    Q, Lf = loc.shape[1], loc.shape[3]
+    dev = value.device
+    table = torch.as_tensor(temporal_frame_table(rule, T), dtype=torch.long, device=dev)
+    frames = torch.cat([torch.arange(T, device=dev)[:, None],
+                        table.reshape(T, Lf // L - 1)], 1)
+    starts = level_start_index(spatial_shapes)
+    qb = torch.arange(Q, device=dev) // q_block
+    ti = torch.arange(T, device=dev)[:, None, None, None]
+    mi = torch.arange(M, device=dev)[None, None, :, None]
+    v = value.float()
+    out = torch.zeros(T, Q, M, D, dtype=torch.float32, device=dev)
+    reads = torch.zeros(2, dtype=torch.long)
+    nan = torch.tensor(float("nan"), device=dev)
+    for s in range(Lf):
+        j, l = divmod(s, L)
+        h, w = spatial_shapes[l]
+        cap = int(plan[l])
+        lvl = v[frames[:, j], starts[l]:starts[l] + h * w]          # (T, hw, M, D)
+        first = windows[:, :, :, s, 0].long()                       # (T, M, nqb)
+        n = (windows[:, :, :, s, 1].long() - first + 1).clamp(min=0)
+        nst = n.clamp(max=cap)
+        if cap:
+            r = torch.arange(cap, device=dev)
+            rows = (first[..., None] + r).clamp(max=h * w - 1)        # (T, M, nqb, cap)
+            stage = lvl[ti, rows, mi.reshape(1, M, 1, 1)]            # (T, M, nqb, cap, D)
+            stage = torch.where((r < nst[..., None])[..., None], stage, nan)
+        # per query (T, Q, M, 1) for the P points
+        first_q = first[:, :, qb].permute(0, 2, 1)[..., None]
+        nst_q = nst[:, :, qb].permute(0, 2, 1)[..., None]
+        fits_q = (n <= cap)[:, :, qb].permute(0, 2, 1)[..., None]
+        x = loc[:, :, :, s, :, 0] * w - 0.5                          # (T, Q, M, P)
+        y = loc[:, :, :, s, :, 1] * h - 0.5
+        live = (x > -1) & (x < w) & (y > -1) & (y < h)
+        x0f = torch.floor(torch.where(live, x, 0.0))
+        y0f = torch.floor(torch.where(live, y, 0.0))
+        dx, dy = x - x0f, y - y0f
+        x0, y0 = x0f.long(), y0f.long()
+        a = att[:, :, :, s]
+        for oy, ox, wt in ((0, 0, (1 - dy) * (1 - dx)), (0, 1, (1 - dy) * dx),
+                           (1, 0, dy * (1 - dx)), (1, 1, dy * dx)):
+            yi, xi = y0 + oy, x0 + ox
+            ok = live & (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            row = (yi * w + xi).clamp(0, h * w - 1)
+            rel = row - first_q
+            staged = ok & (rel >= 0) & (rel < nst_q)
+            glob = ok & ~staged
+            val = torch.where(glob[..., None], lvl[ti, row, mi], 0.0)
+            if cap:
+                vs = stage[ti, mi, qb[None, :, None, None], rel.clamp(0, cap - 1)]
+                val = torch.where(staged[..., None], vs, val)
+            out += ((a * wt)[..., None] * val).sum(3)
+            reads[0] += int((glob & fits_q).sum())
+            reads[1] += int((glob & ~fits_q).sum())
+    return out.reshape(T, Q, M * D).to(value.dtype), reads
 
 
 def _plain_backward(fn, value, loc, att, grad_out):
@@ -206,10 +345,10 @@ _SINGLE_FRAME = {"msda_rows": "ms_deform_attn_rows",
 
 
 def _function(name: str, n_ptrs: int, n_ints: int):
-    """A typed C entry: `n_ptrs` device pointers, `n_ints` ints, then the
-    level table and L, then W (tap windows) or the rule (flag, offsets, W)
-    (temporal attention) or nothing (single-frame attention), then the
-    stream."""
+    """A typed C entry: `n_ptrs` device pointers, `n_ints` ints, then K1's
+    capacities and mode (K1 only), the level table and L, then W (tap
+    windows) or the rule (flag, offsets, W) (temporal attention) or nothing
+    (single-frame attention), then the stream."""
     source = next((lib for prefix, lib in _SINGLE_FRAME.items()
                    if name.startswith(prefix)), None)
     rows = source is not None
@@ -218,6 +357,8 @@ def _function(name: str, n_ptrs: int, n_ints: int):
         P, I, A = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
         tail = [A, I] if rows else [A, I, I] if name.startswith("msda_tap_window") \
             else [A, I, I, A, I]
+        if name.startswith("msda_temporal_proj"):
+            tail = [A, I] + tail
         fn.argtypes = [P] * n_ptrs + [I] * n_ints + tail + [P]
         fn.restype = ctypes.c_int
     return fn
@@ -231,8 +372,13 @@ def _levels(spatial_shapes):
     return _build.int_array([v for hw in spatial_shapes for v in hw])
 
 
-def _launch_temporal_proj(value, spatial_shapes, ref, c_off, t_off, c_logit,
-                          t_logit, rule):
+def launch_k1(value, spatial_shapes, ref, c_off, t_off, c_logit, t_logit, rule,
+              windows, plan, mode: str = "full"):
+    """One launch of the windowed K1 in `mode` (`K1_MODES`) on K2's
+    `windows`, staging `plan[l]` rows a level. Counts nothing: the op and the
+    kernel lab count their own launches. Returns (out, reads), reads the
+    `count` mode's two counters of corners read from global memory (in
+    windows that fit their capacity, and in those that do not), else None."""
     T, S, M, D = value.shape
     _, Q, L, _ = ref.shape
     P = c_logit.shape[-1] // (M * L)
@@ -241,32 +387,54 @@ def _launch_temporal_proj(value, spatial_shapes, ref, c_off, t_off, c_logit,
     _check_cuda("msda_temporal_proj", value.device,
                 (value, c_off, t_off, c_logit, t_logit), value.dtype)
     _check_cuda("msda_temporal_proj", value.device, (ref,), torch.float32)
+    _check_cuda("msda_temporal_proj", value.device, (windows,), torch.int32)
     if value.dtype not in _DTYPES:
         raise ValueError(f"msda_temporal_proj: unsupported dtype {value.dtype}")
     if (S != sum(h * w for h, w in spatial_shapes)
             or tuple(c_off.shape) != (T, Q, M * L * P * 2)
             or tuple(t_off.shape) != (T, Q, M * W * L * P * 2)
             or tuple(c_logit.shape) != (T, Q, M * L * P)
-            or tuple(t_logit.shape) != (T, Q, M * W * L * P)):
+            or tuple(t_logit.shape) != (T, Q, M * W * L * P)
+            or tuple(windows.shape) != (T, M, -(-Q // Q_BLOCK), (1 + W) * L, 2)
+            or len(plan) != L):
         raise ValueError("msda_temporal_proj: inconsistent shapes")
+    smem = k1_smem_bytes(plan, L, W, value.dtype, D, P)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"msda_temporal_proj: plan {tuple(plan)} needs {smem} bytes of "
+                         f"shared memory, more than {SMEM_PER_BLOCK}")
     out = torch.empty((T, Q, M * D), dtype=value.dtype, device=value.device)
-    fn = _function(f"msda_temporal_proj_{_DTYPES[value.dtype]}", 7, 6)
+    reads = torch.zeros(2, dtype=torch.int32, device=value.device) \
+        if mode == "count" else None
+    fn = _function(f"msda_temporal_proj_{_DTYPES[value.dtype]}", 9, 6)
     rule_all, offsets = _rule_args(rule)
     with torch.cuda.device(value.device):
         _build.check(fn(value.data_ptr(), ref.data_ptr(), c_off.data_ptr(),
                         t_off.data_ptr(), c_logit.data_ptr(), t_logit.data_ptr(),
-                        out.data_ptr(), T, Q, S, M, D, P, _levels(spatial_shapes),
-                        L, rule_all, offsets, W, _stream(value)),
+                        windows.data_ptr(), out.data_ptr(),
+                        None if reads is None else reads.data_ptr(), T, Q, S, M, D, P,
+                        _build.int_array(plan), K1_MODES.index(mode),
+                        _levels(spatial_shapes), L, rule_all, offsets, W, _stream(value)),
                      "msda_temporal_proj")
+    return out, reads
+
+
+def _launch_temporal_proj(value, spatial_shapes, ref, c_off, t_off, c_logit,
+                          t_logit, rule):
+    """K2, then K1 on its windows with the default `window_plan`."""
+    M, D = value.shape[2:]
+    P = c_logit.shape[-1] // (M * len(spatial_shapes))
+    windows = msda_tap_window(spatial_shapes, ref, c_off, t_off, M)
+    out, _ = launch_k1(value, spatial_shapes, ref, c_off, t_off, c_logit, t_logit,
+                       rule, windows, window_plan(spatial_shapes, value.dtype, D, P))
     msda_temporal_proj.launches += 1
     return out
 
 
 class MSDATemporalProjFunction(torch.autograd.Function):
-    """K1 forward. The backward splits as the JAX package's VJP does: loc and
-    att are rebuilt from the raw projections under autograd, K5 gives their
-    gradients and the value's, and autograd chains them to the references,
-    offsets and logits."""
+    """K2 and K1 forward. The backward splits as the JAX package's VJP does:
+    loc and att are rebuilt from the raw projections under autograd, K5 gives
+    their gradients and the value's, and autograd chains them to the
+    references, offsets and logits."""
 
     @staticmethod
     def forward(ctx, value, ref, c_off, t_off, c_logit, t_logit, spatial_shapes,

@@ -326,10 +326,19 @@ def test_mask_bits_unpack_to_the_jax_masks():
         pack_mask_bits(torch.from_numpy(logits), (64, 100))
 
 
-@pytest.mark.parametrize("size", [(120, 200), (56, 80), (31, 47), (7, 5)])
+# (source, destination) shapes. The last four are where floor(dst * in / out)
+# picks another source row or column than OpenCV: two COCO-like sizes resized
+# by the 800/1333 rule, and two small ones found by a scan.
+NEAREST_CASES = [((56, 80), (120, 200)), ((56, 80), (56, 80)), ((56, 80), (31, 47)),
+                 ((56, 80), (7, 5)), ((454, 1332), (218, 640)), ((1332, 504), (640, 242)),
+                 ((21, 22), (27, 18)), ((24, 20), (34, 52))]
+
+
+@pytest.mark.parametrize("size", NEAREST_CASES)
 def test_numpy_nearest_resize_is_cv2_inter_nearest(size):
     cv2 = pytest.importorskip("cv2")
     from devis_torch.inference import resize_nearest_numpy
-    mask = (np.random.RandomState(9).rand(56, 80) > 0.5).astype(np.uint8)
-    want = cv2.resize(mask, (size[1], size[0]), interpolation=cv2.INTER_NEAREST)
-    np.testing.assert_array_equal(resize_nearest_numpy(mask, size), want)
+    src, dst = size
+    mask = (np.random.RandomState(9).rand(*src) > 0.5).astype(np.uint8)
+    want = cv2.resize(mask, (dst[1], dst[0]), interpolation=cv2.INTER_NEAREST)
+    np.testing.assert_array_equal(resize_nearest_numpy(mask, dst), want)

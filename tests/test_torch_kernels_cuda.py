@@ -80,6 +80,84 @@ def test_temporal_kernel(dev, dtype):
            ms_deform_attn_temporal_plain(value, SHAPES, loc, att, ("all",)), dtype)
 
 
+# ---------------------------------------------------------------------------
+# K1 on K2's windows: raster and random references, a plan that stages every
+# window whole and one that stages a line a level (most windows overflow and
+# their other corners are read from global memory), D whose rows are and are
+# not 16-byte multiples; the kernel lab's modes
+# ---------------------------------------------------------------------------
+
+FITTED = tuple(h * w for h, w in SHAPES)
+OVERFLOW = (16, 8, 4)
+
+
+def _windowed(dev, refs, dtype, D=16, rule=("all",), T=3, M=2, P=2):
+    """K1's inputs at every pixel of the pyramid as a query (raster-ordered
+    pixel-centre references, as the encoder's) or at random references, and
+    K2's windows of them."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    W = rule_window(rule, T)
+    r = lambda *s, k=1.0: (torch.randn(*s, generator=g, device=dev) * k).to(dtype)  # noqa: E731
+    if refs == "raster":
+        ref = torch.cat([torch.stack(torch.meshgrid(
+            (torch.arange(w, device=dev) + 0.5) / w, (torch.arange(h, device=dev) + 0.5) / h,
+            indexing="xy"), -1).reshape(-1, 2) for h, w in SHAPES])
+        ref = ref[None, :, None].expand(T, S, L, 2).contiguous()
+    else:
+        ref = torch.rand(T, S, L, 2, generator=g, device=dev)
+    a = (r(T, S, M, D), ref, r(T, S, M * L * P * 2, k=2.0), r(T, S, M * W * L * P * 2, k=2.0),
+         r(T, S, M * L * P), r(T, S, M * W * L * P))
+    return a, K.msda_tap_window(SHAPES, ref, a[2], a[3], M)
+
+
+@pytest.mark.parametrize("plan", [FITTED, OVERFLOW])
+@pytest.mark.parametrize("refs", ["raster", "random"])
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 16), (torch.bfloat16, 32),
+                                     (torch.bfloat16, 12), (torch.float32, 5)])
+def test_windowed_temporal_proj_kernel(dev, dtype, D, refs, plan):
+    """The windowed K1 against the plain K1; in `count` mode its corners
+    read from global memory are the windowed plain version's, none of them
+    in a window that fits."""
+    a, windows = _windowed(dev, refs, dtype, D)
+    got, _ = K.launch_k1(a[0], SHAPES, *a[1:], ("all",), windows, plan)
+    _close(got, K.msda_temporal_proj_plain(a[0], SHAPES, *a[1:], ("all",)), dtype)
+    _, reads = K.launch_k1(a[0], SHAPES, *a[1:], ("all",), windows, plan, "count")
+    _, want = K.msda_temporal_proj_windowed_plain(a[0], SHAPES, *a[1:], ("all",), windows,
+                                                  plan)
+    assert reads.tolist() == want.tolist() and reads[0] == 0
+    assert (reads[1] > 0) == (plan == OVERFLOW)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rule", [("all",), ("window", (-1, 1))])
+def test_windowed_temporal_proj_nostage_equals_full(dev, dtype, rule):
+    """Reading every corner from global memory gives the staged kernel's
+    result to the bit; the op launches K2 and then K1 on its windows."""
+    a, windows = _windowed(dev, "raster", dtype, rule=rule)
+    plan = K.window_plan(SHAPES, dtype, 16, 2)
+    full, _ = K.launch_k1(a[0], SHAPES, *a[1:], rule, windows, plan)
+    nostage, _ = K.launch_k1(a[0], SHAPES, *a[1:], rule, windows, plan, "nostage")
+    assert torch.equal(full, nostage)
+    before = (K.msda_temporal_proj.launches, K.msda_tap_window.launches)
+    assert torch.equal(K.msda_temporal_proj(a[0], SHAPES, *a[1:], rule), full)
+    assert (K.msda_temporal_proj.launches, K.msda_tap_window.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+def test_lab_modes_launch(dev):
+    from devis_torch.ops.msda_lab import MODES, lab_temporal_proj
+    a, windows = _windowed(dev, "raster", torch.bfloat16)
+    plan = K.window_plan(SHAPES, torch.bfloat16, 16, 2)
+    before = lab_temporal_proj.launches
+    for mode in MODES:
+        out, reads = lab_temporal_proj(a[0], SHAPES, *a[1:], ("all",), windows, plan, mode)
+        assert out.shape == (3, S, 32) and (reads is not None) == (mode == "count")
+    torch.cuda.synchronize()
+    assert lab_temporal_proj.launches == before + len(MODES)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.launch_k1(a[0], SHAPES, *a[1:], ("all",), windows, (8000, 10, 10))
+
+
 # DCNv2 layer shapes, B = 3: Cin not a multiple of 16 (33, 40) and above one
 # 64-wide depth chunk (72, 136, 264); Cout 1, 24 and 264 (two 144-wide
 # channel tiles of the bf16 kernel); H*W never a multiple of its 128-pixel
@@ -154,6 +232,31 @@ def test_rows_kernels(dev, dtype, M, D, Q):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("kernel", ["temporal", "rows"])
+def test_backward_on_the_lines_x_and_y_minus_one(dev, kernel):
+    """Taps exactly on the pixel lines x = -1 and y = -1: their corners
+    inside the level carry weight 0, but the location's gradient is the
+    plain version's (the JAX kernels' per-corner rule), not 0."""
+    T = 3
+    n_levels = T * L if kernel == "temporal" else L
+    value, loc, att, grad = _rows_inputs(dev, torch.float32, T, 7, 2, 16, 2, n_levels, seed=12)
+    for lvl in range(n_levels):
+        h, w = SHAPES[lvl % L]
+        loc[:, :, :, lvl, 0, 0] = -0.5 / w          # point 0 on x = -1
+        loc[:, :, :, lvl, 1, 1] = -0.5 / h          # point 1 on y = -1
+        assert (loc[:, :, :, lvl, 0, 0] * w - 0.5 == -1).all()
+        assert (loc[:, :, :, lvl, 1, 1] * h - 0.5 == -1).all()
+    if kernel == "temporal":
+        got = K.msda_temporal_bwd(value, SHAPES, loc, att, grad, ("all",))
+        want = K.msda_temporal_bwd_plain(value, SHAPES, loc, att, grad, ("all",))
+    else:
+        got = K.msda_rows_bwd(value, SHAPES, loc, att, grad)
+        want = K.msda_rows_bwd_plain(value, SHAPES, loc, att, grad)
+    assert want[1][..., :2, :].abs().amax() > 0
+    for g, w in zip(got, want):
+        _close(g, w, torch.float32)
 
 
 def _grads(fn, tensors):
