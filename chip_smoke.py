@@ -65,9 +65,28 @@
    times; finite losses, every trained tensor moved, frozen ones not; one
    step is profiled; then a 1+2-layer step (1 image, 10 slots) with the
    kernels against the plain versions, per gradient tensor.
-6. Prints the `kernels` JSON line (K1-K10), a clip-latency line, a
-   train-step line with peak memory, the image model's two lines, the card
-   line, and last {"ok": true, "device": {...}}.
+6. The probes (`devis_torch.ops.probes`, measurement kernels on no model
+   path; run after step 5's kernel phases, before the models): K12a `tent_band` and K12b `corner_gather` at the JAX script's shape
+   (C 16, Wp 384, N 32 Wp, ncand 4, reps 9) and at C 512, N 96 Wp, each
+   against its plain version and K12a against K12b (f32, 1e-5 of
+   max|plain|); K12c `mma_probe` at `benchmarks/mxu_probe.py:79-86`'s eight
+   (n_dots, K, N), grid 912, on seeded bf16 operands (2e-2), with its SM
+   cycles a dot and TFLOP/s, beside n_dots cuBLAS products of the same MACs;
+   96 dots must take longer than 48, and the compiled library must hold
+   HMMA instructions (`cuobjdump -sass`, printed).
+7. Video in, tracks out (right after step 3's clips, before training):
+   `build_tracker` + `inference_vis` with the clip model of step 3 over the synthetic corpus of `bench.py:126-130` (4 videos
+   of 36 frames, 360x640 and 480x320, 20 instances each; T 6, stride 4): one
+   warm pass, then one timed pass with the counters zeroed before and read
+   after. Each clip must launch K1, K2, K3 and K4 six times and no plain
+   path; tracks must survive, every segmentation's RLE must have its video's
+   size, and the TrackMAP summary must be finite. Prints the e2e FPS (frames
+   / (wait + stitch), as `inference_vis` computes it), the wait and stitch
+   seconds, the host seconds of the full-resolution resize and RLE and of
+   each pipeline stage, and profiles one tracked video.
+8. Prints the `kernels` JSON line (K1-K10, K12a-K12c), a clip-latency line, a
+   train-step line with peak memory, the image model's two lines, the e2e
+   line, the card line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 `devis_torch` package beside it. Imports nothing of JAX.
@@ -105,6 +124,15 @@ COCO_DCN_LAYERS = (("lay1", 264, 264, 26, 42), ("lay2", 264, 128, 26, 42),
                    ("lay3", 136, 64, 52, 84), ("lay4", 72, 32, 104, 168),
                    ("lay5", 32, 16, 208, 336), ("out_lay", 16, 1, 208, 336))
 COCO_BATCH, COCO_SLOTS, COCO_INSTANCES = 2, 25, 6
+# the probes: K12a/K12b at the JAX script's shape and at a large one (C, N / Wp)
+BAND_WP, BAND_NCAND, BAND_REPS = 384, 4, 9
+BAND_SHAPES = (("script", 16, 32), ("large", 512, 96))
+# K12c at mxu_probe.py:79-86's (n_dots, K, N); the first is the reference shape
+MMA_SHAPES = ((48, 128, 256), (24, 256, 256), (12, 512, 256), (2, 3072, 256),
+              (48, 128, 128), (96, 128, 256), (48, 64, 256), (48, 32, 256))
+H100_SMS = 132
+# the e2e corpus (bench.py:126-130): 4 videos of 36 frames, 20 instances each
+E2E_VIDEOS, E2E_FRAMES, E2E_SIZES, E2E_INSTANCES = 4, 36, ((360, 640), (480, 320)), 20
 
 
 def log(msg):
@@ -650,6 +678,123 @@ def rows_phase(torch, dev, gen, results):
                     modulated_deform_conv2d(*a16), 3e-2)
 
 
+def probe_phase(torch, dev, gen, results):
+    """K12a, K12b and K12c (`devis_torch.ops.probes`, measurement only)
+    against their plain versions; K12a against K12b; their times. K12c at
+    the JAX probe's eight shapes with its cycles a dot and rate, beside
+    n_dots cuBLAS products of the same MACs (a rate yardstick)."""
+    from devis_torch.ops import _build, probes
+
+    for label, C, rows in BAND_SHAPES:
+        N = rows * BAND_WP
+        u = torch.rand(C, N + BAND_NCAND * BAND_WP, generator=gen, device=dev)
+        dy = torch.rand(N, generator=gen, device=dev) * 2 - 1
+        dx = torch.rand(N, generator=gen, device=dev) * 2 - 1
+        args = (u, dy, dx, BAND_NCAND, BAND_WP, BAND_REPS)
+        log(f"K12a tent_band / K12b corner_gather, C={C} Wp={BAND_WP} N={N} "
+            f"ncand={BAND_NCAND} reps={BAND_REPS}")
+        tent, gather = probes.tent_band(*args), probes.corner_gather(*args)
+        # f32, every tap in the band: summation order only
+        err_a = compare("K12a f32", tent, probes.tent_band_plain(*args), 1e-5)
+        err_b = compare("K12b f32", gather, probes.corner_gather_plain(*args), 1e-5)
+        compare("K12a against K12b", tent, gather, 1e-5)
+        nbytes = 4 * (u.numel() + 2 * N + C * N)
+        # the function has at most 4 nonzero taps a (c, n, rep): both bounds
+        # count 4 multiply-adds; `method_flops` is what each method issues
+        # (K12a's band: ncand² multiply-adds)
+        flops = 8 * C * N * BAND_REPS
+        for key, op, plain, err, method_flops in (
+                ("K12a", probes.tent_band, probes.tent_band_plain, err_a,
+                 2 * C * N * BAND_REPS * BAND_NCAND ** 2),
+                ("K12b", probes.corner_gather, probes.corner_gather_plain, err_b, flops)):
+            ms = cuda_time(lambda: op(*args), 20)
+            plain_ms = cuda_time(lambda: plain(*args), 3, 1)
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+            log(f"    {key} {op.__name__}: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+                f"the method issues {method_flops / 1e9:.2f} GFLOP, "
+                f"{method_flops / F32_FLOPS * 1e3:.4f} ms at the f32 peak)")
+            entry = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bytes=nbytes,
+                         flops=flops, method_flops=method_flops, C=C, N=N, bound_ms=bound)
+            if label == "script":
+                results[key + "_script"] = entry
+            else:
+                results[key] = dict(
+                    entry, name=op.__name__, route="cuda", source="devis_torch/csrc/probes.cu",
+                    replaces="benchmarks/bench_tent_gather.py:" + ("23" if key == "K12a" else "41"),
+                    flop_rate=F32_FLOPS, library_ms=None,
+                    script_shape=results.pop(key + "_script"))
+
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    log(f"K12c mma_probe, grid {probes.GRID}, D {probes.D}, bf16 (max SM clock {clock_mhz:.0f} MHz)")
+    # at 1-3 dots a dropped or extra product is a 33-100 % error, far above
+    # the bf16 limit; at the timed shapes' 12-96 dots it would be 1-8 %
+    for n_dots, K in ((1, 128), (2, 128), (3, 128), (1, 3072), (2, 3072), (3, 3072)):
+        v = torch.randn(K, probes.D, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn(K, 256, generator=gen, device=dev).to(torch.bfloat16)
+        compare(f"n_dots={n_dots} K={K} N=256 bf16", probes.mma_probe(v, w, n_dots),
+                probes.mma_probe_plain(v, w, n_dots), 2e-2)
+    shapes = []
+    for n_dots, K, Nw in MMA_SHAPES:
+        v = torch.randn(K, probes.D, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn(K, Nw, generator=gen, device=dev).to(torch.bfloat16)
+        # bf16 operands, f32 accumulation in another order: one output rounding
+        err = compare(f"n_dots={n_dots} K={K} N={Nw} bf16", probes.mma_probe(v, w, n_dots),
+                      probes.mma_probe_plain(v, w, n_dots), 2e-2)
+        ms = cuda_time(lambda: probes.mma_probe(v, w, n_dots), 10)
+        plain_ms = cuda_time(lambda: probes.mma_probe_plain(v, w, n_dots), 3, 1)
+        a = v.t().contiguous().repeat(probes.GRID, 1)            # (GRID * D, K)
+        lib_ms = cuda_time(lambda: [torch.mm(a, w) for _ in range(n_dots)], 10)
+        flops = 2 * probes.GRID * n_dots * K * probes.D * Nw
+        cycles = ms * 1e-3 * clock_mhz * 1e6 * H100_SMS / (probes.GRID * n_dots)
+        tflops = flops / ms / 1e9
+        log(f"    {'resident' if probes.mma_probe_resident(K, Nw) else 'streamed'}: "
+            f"{ms:.4f} ms, {cycles:.0f} SM cycles a dot, {tflops:.1f} TFLOP/s "
+            f"({tflops / (BF16_TC_FLOPS / 1e12):.3f} of the bf16 peak); cuBLAS "
+            f"{n_dots} x mm ({probes.GRID * probes.D}x{K})x({K}x{Nw}) {lib_ms:.4f} ms; "
+            f"plain {plain_ms:.3f} ms")
+        shapes.append(dict(n_dots=n_dots, K=K, N=Nw, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, cycles_a_dot=cycles, tflops=tflops,
+                           max_abs_err=err, flops=flops,
+                           resident=probes.mma_probe_resident(K, Nw)))
+    by = {(r["n_dots"], r["K"], r["N"]): r for r in shapes}
+    if not by[(96, 128, 256)]["ms"] > 1.5 * by[(48, 128, 256)]["ms"]:
+        raise AssertionError("K12c: 96 dots did not take longer than 48: the products "
+                             "were folded or dropped")
+    lib = os.path.join(_build.BUILD_DIR, "libprobes.so")
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True)
+    hmma = sum("HMMA" in line for line in sass.stdout.splitlines())
+    log(f"    HMMA instructions in libprobes.so's SASS (cuobjdump): {hmma}")
+    if hmma == 0:
+        raise AssertionError("K12c: no HMMA instruction in the compiled probe")
+    ref = by[MMA_SHAPES[0]]
+    results["K12c"] = dict(
+        name="mma_probe", route="cuda", source="devis_torch/csrc/probes.cu",
+        replaces="benchmarks/mxu_probe.py:37", max_abs_err=max(r["max_abs_err"] for r in shapes),
+        ms=ref["ms"], plain_ms=ref["plain_ms"], library_ms=ref["library_ms"],
+        bytes=2 * (ref["K"] * (probes.D + ref["N"]) + probes.D * ref["N"]),
+        flops=ref["flops"], flop_rate=BF16_TC_FLOPS, shapes=shapes, hmma_in_sass=hmma,
+        max_sm_clock_mhz=clock_mhz)
+
+
+def probe_ops():
+    from devis_torch.ops import probes
+    return probes.tent_band, probes.corner_gather, probes.mma_probe
+
+
+def check_probes_idle(after):
+    """The probes' launch and plain-call counts since `probe_phase` (zeroed
+    at its end): the probes lie on no model path, so all stay 0."""
+    counts = {fn.__name__: (fn.launches, fn.plain_calls) for fn in probe_ops()}
+    log(f"  probes after {after}: (launches, plain calls) {counts}")
+    if any(n for pair in counts.values() for n in pair):
+        raise AssertionError(f"a probe ran on a model path ({after}): {counts}")
+    return {name: pair[0] for name, pair in counts.items()}
+
+
 KERNEL_GROUPS = {"K1 msda_temporal_proj": "msda_temporal_proj_win_kernel",
                  "K2 msda_tap_window": "msda_tap_window_kernel",
                  "K5 msda_temporal_bwd": "msda_temporal_bwd_kernel",
@@ -885,6 +1030,126 @@ def main_path(torch, dev, card, cfg, model, results):
         tap_window_phase(torch, model, x, pad, results)
     profile_run(torch, "clip", lambda: infer(video, 0))
     return launches, clip_ms
+
+
+def e2e_phase(torch, dev, card, cfg, model):
+    """Video in, tracks out: `build_tracker` + `inference_vis` over the
+    synthetic corpus of `bench.py:126-130`, one warm pass, then one timed
+    pass with the launch counters zeroed before and read after; one video
+    profiled. The warm pass draws every frame once and the corpus keeps it
+    (a stand-in for decoded frames), so the timed pass's prepare stage is
+    the frame resize and the canvas padding. Returns (e2e record, launches)."""
+    import math
+    import threading
+
+    from devis_torch.datasets.synthetic import SyntheticVISValDataset
+    from devis_torch.inference import build_tracker, inference_vis
+    from devis_torch.models.segmentation import ModulatedDeformableConv
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.deform_conv import modulated_deform_conv2d
+    from devis_torch.tracking import track as track_mod
+
+    def corpus(n_videos):
+        return SyntheticVISValDataset(
+            num_frames=T, stride=STRIDE, n_videos=n_videos, video_len=E2E_FRAMES,
+            sizes=E2E_SIZES, n_inst=E2E_INSTANCES, min_size=cfg.INPUT.MIN_SIZE_TEST,
+            max_size=cfg.INPUT.MAX_SIZE_TEST, seed=SEED)
+
+    dataset = corpus(E2E_VIDEOS)
+    n_clips = sum(len(v) for v in dataset)
+    frames = dataset.get_total_num_frames()
+    log(f"e2e: build_tracker + inference_vis, {E2E_VIDEOS} videos x {E2E_FRAMES} frames "
+        f"{E2E_SIZES}, {E2E_INSTANCES} instances each, {n_clips} clips")
+    # host time of the full-resolution resize + RLE, summed over the threads
+    # that run it (the tracker's encode pool and the stitching thread)
+    spent = {"s": 0.0, "masks": 0, "frame_resize_s": 0.0}
+    lock = threading.Lock()
+    to_rle = track_mod.SmallMask.to_rle
+
+    class TimedTransform(type(dataset[0].transform)):
+        def __call__(self, img):
+            t0 = time.perf_counter()
+            out = super().__call__(img)
+            with lock:
+                spent["frame_resize_s"] += time.perf_counter() - t0
+            return out
+
+    timed_transform = TimedTransform(cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    for video in dataset:
+        video.transform = timed_transform
+
+    def timed_to_rle(self):
+        t0 = time.perf_counter()
+        out = to_rle(self)
+        with lock:
+            spent["s"] += time.perf_counter() - t0
+            spent["masks"] += 1
+        return out
+
+    track_mod.SmallMask.to_rle = timed_to_rle
+    try:
+        tracker = build_tracker(cfg, model)
+        # seconds in each pipeline stage, summed over its threads' calls
+        stages = dict.fromkeys(("prepare", "dispatch", "fetch"), 0.0)
+        for stage in stages:
+            def timed_stage(*a, _fn=getattr(tracker.infer_fn, stage), _stage=stage):
+                t0 = time.perf_counter()
+                out = _fn(*a)
+                with lock:
+                    stages[_stage] += time.perf_counter() - t0
+                return out
+            setattr(tracker.infer_fn, stage, timed_stage)
+        t0 = time.perf_counter()
+        inference_vis(tracker, dataset, verbose=False)            # warm (cuDNN plans)
+        warm_s = time.perf_counter() - t0
+        tracker.wait_time = tracker.stitch_time = 0.0
+        spent.update(s=0.0, masks=0, frame_resize_s=0.0)
+        stages.update(prepare=0.0, dispatch=0.0, fetch=0.0)
+        ops = (K.msda_temporal_proj, K.msda_tap_window, K.msda_temporal,
+               modulated_deform_conv2d)
+        for fn in ops:
+            fn.launches = fn.plain_calls = 0
+        t0 = time.perf_counter()
+        out = inference_vis(tracker, dataset, verbose=False)
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in ops}
+        plain = {fn.__name__: fn.plain_calls for fn in ops}
+    finally:
+        track_mod.SmallMask.to_rle = to_rle
+    n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
+    log(f"  launches over the timed pass: {launches}; plain calls: {plain}")
+    check_counts(ops, (n_clips * cfg.MODEL.TRANSFORMER.ENCODER_LAYERS,
+                       n_clips * cfg.MODEL.TRANSFORMER.ENCODER_LAYERS,
+                       n_clips * cfg.MODEL.TRANSFORMER.DECODER_LAYERS, n_clips * n_dcn))
+
+    sizes = {v.video_id: list(v.original_size) for v in dataset}
+    results = out["results"]
+    if not results:
+        raise AssertionError("e2e: no track survived the score thresholds")
+    for r in results:
+        segs = [s for s in r["segmentations"] if s is not None]
+        if not segs or any(s["size"] != sizes[r["video_id"]] for s in segs) \
+                or len(r["segmentations"]) != E2E_FRAMES or not math.isfinite(r["score"]):
+            raise AssertionError(f"e2e: malformed track of video {r['video_id']}")
+    summary = {k: out["eval"][k] for k in ("AP", "AP50", "AP75", "AR")}
+    if not all(math.isfinite(v) for v in summary.values()):
+        raise AssertionError(f"e2e: TrackMAP not finite: {summary}")
+    rec = dict(e2e_fps=out["fps"], wait_s=tracker.wait_time, stitch_s=tracker.stitch_time,
+               resize_rle_s=spent["s"], resize_rle_masks=spent["masks"],
+               frame_resize_s=spent["frame_resize_s"], frames=frames,
+               clips=n_clips, tracks=len(results), pass_wall_s=wall_s, warm_pass_s=warm_s,
+               stage_s=dict(stages), trackmap=summary, card=card)
+    log(f"  e2e FPS {out['fps']:.3f} = {frames} frames / (wait {tracker.wait_time:.3f} s + "
+        f"stitch {tracker.stitch_time:.3f} s); pass wall {wall_s:.3f} s; resize + RLE "
+        f"{spent['s']:.3f} s of host time over {spent['masks']} masks; {len(results)} tracks; "
+        f"TrackMAP {summary} ({card})")
+    log("  pipeline stages, seconds summed over their calls: "
+        + ", ".join(f"{k} {v:.3f} s ({v / n_clips * 1e3:.1f} ms a clip)" for k, v in stages.items())
+        + f"; of prepare, the frame resize {spent['frame_resize_s']:.3f} s")
+    one = corpus(1)
+    profile_run(torch, f"e2e video ({len(one[0])} clips, inference_vis)",
+                lambda: inference_vis(build_tracker(cfg, model), one, verbose=False))
+    return rec, launches
 
 
 def kernel_ops():
@@ -1638,10 +1903,18 @@ def main() -> int:
     temporal_bwd_phase(torch, dev, gen, results)
     rows_phase(torch, dev, gen, results)
     coco_kernel_phases(torch, dev, gen, results)
+    with torch.inference_mode():
+        probe_phase(torch, dev, gen, results)
+    for fn in probe_ops():
+        fn.launches = fn.plain_calls = 0
     torch.cuda.empty_cache()
     cfg, model = build(torch, dev)
     launches, clip_ms = main_path(torch, dev, card, cfg, model, results)
+    check_probes_idle("the clip inference path")
+    e2e, e2e_launches = e2e_phase(torch, dev, card, cfg, model)
+    check_probes_idle("the e2e phase")
     train_launches, step_ms, peak_gib = train_path(torch, dev, card, cfg, model)
+    check_probes_idle("the clip train path")
     del model
     torch.cuda.empty_cache()
     train_compare(torch, dev)
@@ -1654,6 +1927,7 @@ def main() -> int:
     del coco_model
     torch.cuda.empty_cache()
     coco_train_compare(torch, dev)
+    probe_launches = check_probes_idle("every model path")
 
     # K1-K4: launches of the clip inference path's 3 clips; K5-K7: of the clip
     # train path's 3 steps (which also launched K1 and K3: `train_launches`);
@@ -1663,9 +1937,12 @@ def main() -> int:
               "K3": launches["msda_temporal"], "K4": launches["modulated_deform_conv2d"],
               "K5": train_launches["msda_temporal_bwd"], "K6": train_launches["msda_rows"],
               "K7": train_launches["msda_rows_bwd"], "K8": coco_launches["msda_proj"],
-              "K9": coco_train_launches["msda_taps_bwd"], "K10": k10_launches}
+              "K9": coco_train_launches["msda_taps_bwd"], "K10": k10_launches,
+              "K12a": probe_launches["tent_band"], "K12b": probe_launches["corner_gather"],
+              "K12c": probe_launches["mma_probe"]}   # over every model path: 0
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
+                "K12a", "K12b", "K12c"):
         r = results[key]
         bound_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         bound_ops = r["flops"] / r["flop_rate"] * 1e3
@@ -1679,8 +1956,11 @@ def main() -> int:
             "train_launches": train_launches.get(r["name"], 0),
             "coco_image_launches": coco_launches.get(r["name"], 0),
             "coco_train_launches": coco_train_launches.get(r["name"], 0),
+            "e2e_launches": e2e_launches.get(r["name"], 0),
             **{k: r[k] for k in ("atomic_bytes", "coco_shapes", "route_ms", "layers", "op_ms",
-                                 "k2_ms", "windows", "lab", "random_refs", "path_inputs")
+                                 "k2_ms", "windows", "lab", "random_refs", "path_inputs",
+                                 "script_shape", "shapes", "hmma_in_sass", "max_sm_clock_mhz",
+                                 "method_flops")
                if k in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"clip_ms": clip_ms, "fps": STRIDE / clip_ms * 1e3, "card": card}))
@@ -1689,6 +1969,7 @@ def main() -> int:
                       "card": card}))
     print(json.dumps({"coco_train_step_ms": coco_step_ms, "coco_train_peak_gib": coco_peak_gib,
                       "coco_batch": COCO_BATCH, "card": card}))
+    print(json.dumps(e2e))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

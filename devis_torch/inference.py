@@ -1,6 +1,7 @@
-"""Inference entry points (port of `devis_tpu/inference.py`): the device step
-of the clip-stitching tracker (`VISInferFn`, `make_eval_buckets`) and the
-COCO evaluation loop of the image model (`evaluate_coco`).
+"""Inference entry points (port of `devis_tpu/inference.py`): video in, tracks
+out (`build_tracker`, `inference_vis`), the device step of the clip-stitching
+tracker (`VISInferFn`, `make_eval_buckets`) and the COCO evaluation loop of
+the image model (`evaluate_coco`).
 
 `VISInferFn` keeps the JAX package's three stages: `prepare` (host: load and
 pad one clip to a static canvas), `dispatch` (upload and enqueue the forward;
@@ -18,12 +19,18 @@ masks). Chunk j+1's forward is enqueued before chunk j is fetched.
 """
 from __future__ import annotations
 
+import json
+import os
+import time
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .datasets.transforms import get_size_with_aspect_ratio
+from .evaluation.track_map import evaluate_vis
 from .models.detr import top_k_process
 from .ops.interpolate import resize_bilinear_hw
 from .util.misc import resolve_device
@@ -99,6 +106,7 @@ class VISInferFn:
         _, res = self.model(x, pad, clip_length=clip_length)
         masks = res["masks"].to(torch.float8_e4m3fn)
         small = {k: res[k] for k in ("scores", "labels", "boxes", "mask_gather")}
+        # recorded on this thread's current stream, the one the forward ran on
         done = torch.cuda.Event() if self.device.type == "cuda" else None
         if done is not None:
             done.record()
@@ -123,6 +131,111 @@ class VISInferFn:
 
     def __call__(self, video, clip_idx: int) -> Dict[str, np.ndarray]:
         return self.run(self.prepare(video, clip_idx))
+
+
+def build_tracker(cfg, model, device=None):
+    """The clip-stitching tracker over `model` (reference `build_tracker`,
+    `src/models/__init__.py:84-108`). Runs on the GPU unless ``device`` says
+    otherwise; the model must lie there."""
+    from .tracking.inference_matcher import HungarianInferenceMatcher
+    from .tracking.tracker import Tracker
+
+    ct = cfg.TEST.CLIP_TRACKING
+    T = cfg.MODEL.DEVIS.NUM_FRAMES
+    overlap = T - ct.STRIDE
+    infer_fn = VISInferFn(model, T, make_eval_buckets(cfg.INPUT.MIN_SIZE_TEST,
+                                                      cfg.INPUT.MAX_SIZE_TEST),
+                          device=device)
+    matcher = HungarianInferenceMatcher(
+        overlap_window=overlap, cost_class=ct.CLASS_COST,
+        cost_mask_iou=ct.MASK_COST, score_cost=ct.SCORE_COST,
+        center_distance_cost=ct.CENTER_COST,
+        use_binary_mask_iou=ct.USE_BINARY_MASK_IOU,
+        use_frame_average_iou=ct.USE_FRAME_AVERAGE_IOU)
+    tracker_cfg = dict(
+        per_class_matching=ct.PER_CLASS_MATCHING,
+        track_min_detection_score=ct.MIN_FRAME_SCORE,
+        track_min_score=ct.MIN_TRACK_SCORE,
+        track_min_detections=ct.MIN_DETECTIONS,
+        final_class_policy=ct.FINAL_CLASS_POLICY,
+        final_score_policy=ct.FINAL_SCORE_POLICY)
+    visualization_cfg = dict(
+        out_viz_path=cfg.TEST.VIZ.OUT_VIZ_PATH,
+        save_clip_viz=cfg.TEST.VIZ.SAVE_CLIP_VIZ,
+        merge_tracks=cfg.TEST.VIZ.SAVE_MERGED_TRACKS)
+    return Tracker(infer_fn, matcher, tracker_cfg, T, overlap,
+                   visualization_cfg=visualization_cfg)
+
+
+def inference_vis(tracker, dataset, output_dir: Optional[str] = None,
+                  verbose: bool = True,
+                  selected_videos: Optional[List[str]] = None) -> Dict:
+    """Tracks every video of `dataset` (reference engine.py:206-262).
+    Returns {"results": [...], "fps": frames / (wait + stitch) seconds of the
+    tracker} and, where the dataset has ground truth, "eval": its TrackMAP.
+    `selected_videos` keeps only the named videos. Writes results.json and
+    results.zip to `output_dir` when given.
+
+    Videos run grouped by their evaluation canvas, through one pipeline that
+    spans the pass (`ClipPipeline`). One process: with `torch.distributed`
+    initialised over more than one rank this raises; the cross-rank gather
+    of results comes with the port's DDP (ROADMAP.md queue A item 3)."""
+    from .tracking.pipeline import ClipPipeline
+
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError(
+            "inference_vis runs in one process; gathering results across ranks "
+            "comes with the port's DDP (ROADMAP.md queue A item 3)")
+    buckets = getattr(tracker.infer_fn, "buckets", None)
+
+    def canvas_of(video):
+        tr = getattr(video, "transform", None)
+        size = getattr(video, "original_size", None)
+        if tr is None or size is None or not buckets:
+            return (0, 0)
+        return pick_canvas(*get_size_with_aspect_ratio(size, tr.min_size, tr.max_size),
+                           buckets)
+
+    # same-canvas videos back to back (the order changes no video's tracks)
+    videos = sorted((dataset[i] for i in range(len(dataset))), key=canvas_of)
+    if selected_videos:
+        videos = [v for v in videos if getattr(v, "video_name", None) in selected_videos]
+
+    pipeline = ClipPipeline(tracker.infer_fn)
+    for video in videos:
+        pipeline.add_video(video)
+    tracker.pipeline = pipeline
+    results: List[Dict] = []
+    times: List[float] = []
+    try:
+        for j, video in enumerate(videos):
+            t0 = time.time()
+            results.extend(tracker(video, all_times=times))
+            if verbose:
+                print(f"video {j + 1}/{len(videos)} ({time.time() - t0:.2f}s)", flush=True)
+    finally:
+        tracker.pipeline = None
+        pipeline.close()
+
+    fps = dataset.get_total_num_frames() / max(sum(times), 1e-9)
+    out = {"results": results, "fps": fps}
+    if getattr(dataset, "has_gt", False):
+        gt = dataset.gt_dict() if hasattr(dataset, "gt_dict") else dataset.annotations
+        out["eval"] = evaluate_vis(gt, results)
+        if verbose:
+            e = out["eval"]
+            print(f"TrackMAP: AP {e['AP']:.1f} AP50 {e['AP50']:.1f} AP75 {e['AP75']:.1f} "
+                  f"AR {e['AR']:.1f} | {fps:.1f} FPS")
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+        res_path = os.path.join(output_dir, "results.json")
+        with open(res_path, "w") as f:
+            json.dump(results, f)
+        with zipfile.ZipFile(os.path.join(output_dir, "results.zip"), "w",
+                             zipfile.ZIP_DEFLATED) as z:
+            z.write(res_path, "results.json")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -87,11 +87,11 @@ def build_model(num_classes: int, cfg, device=None, seed: int = 0) -> nn.Module:
     device = resolve_device(device)
     if cfg.DATASETS.TYPE not in ("vis", "coco"):
         raise NotImplementedError(f"DATASETS.TYPE {cfg.DATASETS.TYPE!r}: the "
-                                  "panoptic model is ROADMAP queue A item 14 "
+                                  "panoptic model is ROADMAP.md queue A item 5 "
                                   "of the port")
     is_vis = cfg.DATASETS.TYPE == "vis"
     if "swin" in cfg.MODEL.BACKBONE:
-        raise NotImplementedError("the Swin backbone is ROADMAP queue A item 14 "
+        raise NotImplementedError("the Swin backbone is ROADMAP.md queue A item 5 "
                                   "of the port")
     da = cfg.MODEL.DEVIS.DEFORMABLE_ATTENTION
     if not cfg.MODEL.WITH_BBX_REFINE or cfg.MODEL.WITH_REF_POINT_REFINE \

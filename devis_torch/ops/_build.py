@@ -20,7 +20,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("ms_deform_attn", "ms_deform_attn_rows", "ms_deform_attn_proj",
-           "ms_deform_attn_taps", "deform_conv")
+           "ms_deform_attn_taps", "deform_conv", "probes")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

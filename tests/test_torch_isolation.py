@@ -9,7 +9,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "devis_tpu", "yaml", "cv2", "ml_dtypes")
+FORBIDDEN = ("jax", "flax", "devis_tpu", "yaml", "cv2", "ml_dtypes", "scipy")
 PORT_MODULES = ("devis_torch", "devis_torch.config", "devis_torch.models",
                 "devis_torch.inference", "devis_torch.util.weights",
                 "devis_torch.util.box_ops", "devis_torch.ops.ms_deform_attn_cuda",
@@ -20,14 +20,25 @@ PORT_MODULES = ("devis_torch", "devis_torch.config", "devis_torch.models",
                 "devis_torch.ops.ms_deform_attn", "devis_torch.ops._build",
                 "devis_torch.models.attention", "devis_torch.models.transformer",
                 "devis_torch.models.position_encoding", "devis_torch.models.detr",
-                "devis_torch.models.segmentation", "devis_torch.models.devis_model")
+                "devis_torch.models.segmentation", "devis_torch.models.devis_model",
+                "devis_torch.ops.probes", "devis_torch.ops.msda_lab",
+                "devis_torch.evaluation.rle", "devis_torch.evaluation._native",
+                "devis_torch.evaluation.track_map", "devis_torch.datasets.transforms",
+                "devis_torch.datasets.vis", "devis_torch.datasets.synthetic",
+                "devis_torch.tracking.track", "devis_torch.tracking.inference_matcher",
+                "devis_torch.tracking.pipeline", "devis_torch.tracking.tracker")
 
 
 def test_import_leaves_jax_out_of_sys_modules():
+    """Importing the port, building its config and running its RLE codec
+    (built at first use) loads none of the forbidden modules."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "from devis_torch.config import get_cfg_defaults\n"
             "get_cfg_defaults()\n"
+            "import numpy as np\n"
+            "from devis_torch.evaluation import rle\n"
+            "rle.decode(rle.encode(np.eye(3, dtype=bool)))\n"
             f"print([m for m in {FORBIDDEN!r} if m in sys.modules])\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -116,3 +127,14 @@ def test_other_model_families_name_their_roadmap_item():
     cfg.MODEL.BACKBONE = "swin_t"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(41, cfg, device="cpu")
+
+
+def test_tracker_entry_point_needs_an_explicit_cpu(monkeypatch):
+    from devis_torch.inference import build_tracker
+    from devis_torch.models import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _small_cfg()
+    model = build_model(41, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_tracker(cfg, model)
+    assert build_tracker(cfg, model, device="cpu").infer_fn.device.type == "cpu"

@@ -430,3 +430,50 @@ def test_deform_conv2d_gives_gradients(dev):
     for g, w in zip(got, want):
         assert g.abs().max() > 0
         _close(g, w, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# K12a-K12c, the probes (measurement kernels, no model path)
+# ---------------------------------------------------------------------------
+
+def _band(dev, C=20, Wp=40, N=300, ncand=4, seed=0):
+    from devis_torch.ops import probes
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand(C, N + ncand * Wp, generator=g, device=dev)
+    # every tap in the band: both bilinear corners at offsets -lo .. ncand-1-lo
+    lo = (ncand - 1) // 2
+    dy = torch.rand(N, generator=g, device=dev) * (ncand - 1.01) - lo
+    dx = torch.rand(N, generator=g, device=dev) * (ncand - 1.01) - lo
+    return probes, u, dy, dx
+
+
+@pytest.mark.parametrize("ncand", [2, 4, 5])
+def test_tent_band_and_corner_gather_kernels(dev, ncand):
+    """f32: multiply-adds fused or not, 1e-5 of max|plain|; a ragged channel
+    chunk (C 20) and n block (N 300); K12a against K12b in the band."""
+    probes, u, dy, dx = _band(dev, ncand=ncand)
+    args = (u, dy, dx, ncand, 40, 3)
+    tent = probes.tent_band(*args)
+    gather = probes.corner_gather(*args)
+    for got, want in ((tent, probes.tent_band_plain(*args)),
+                      (gather, probes.corner_gather_plain(*args)), (tent, gather)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("n_dots,K,N,grid", [(4, 128, 128, 7), (3, 256, 256, 5),
+                                             (2, 512, 256, 3), (1, 32, 64, 1),
+                                             (5, 128, 192, 2), (1, 3072, 256, 3)])
+def test_mma_probe_kernel(dev, n_dots, K, N, grid):
+    """bf16 on seeded operands, shared-memory resident (K <= 256 at N 256) and
+    streamed (K 512, 3072); every block stores the same tile: 2e-2 of
+    max|plain|. At 1-5 dots a dropped or extra product is a 20-100 % error."""
+    from devis_torch.ops import probes
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    v = torch.randn(K, probes.D, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(K, N, generator=g, device=dev).to(torch.bfloat16)
+    got = probes.mma_probe(v, w, n_dots, grid)
+    torch.cuda.synchronize()
+    want = probes.mma_probe_plain(v, w, n_dots)
+    assert got.shape == (probes.D, N) and got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
