@@ -18,11 +18,16 @@
    decoder temporal attention, K4 DCNv2 layer (each layer also timed beside
    the route the layer takes under a gradient, `modulated_deform_conv2d_rows`,
    run without one: the yardstick of the fused kernel); K5 backward of K1/K3 at the
-   encoder's and the decoder's shapes; K6 and K7, single-frame attention
-   forward and backward, at the six mask-head layers; the differentiable
-   DCNv2 route (K6) against K4. A backward kernel's bf16 run is held against
-   the plain version on the same inputs upcast to f32 (the plain version's
-   own bf16 scatter-add loses the sum).
+   encoder's shape at raster references (K1's inputs) and at random
+   locations, and at the decoder's; K6 and K7, single-frame attention
+   forward and backward, at the six mask-head layers (K7 on the route's
+   query grid); the differentiable DCNv2 route (K6) against K4. A backward
+   kernel's bf16 run is held against the plain version on the same inputs
+   upcast to f32 (the plain version's own bf16 scatter-add loses the sum).
+   Every K5 and K7 case logs the kernel alone, the op (zero + kernel +
+   cast), the zero and cast, the kernel at capacity 0 (no window), the
+   kernel's count of f32 adds onto the value gradient (flushed, past the
+   capacity) beside the live corners x D a kernel without windows adds.
 3. Drives the inference path: `build_model` at the YT-19 R50 config (bf16,
    6+6 layers, 60 queries, seeded random weights) and `VISInferFn` over 3
    consecutive clips of a seeded synthetic 360x640 uint8 video. Launch
@@ -51,7 +56,9 @@
    (deformable conv from given fields) and K4 at the six mask-head layers at
    batch 50 (each beside its route: `deform_conv2d_rows`,
    `modulated_deform_conv2d_rows`), K6 and K7 at the decoder's shape (1 and 2 images) and K7 at the
-   encoder's (Q = S, 2 images), each against its plain version. The
+   encoder's (Q = S, 2 images), each against its plain version; K7 at the
+   six mask-head layers at the image train step's 50 masks (held against
+   the plain version at 10 masks where its f32 copy of U passes 1.5 GB). The
    inference path:
    `build_model` and `evaluate_coco` over a seeded synthetic dataset, 1
    warm-up image + 3 images: an image must launch K8 7, K6 5 and K4 6 times
@@ -84,7 +91,9 @@
    / (wait + stitch), as `inference_vis` computes it), the wait and stitch
    seconds, the host seconds of the full-resolution resize and RLE and of
    each pipeline stage, and profiles one tracked video.
-8. Prints the `kernels` JSON line (K1-K10, K12a-K12c), a clip-latency line, a
+8. Prints the `kernels` JSON line (K1-K10, K12a-K12c; K5 and K7 with
+   `op_ms`, `global_adds`, `global_only_ms` and, per shape, window
+   statistics), a clip-latency line, a
    train-step line with peak memory, the image model's two lines, the e2e
    line, the card line, and last {"ok": true, "device": {...}}.
 
@@ -124,6 +133,7 @@ COCO_DCN_LAYERS = (("lay1", 264, 264, 26, 42), ("lay2", 264, 128, 26, 42),
                    ("lay3", 136, 64, 52, 84), ("lay4", 72, 32, 104, 168),
                    ("lay5", 32, 16, 208, 336), ("out_lay", 16, 1, 208, 336))
 COCO_BATCH, COCO_SLOTS, COCO_INSTANCES = 2, 25, 6
+COCO_MASK_CMP_B = 10          # masks of a mask-head layer the plain K7 is held at
 # the probes: K12a/K12b at the JAX script's shape and at a large one (C, N / Wp)
 BAND_WP, BAND_NCAND, BAND_REPS = 384, 4, 9
 BAND_SHAPES = (("script", 16, 32), ("large", 512, 96))
@@ -515,23 +525,84 @@ def dcn_phase(torch, dev, gen, results):
 
 
 def backward_cost(loc, att, value, shapes, frames, d):
-    """(bytes, operations, atomic bytes) of a backward kernel (K5, K7) on
+    """(bytes, operations, live corners) of a backward kernel (K5, K7) on
     these inputs. Bytes are what the function must move: the distinct value
     rows the live taps read, loc, att and the output gradient read once, the
     value gradient written once in the value's type, the loc and att
     gradients written once. About 24 operations per tap and channel plus 40
-    per tap. The kernel's own f32 scratch traffic (one 4-byte atomic add per
-    live corner and channel) is no part of the bound and is returned apart."""
+    per tap. The live in-level corners are the adds onto the value gradient
+    (times D) that a kernel without windows makes; no part of the bound."""
     taps, corners, rows = corner_stats(loc, shapes, frames)
     item = value.element_size()
     nbytes = (rows * d * item + 2 * (loc.numel() + att.numel()) * 4
               + loc.shape[0] * loc.shape[1] * loc.shape[2] * d * item
               + value.numel() * item)
-    return nbytes, taps * (24 * d + 40), corners * d * 4
+    return nbytes, taps * (24 * d + 40), corners
+
+
+def bwd_times(torch, op, launch, value, loc, att, plan, corners, iters=10):
+    """Times and window statistics of a backward (K5, K7) on its bf16 inputs
+    at its default `plan`: `ms` the kernel alone (`launch(out, plan, adds)`
+    into preallocated gradient buffers), `op_ms` the public op (it zeroes an
+    f32 value gradient, launches, casts it to the value's dtype),
+    `zero_cast_ms` that zero and cast alone, `global_only_ms` the kernel at
+    capacity 0 (no window: every corner adds to global memory, as a kernel
+    without windows does), `global_adds` the kernel's count of f32 values
+    added to the value gradient (by flushes, past the capacity) beside the
+    `corners` x D a kernel without windows adds."""
+    d = value.shape[-1]
+    out = (torch.zeros(value.shape, dtype=torch.float32, device=value.device),
+           torch.zeros_like(loc), torch.zeros_like(att))
+    adds = torch.zeros(2, dtype=torch.int64, device=value.device)
+    launch(out, plan, adds)
+    ms = cuda_time(lambda: launch(out, plan, None), iters)
+    global_only_ms = cuda_time(lambda: launch(out, plan._replace(cap=0), None), iters)
+    op_ms = cuda_time(op, iters)
+    zero_cast_ms = cuda_time(lambda: torch.zeros(value.shape, dtype=torch.float32,
+                                                 device=value.device).to(value.dtype), iters)
+    flushed, over = adds.tolist()
+    return dict(ms=ms, op_ms=op_ms, zero_cast_ms=zero_cast_ms, global_only_ms=global_only_ms,
+                global_adds=flushed + over, windows=dict(
+                    plan=dict(plan._asdict()), flushed_adds=flushed, over_capacity_adds=over,
+                    adds_without_windows=corners * d,
+                    ratio=corners * d / max(flushed + over, 1)))
+
+
+def bwd_compare(torch, label, bwd, plain, args32, args16):
+    """A backward kernel's f32 and bf16 gradients against its plain version;
+    the bf16 run is held against the plain version on the same inputs upcast
+    to f32 (the plain version's own bf16 scatter-add loses the sum). f32: the
+    atomics' order changes the last bits; bf16: the value gradient is
+    rounded once to bf16, the row gradients stay f32. Returns the bf16 value
+    gradient's error."""
+    up = tuple(t.float() if torch.is_tensor(t) else t for t in args16)
+    err = 0.0
+    for tag, args, ref_args, tols in (("f32 ", args32, args32, (1e-4, 1e-4, 1e-4)),
+                                      ("bf16", args16, up, (1e-2, 1e-4, 1e-4))):
+        if args is None:
+            continue
+        got, want = bwd(*args), plain(*ref_args)
+        for part, g, w, tol in zip(("value", "loc", "att"), got, want, tols):
+            e = compare(f"{label} {tag} grad_{part}", g, w, tol)
+            if tag == "bf16" and part == "value":
+                err = e
+        del got, want
+    return err
+
+
+def log_bwd(where, rec):
+    win = rec["windows"]
+    log(f"    {where}: kernel {rec['ms']:.4f} ms (capacity 0: {rec['global_only_ms']:.4f}), op "
+        f"{rec['op_ms']:.4f} ms (zero + cast {rec['zero_cast_ms']:.4f}), plain "
+        f"{rec['plain_ms']:.3f} ms; bound {rec['bound_ms']:.5f} ms; global adds "
+        f"{win['flushed_adds']} flushed + {win['over_capacity_adds']} past the capacity, "
+        f"{win['adds_without_windows']} without windows ({win['ratio']:.2f}x)")
 
 
 def temporal_bwd_phase(torch, dev, gen, results):
-    """K5 at the encoder's (Q = 5100) and the decoder's (Q = 10) shapes."""
+    """K5 at the encoder's shape (Q = S = 5100) at raster references (K1's
+    inputs: the encoder's own references, the init's offsets plus N(0, 1)
+    pixels) and at random locations, and at the decoder's (Q = 10)."""
     from devis_torch.ops import ms_deform_attn_cuda as K
     from devis_torch.ops.ms_deform_attn import temporal_frame_table
 
@@ -541,48 +612,47 @@ def temporal_bwd_phase(torch, dev, gen, results):
     table = torch.as_tensor(temporal_frame_table(rule, T), device=dev)
     frames = torch.cat([torch.arange(T, device=dev)[:, None], table], 1)
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
-    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, atomic=0, err=0.0)
-    for where, Q in (("encoder", S), ("decoder", NQ // T)):
-        log(f"K5 msda_temporal_bwd ({where}), T={T} Q={Q} M={M} D={D} Lf={(1 + W) * L} P={P}")
-        value = torch.randn(T, S, M, D, generator=gen, device=dev)
-        loc = torch.rand(T, Q, M, (1 + W) * L, P, 2, generator=gen, device=dev) * 1.2 - 0.1
-        att = torch.softmax(torch.randn(T, Q, M, (1 + W) * L * P, generator=gen, device=dev),
-                            -1).reshape(loc.shape[:-1])
+    cases = {}
+    for case in ("encoder raster", "encoder random", "decoder"):
+        Q = NQ // T if case == "decoder" else S
+        log(f"K5 msda_temporal_bwd ({case}), T={T} Q={Q} M={M} D={D} Lf={(1 + W) * L} P={P}")
+        if case == "encoder raster":
+            a = encoder_inputs(torch, dev, gen, "raster")
+            value = a[0]
+            loc = K.temporal_proj_locations(SHAPES, a[2], a[3], a[4], M)
+            att = K.temporal_proj_weights(a[5], a[6], M, L)
+            del a
+        else:
+            value = torch.randn(T, S, M, D, generator=gen, device=dev)
+            loc = torch.rand(T, Q, M, (1 + W) * L, P, 2, generator=gen, device=dev) * 1.2 - 0.1
+            att = torch.softmax(torch.randn(T, Q, M, (1 + W) * L * P, generator=gen,
+                                            device=dev), -1).reshape(loc.shape[:-1])
         grad = torch.randn(T, Q, M * D, generator=gen, device=dev)
-        # the bf16 run's inputs, and the same values upcast for its reference
         a16 = (bf(value), SHAPES, loc, att, bf(grad), rule)
-        a16_up = (a16[0].float(), SHAPES, loc, att, a16[4].float(), rule)
-        a32 = (value, SHAPES, loc, att, grad, rule)
-        # f32: the atomics' order changes the last bits. bf16: the value
-        # gradient is rounded once to bf16, the row gradients stay f32
-        for tag, args, ref_args, tols in (("f32 ", a32, a32, (1e-4, 1e-4, 1e-4)),
-                                          ("bf16", a16, a16_up, (1e-2, 1e-4, 1e-4))):
-            got = K.msda_temporal_bwd(*args)
-            want = K.msda_temporal_bwd_plain(*ref_args)
-            for part, g, w, tol in zip(("value", "loc", "att"), got, want, tols):
-                err = compare(f"{tag} grad_{part}", g, w, tol)
-                if tag == "bf16" and part == "value":
-                    tot["err"] = max(tot["err"], err)
-            del got, want
-        ms = cuda_time(lambda: K.msda_temporal_bwd(*a16), 10)
-        plain_ms = cuda_time(lambda: K.msda_temporal_bwd_plain(*a16), 2, 1)
-        nbytes, flops, atomic = backward_cost(loc, att, a16[0], SHAPES, frames, D)
-        log(f"    {where}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
-            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes, "
-            f"{flops / F32_FLOPS * 1e3:.4f} ms by operations")
-        tot["ms"] += ms
-        tot["plain_ms"] += plain_ms
-        tot["bytes"] += nbytes
-        tot["flops"] += flops
-        tot["atomic"] += atomic
-        del value, loc, att, grad, a16, a16_up, a32
+        err = bwd_compare(torch, "", K.msda_temporal_bwd, K.msda_temporal_bwd_plain,
+                          (value, SHAPES, loc, att, grad, rule), a16)
+        nbytes, flops, corners = backward_cost(loc, att, a16[0], SHAPES, frames, D)
+        rec = bwd_times(torch, lambda: K.msda_temporal_bwd(*a16),
+                        lambda out, p, adds: K.launch_temporal_bwd(*a16, out, p, adds),
+                        a16[0], loc, att, K.bwd_plan(SHAPES, torch.bfloat16, D, P), corners)
+        rec["plain_ms"] = cuda_time(lambda: K.msda_temporal_bwd_plain(*a16), 2, 1)
+        rec.update(max_abs_err=err, bytes=nbytes, flops=flops,
+                   bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3)
+        log_bwd(case, rec)
+        cases[case] = rec
+        del value, loc, att, grad, a16
         torch.cuda.empty_cache()
-    # one encoder plus one decoder launch: a twelfth of a train step's K5 work
+    # one encoder (raster references) plus one decoder launch: a twelfth of a
+    # train step's K5 work
+    enc, dec = cases["encoder raster"], cases["decoder"]
     results["K5"] = dict(
         name="msda_temporal_bwd", route="cuda", source="devis_torch/csrc/ms_deform_attn.cu",
-        replaces="devis_tpu/ops/ms_deform_attn_pallas.py:940", max_abs_err=tot["err"],
-        ms=tot["ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"], flops=tot["flops"],
-        flop_rate=F32_FLOPS, library_ms=None, atomic_bytes=tot["atomic"])
+        replaces="devis_tpu/ops/ms_deform_attn_pallas.py:940",
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        **{k: enc[k] + dec[k] for k in ("ms", "op_ms", "plain_ms", "bytes", "flops",
+                                         "global_adds", "global_only_ms")},
+        windows=enc["windows"],
+        flop_rate=F32_FLOPS, library_ms=None, shapes=cases)
 
 
 def rows_phase(torch, dev, gen, results):
@@ -596,7 +666,8 @@ def rows_phase(torch, dev, gen, results):
     log(f"K6 msda_rows / K7 msda_rows_bwd, B={DCN_B}, 9 levels, per mask-head layer")
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
     fwd = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0)
-    bwd = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, atomic=0, err=0.0)
+    bwd = dict(ms=0.0, op_ms=0.0, plain_ms=0.0, bytes=0, flops=0, global_adds=0,
+               global_only_ms=0.0, err=0.0, layers=[])
     for name, cin, cout, h, w in DCN_LAYERS:
         shapes = ((h, w),) * 9
         hw = h * w
@@ -626,37 +697,36 @@ def rows_phase(torch, dev, gen, results):
         fwd["flops"] += taps * 8 * cout
         line = f"    {name} D={cout} at {h}x{w}: K6 {ms:.3f} ms (plain {plain_ms:.3f})"
 
-        pairs = [("bf16", (v16, shapes, loc, att, g16),
-                  (v16.float(), shapes, loc, att, g16.float()), (1e-2, 1e-4, 1e-4))]
-        if name in ("lay1", "lay5"):
-            a32 = (value, shapes, loc, att, grad)
-            pairs.insert(0, ("f32 ", a32, a32, (1e-4, 1e-4, 1e-4)))
-        for tag, args, ref_args, tols in pairs:
-            got = K.msda_rows_bwd(*args)
-            want = K.msda_rows_bwd_plain(*ref_args)
-            for part, g, wnt, tol in zip(("value", "loc", "att"), got, want, tols):
-                err = compare(f"{name} K7 {tag} grad_{part}", g, wnt, tol)
-                if tag == "bf16" and part == "value":
-                    bwd["err"] = max(bwd["err"], err)
-            del got, want
-        ms = cuda_time(lambda: K.msda_rows_bwd(v16, shapes, loc, att, g16), 10)
-        plain_ms = cuda_time(lambda: K.msda_rows_bwd_plain(v16, shapes, loc, att, g16), 2, 1)
-        nbytes, flops, atomic = backward_cost(loc, att, v16, shapes, None, cout)
-        bwd["ms"] += ms
-        bwd["plain_ms"] += plain_ms
+        # the route's K7 takes 2-D tiles of the h x w query grid
+        a16, grid = (v16, shapes, loc, att, g16), (h, w)
+        err = bwd_compare(torch, f"{name} K7", lambda *a: K.msda_rows_bwd(*a, grid),
+                          K.msda_rows_bwd_plain,
+                          (value, shapes, loc, att, grad) if name in ("lay1", "lay5") else None,
+                          a16)
+        bwd["err"] = max(bwd["err"], err)
+        nbytes, flops, corners = backward_cost(loc, att, v16, shapes, None, cout)
+        rec = bwd_times(torch, lambda: K.msda_rows_bwd(*a16, grid),
+                        lambda out, p, adds: K.launch_rows_bwd(*a16, out, p, grid, adds),
+                        v16, loc, att, K.bwd_plan(shapes, torch.bfloat16, cout, 1, grid), corners)
+        rec["plain_ms"] = cuda_time(lambda: K.msda_rows_bwd_plain(*a16), 2, 1)
+        rec.update(layer=name, bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3)
+        for k in ("ms", "op_ms", "plain_ms", "global_adds", "global_only_ms"):
+            bwd[k] += rec[k]
         bwd["bytes"] += nbytes
         bwd["flops"] += flops
-        bwd["atomic"] += atomic
-        log(line + f", K7 {ms:.3f} ms (plain {plain_ms:.3f})")
-        del value, loc, att, grad, v16, g16, jitter
+        bwd["layers"].append(rec)
+        log(line)
+        log_bwd(f"{name} K7", rec)
+        del value, loc, att, grad, v16, g16, jitter, a16
         torch.cuda.empty_cache()
     for key, tot, nm, line in (("K6", fwd, "msda_rows", 354), ("K7", bwd, "msda_rows_bwd", 773)):
         results[key] = dict(
             name=nm, route="cuda", source="devis_torch/csrc/ms_deform_attn_rows.cu",
             replaces=f"devis_tpu/ops/ms_deform_attn_pallas.py:{line}", max_abs_err=tot["err"],
             ms=tot["ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"], flops=tot["flops"],
-            flop_rate=F32_FLOPS, library_ms=None, **({"atomic_bytes": tot["atomic"]}
-                                                     if key == "K7" else {}))
+            flop_rate=F32_FLOPS, library_ms=None,
+            **({k: tot[k] for k in ("op_ms", "global_adds", "global_only_ms", "layers")}
+               if key == "K7" else {}))
 
     log("DCNv2 layer: the differentiable route (K6) against K4 on the same inputs")
     Kk = 3
@@ -797,9 +867,9 @@ def check_probes_idle(after):
 
 KERNEL_GROUPS = {"K1 msda_temporal_proj": "msda_temporal_proj_win_kernel",
                  "K2 msda_tap_window": "msda_tap_window_kernel",
-                 "K5 msda_temporal_bwd": "msda_temporal_bwd_kernel",
+                 "K5 msda_temporal_bwd": "msda_temporal_bwd_win_kernel",
                  "K3 msda_temporal": "msda_temporal_kernel",
-                 "K7 msda_rows_bwd": "msda_rows_bwd_kernel",
+                 "K7 msda_rows_bwd": "msda_rows_bwd_win_kernel",
                  "K6 msda_rows": "msda_rows_kernel",
                  "K8 msda_proj": "msda_proj_kernel",
                  "K9 msda_taps_bwd": "msda_taps_bwd_kernel",
@@ -1318,7 +1388,10 @@ def compare_train_paths(torch, cfg, model_k, batch, ops, plain_names):
         if isinstance(mod, Dropout):
             mod.p = 0.0
     model_p = copy.deepcopy(model_k)
-    patches = [(dc_mod if name == "msda_rows" else attn_mod, name, getattr(K, plain))
+    # the DCN route hands `msda_rows` its query grid, which the plain version
+    # does not take
+    patches = [(dc_mod, name, lambda v, s, lc, a, grid=None, f=getattr(K, plain): f(v, s, lc, a))
+               if name == "msda_rows" else (attn_mod, name, getattr(K, plain))
                for name, plain in plain_names.items()]
     out = []
     for tag, model in (("kernels", model_k), ("plain", model_p)):
@@ -1462,24 +1535,22 @@ def coco_kernel_phases(torch, dev, gen, results):
             nbytes = rows * D * 2 + (loc.numel() + att.numel()) * 4 + grad.numel() * 2
             times["K6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(
                 nbytes / HBM_BYTES_PER_S, taps * 8 * D / F32_FLOPS) * 1e3)
-        a32 = (value, COCO_SHAPES, loc, att, grad)
-        for tag, args, ref_args, tols in (
-                ("f32 ", a32, a32, (1e-4, 1e-4, 1e-4)),
-                ("bf16", (v16, COCO_SHAPES, loc, att, g16),
-                 (v16.float(), COCO_SHAPES, loc, att, g16.float()), (1e-2, 1e-4, 1e-4))):
-            got = K.msda_rows_bwd(*args)
-            want = K.msda_rows_bwd_plain(*ref_args)
-            for part, g, wnt, tol in zip(("value", "loc", "att"), got, want, tols):
-                compare(f"{where} K7 {tag} grad_{part}", g, wnt, tol)
-            del got, want
-        ms = cuda_time(lambda: K.msda_rows_bwd(v16, COCO_SHAPES, loc, att, g16), 10)
-        plain_ms = cuda_time(lambda: K.msda_rows_bwd_plain(v16, COCO_SHAPES, loc, att, g16), 2, 1)
-        nbytes, flops, _ = backward_cost(loc, att, v16, COCO_SHAPES, None, D)
-        times["K7"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(
-            nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3)
+        a16 = (v16, COCO_SHAPES, loc, att, g16)
+        bwd_compare(torch, f"{where} K7", K.msda_rows_bwd, K.msda_rows_bwd_plain,
+                    (value, COCO_SHAPES, loc, att, grad), a16)
+        nbytes, flops, corners = backward_cost(loc, att, v16, COCO_SHAPES, None, D)
+        rec = bwd_times(torch, lambda: K.msda_rows_bwd(*a16),
+                        lambda out, p, adds: K.launch_rows_bwd(*a16, out, p, None, adds),
+                        v16, loc, att, K.bwd_plan(COCO_SHAPES, torch.bfloat16, D, P), corners)
+        rec["plain_ms"] = cuda_time(lambda: K.msda_rows_bwd_plain(*a16), 2, 1)
+        rec.update(bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3)
+        times["K7"] = rec
         for key, t in times.items():
-            log(f"    {where}: {key} {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
-                f"bound {t['bound_ms']:.5f} ms")
+            if key == "K7":
+                log_bwd(f"{where} K7", t)
+            else:
+                log(f"    {where}: {key} {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
+                    f"bound {t['bound_ms']:.5f} ms")
             results[key].setdefault("coco_shapes", {})[where] = t
         torch.cuda.empty_cache()
 
@@ -1492,6 +1563,7 @@ def coco_kernel_phases(torch, dev, gen, results):
     att = torch.softmax(rnd(B, S, M, L * P), -1).reshape(B, S, M, L, P)
     rows_at(f"encoder B={B} Q={S}", value, loc, att, rnd(B, S, M * D), forward=False)
     del value, loc, att
+    coco_mask_head_bwd_phase(torch, dev, gen, results)
 
     log(f"K10 deform_conv2d (and K4 on the same layers), B={COCO_OUT}, per mask-head layer; "
         "each beside its route without a gradient (cuDNN fields, cuBLAS premix, K6)")
@@ -1558,6 +1630,63 @@ def coco_kernel_phases(torch, dev, gen, results):
         ms=tot["ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"], flops=tot["flops"],
         flop_rate=BF16_TC_FLOPS, library_ms=None, route_ms=tot["route_ms"], layers=layers)
     return tot["k4"]
+
+
+def coco_mask_head_bwd_phase(torch, dev, gen, results):
+    """K7 at the image mask head's six DCNv2 layers at the batch the image
+    train step gives it (2 images x 25 slots = 50 masks a mask level), on
+    the route's rows (`deform_conv2d_rows`: pixel + kernel position + an
+    offset of N(0, 2) pixels, 9 one-point levels). Held against the plain
+    version at `COCO_MASK_CMP_B` masks where the plain version's f32 copy of
+    U passes 1.5 GB (lay5), timed at full batch."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    B = COCO_SLOTS * COCO_BATCH
+    tot = dict(ms=0.0, op_ms=0.0, bound_ms=0.0, global_adds=0, global_only_ms=0.0, layers=[])
+    log(f"K7 msda_rows_bwd at the image mask head, B={B}, 9 levels, per layer")
+    for name, cin, cout, h, w in COCO_DCN_LAYERS:
+        shapes = ((h, w),) * 9
+        loc = dcn_route_loc(torch, dev, gen, B, h, w)
+        att = torch.rand(B, h * w, 1, 9, 1, generator=gen, device=dev) * 2.0
+        v16 = bf(torch.randn(B, 9 * h * w, 1, cout, generator=gen, device=dev))
+        g16 = bf(torch.randn(B, h * w, cout, generator=gen, device=dev))
+        a16 = (v16, shapes, loc, att, g16)
+        nb = B if B * 9 * h * w * cout * 4 <= 1.5e9 else COCO_MASK_CMP_B
+        cut = tuple(t[:nb] if torch.is_tensor(t) else t for t in a16)
+        grid = (h, w)
+        bwd_compare(torch, f"{name} B={nb} K7", lambda *a: K.msda_rows_bwd(*a, grid),
+                    K.msda_rows_bwd_plain, None, cut)
+        nbytes, flops, corners = backward_cost(loc, att, v16, shapes, None, cout)
+        rec = bwd_times(torch, lambda: K.msda_rows_bwd(*a16, grid),
+                        lambda out, p, adds: K.launch_rows_bwd(*a16, out, p, grid, adds),
+                        v16, loc, att, K.bwd_plan(shapes, torch.bfloat16, cout, 1, grid), corners,
+                        iters=5)
+        rec["plain_ms"] = cuda_time(lambda: K.msda_rows_bwd_plain(*cut), 2, 1)
+        rec.update(layer=name, compare_batch=nb,
+                   bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3)
+        log_bwd(f"{name} D={cout} at {h}x{w} (plain at B={nb})", rec)
+        for k in ("ms", "op_ms", "bound_ms", "global_adds", "global_only_ms"):
+            tot[k] += rec[k]
+        tot["layers"].append(rec)
+        del loc, att, v16, g16, a16, cut
+        torch.cuda.empty_cache()
+    log(f"    six layers: K7 {tot['ms']:.3f} ms, op {tot['op_ms']:.3f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms")
+    results["K7"].setdefault("coco_shapes", {})[f"mask head B={B}"] = tot
+
+
+def dcn_route_loc(torch, dev, gen, B, h, w, px=2.0):
+    """(B, h*w, 1, 9, 1, 2) f32 locations as `deform_conv2d_rows` builds them:
+    each pixel shifted by its kernel position (ky - 1, kx - 1) and an offset
+    of N(0, px) pixels, normalized as the attention's."""
+    ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None].expand(h, w).reshape(-1)
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :].expand(h, w).reshape(-1)
+    k = torch.arange(9, device=dev)
+    ky, kx = (k // 3 - 1).float(), (k % 3 - 1).float()
+    off = torch.randn(B, h * w, 9, 2, generator=gen, device=dev) * px
+    lx = (xs[None, :, None] + kx + off[..., 1] + 0.5) / w
+    ly = (ys[None, :, None] + ky + off[..., 0] + 0.5) / h
+    return torch.stack([lx, ly], -1).reshape(B, h * w, 1, 9, 1, 2).contiguous()
 
 
 def build_coco(torch, dev, enc_layers=6, dec_layers=6, mask_aux=(2,), box_noise=True):
@@ -1957,7 +2086,8 @@ def main() -> int:
             "coco_image_launches": coco_launches.get(r["name"], 0),
             "coco_train_launches": coco_train_launches.get(r["name"], 0),
             "e2e_launches": e2e_launches.get(r["name"], 0),
-            **{k: r[k] for k in ("atomic_bytes", "coco_shapes", "route_ms", "layers", "op_ms",
+            **{k: r[k] for k in ("atomic_bytes", "global_adds", "global_only_ms",
+                                 "coco_shapes", "route_ms", "layers", "op_ms",
                                  "k2_ms", "windows", "lab", "random_refs", "path_inputs",
                                  "script_shape", "shapes", "hmma_in_sass", "max_sm_clock_mhz",
                                  "method_flops")

@@ -14,7 +14,7 @@
 //      launches it first.
 //   K3 msda_temporal       <- _fwd_kernel_temporal (decoder).
 //      The same sampling from precomputed locations and weights.
-//   K5 msda_temporal_bwd   <- _bwd_kernel_rows_temporal (backward of K1, K3).
+//   K5 msda_temporal_bwd_win <- _bwd_kernel_rows_temporal (backward of K1, K3).
 //      From the output gradient: the gradient of the per-frame value, of the
 //      locations and of the weights, with the taps rebuilt in the kernel.
 //
@@ -38,14 +38,23 @@
 // 64-byte (bf16) or 128-byte (f32) load. The decoder's 60 queries are too
 // few for windows to pay: the kernel is launch-bound.
 //
-// K5 keeps the mapping of K3. Its value gradient is a scatter: every corner
-// of every tap adds weight * corner * g onto the frame the rule names, with
-// f32 atomics into an f32 buffer (the TPU kernel's one-hot fold of temporal
-// slots onto frames is layout; here the slot's frame is addressed directly).
-// The sums are therefore not bit-reproducible from run to run. The weight and
-// location gradients are three warp reductions over the D channels per tap.
-// What bounds it: the atomic traffic, T*Q*M*Lf*P*4*D f32 adds (3.0e9 at the
-// encoder's shapes) onto a buffer that stays in L2.
+// K5 (`msda_bwd_block` in msda_common.cuh, shared with K7): the value
+// gradient is a scatter, one add per (tap, corner, channel) onto the frame the
+// rule names (the TPU kernel's one-hot fold of temporal slots onto frames is
+// layout; here the slot's frame is addressed directly). Added straight into
+// the f32 gradient, 3.0e9 scalar adds at the encoder's shapes kept L2's
+// atomic units busy 21 times the bound. The kernel takes K1's raster blocks
+// of 128 queries of one (t, m); per stage (frame slot, level) one thread per
+// (query, point) computes the tap once, the block's corners are sorted by
+// window row (the box of rows its taps touch: at raster references about
+// 1 300 rows a frame against 8 200 corner touches), each touched row is read
+// once, its adds summed in registers and flushed once with a vector atomic
+// (6x fewer global adds at raster references, 2.5x at random ones), and each
+// tap's weight and location gradients are gathered from its corners' dot
+// products and written once. The flush's order changes from run to run: the
+// sums are not bit-reproducible. What bounds it now: latency, through the
+// barriers between its per-stage steps and the dependent shared-memory reads
+// of the row pass, more than any throughput.
 //
 // Location arithmetic uses explicit round-to-nearest intrinsics (see
 // msda_common.cuh): K1 and K2 then compute exactly the f32 values of the
@@ -112,7 +121,6 @@ enum { K1_FULL = 0, K1_NOSTAGE, K1_NOLOC, K1_NOGATHER, K1_NOACC, K1_COUNT, K1_MO
 // softmax max and reciprocal sum per query; (first, staged rows, length) per stage
 #define K1_HEAD_BYTES (2 * K1_QB * 4 + 3 * K1_MAX_LF * 4)
 #define K1_TAP_BYTES 32  // int4 rows + float4 weights per (query, point)
-#define SMEM_BLOCK_MAX 232448
 
 struct StagePlan {
   int cap[MAX_LEVELS];  // rows of a level's window that are staged
@@ -129,40 +137,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
-
-// 16 bytes of channels as floats: 8 bf16 or 4 f32
-template <typename scalar_t> struct Vec16;
-template <> struct Vec16<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void unpack(uint4 r, float* v) {
-    v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
-    v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float* v) {
-    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
-                      __float_as_uint(v[3]));
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void unpack(uint4 r, float* v) {
-    const unsigned w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float* v) {
-    unsigned w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      w[i] = *reinterpret_cast<unsigned*>(&b);
-    }
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
 
 // Copy `n` rows of D channels, `src_stride` elements apart, into shared rows
 // of DP channels: 16-byte cp.async where rows are 16-byte aligned, else one
@@ -575,62 +549,34 @@ __global__ void msda_temporal_kernel(const scalar_t* __restrict__ value,
 }
 
 // ---------------------------------------------------------------------------
-// K5: backward of K1 and K3 from precomputed locations and weights.
+// K5: backward of K1 and K3 from precomputed locations and weights, on the
+// windowed block of msda_common.cuh.
 //   value (T, S, M, D); loc (T, Q, M, Lf, P, 2) f32; att (T, Q, M, Lf, P) f32;
 //   grad_out (T, Q, M*D) -> grad_value (T, S, M, D) f32, zeroed by the caller;
-//   grad_loc like loc; grad_att like att. A location's gradient is the pixel
-//   gradient times the level size, times the tap's weight.
-template <typename scalar_t>
-__global__ void msda_temporal_bwd_kernel(const scalar_t* __restrict__ value,
-                                         const float* __restrict__ loc,
-                                         const float* __restrict__ att,
-                                         const scalar_t* __restrict__ grad_out,
-                                         float* __restrict__ grad_value,
-                                         float* __restrict__ grad_loc,
-                                         float* __restrict__ grad_att, int T, int Q, int S,
-                                         int M, int D, int P, Pyramid pyr, FrameRule rule) {
-  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (long)T * Q * M) return;  // whole warps leave together
-  const int m = (int)(warp % M);
-  const long tq = warp / M;
-  const int t = (int)(tq / Q);
-  const int L = pyr.L, W = rule.W;
-  const int LfP = (1 + W) * L * P;
-  const float* lc = loc + (tq * M + m) * LfP * 2;
-  const float* at = att + (tq * M + m) * LfP;
-  float* glc = grad_loc + (tq * M + m) * LfP * 2;
-  float* gat = grad_att + (tq * M + m) * LfP;
-  const size_t row = (size_t)M * D;
-  const bool active = lane < D;
-  const float g = active ? to_f(grad_out[(tq * M + m) * D + lane]) : 0.f;
-  for (int j = 0; j <= W; ++j) {
-    const int f = j == 0 ? t : source_frame(rule, j - 1, t, T);
-    const size_t frame = (size_t)f * S * row + (size_t)m * D;
-    for (int l = 0; l < L; ++l) {
-      const size_t level = frame + (size_t)pyr.start[l] * row;
-      const int h = pyr.h[l], w = pyr.w[l];
-      for (int p = 0; p < P; ++p) {
-        const int k = (j * L + l) * P + p;
-        const float a = at[k];
-        int x0, y0;
-        float dx, dy;
-        float s_v = 0.f, s_x = 0.f, s_y = 0.f;
-        // the tap is the same for every lane, so the warp does not diverge
-        if (tap_geometry(h, w, lc[2 * k], lc[2 * k + 1], x0, y0, dx, dy) && active)
-          tap_backward(value + level, grad_value + level, h, w, row, x0, y0, dx, dy, g, a * g,
-                       lane, s_v, s_x, s_y);
-        s_v = warp_sum(s_v);
-        s_x = warp_sum(s_x);
-        s_y = warp_sum(s_y);
-        if (lane == 0) {
-          gat[k] = s_v;
-          glc[2 * k] = a * s_x * (float)w;
-          glc[2 * k + 1] = a * s_y * (float)h;
-        }
-      }
-    }
+//   grad_loc like loc; grad_att like att; adds (2) counters or null. A
+//   location's gradient is the pixel gradient times the level size, times the
+//   tap's weight.
+
+// The value frame of frame slot j for the queries of frame t.
+struct SlotFrame {
+  FrameRule rule;
+  int T;
+  __device__ __forceinline__ int operator()(int j, int t) const {
+    return j == 0 ? t : source_frame(rule, j - 1, t, T);
   }
+};
+
+template <typename scalar_t, int LPQ>
+__global__ void __launch_bounds__(BWD_THREADS, 2) msda_temporal_bwd_win_kernel(
+    const scalar_t* __restrict__ value, const float* __restrict__ loc,
+    const float* __restrict__ att, const scalar_t* __restrict__ grad_out,
+    float* __restrict__ grad_value, float* __restrict__ grad_loc, float* __restrict__ grad_att,
+    unsigned long long* __restrict__ adds, int T, int Q, int S, int M, int D, int P,
+    Pyramid pyr, FrameRule rule, BwdTiles tiles, BwdPlan plan, int groups, bool aligned,
+    int vw) {
+  msda_bwd_block<scalar_t, LPQ>(value, loc, att, grad_out, grad_value, grad_loc, grad_att, adds,
+                                Q, S, M, D, P, (1 + rule.W) * pyr.L, pyr, SlotFrame{rule, T},
+                                tiles, plan, groups, aligned, vw);
 }
 
 // ---------------------------------------------------------------------------
@@ -744,18 +690,56 @@ static int launch_temporal(void* value, void* loc, void* att, void* out, int T, 
   return (int)cudaGetLastError();
 }
 
+template <typename scalar_t, int LPQ>
+static int launch_temporal_bwd_win(const void* value, const void* loc, const void* att,
+                                   const void* grad_out, void* grad_value, void* grad_loc,
+                                   void* grad_att, void* adds, int T, int Q, int S, int M, int D,
+                                   int P, const Pyramid& pyr, const FrameRule& rule,
+                                   const BwdTiles& t, const BwdPlan& plan, int groups,
+                                   size_t smem, cudaStream_t stream) {
+  auto kernel = msda_temporal_bwd_win_kernel<scalar_t, LPQ>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool aligned = (D * (int)sizeof(scalar_t)) % 16 == 0 && (uintptr_t)value % 16 == 0 &&
+                       (uintptr_t)grad_out % 16 == 0;
+  const int blocks = T * M * t.n_tiles * groups * ((D + plan.slice - 1) / plan.slice);
+  kernel<<<blocks, BWD_THREADS, smem, stream>>>(
+      (const scalar_t*)value, (const float*)loc, (const float*)att, (const scalar_t*)grad_out,
+      (float*)grad_value, (float*)grad_loc, (float*)grad_att, (unsigned long long*)adds, T, Q,
+      S, M, D, P, pyr, rule, t, plan, groups, aligned, bwd_flush_width(D, grad_value));
+  return (int)cudaGetLastError();
+}
+
+// Raster blocks of `qb` queries; `lanes` a query and the plan come from the
+// wrapper's `bwd_plan`; `groups` splits the stages over blocks.
 template <typename scalar_t>
 static int launch_temporal_bwd(void* value, void* loc, void* att, void* grad_out,
-                               void* grad_value, void* grad_loc, void* grad_att, int T, int Q,
-                               int S, int M, int D, int P, const int* levels, int L,
-                               int rule_all, const int* offsets, int W, void* stream) {
-  long warps = (long)T * Q * M;
-  int blocks = (int)((warps * 32 + kThreads - 1) / kThreads);
-  msda_temporal_bwd_kernel<scalar_t><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const scalar_t*)value, (const float*)loc, (const float*)att, (const scalar_t*)grad_out,
-      (float*)grad_value, (float*)grad_loc, (float*)grad_att, T, Q, S, M, D, P,
-      make_pyramid(levels, L), make_rule(rule_all, offsets, W));
-  return (int)cudaGetLastError();
+                               void* grad_value, void* grad_loc, void* grad_att, void* adds,
+                               int T, int Q, int S, int M, int D, int P, int qb, int cap,
+                               int slice, int pitch, int lanes, int groups, const int* levels,
+                               int L, int rule_all, const int* offsets, int W, void* stream) {
+  const Pyramid pyr = make_pyramid(levels, L);
+  const FrameRule rule = make_rule(rule_all, offsets, W);
+  BwdTiles t;
+  BwdPlan plan;
+  size_t smem;
+  const int err = bwd_setup(Q, D, P, Vec16<scalar_t>::N, pyr, qb, 0, 0, 0, 0, cap, slice,
+                            pitch, lanes, t, plan, smem);
+  if (err) return err;
+  if (W > MAX_WINDOW || groups < 1) return (int)cudaErrorInvalidValue;
+#define K5_LAUNCH(N)                                                                         \
+  return launch_temporal_bwd_win<scalar_t, N>(value, loc, att, grad_out, grad_value,         \
+                                              grad_loc, grad_att, adds, T, Q, S, M, D, P, pyr, \
+                                              rule, t, plan, groups, smem, (cudaStream_t)stream)
+  switch (lanes) {
+    case 1: K5_LAUNCH(1);
+    case 2: K5_LAUNCH(2);
+    case 4: K5_LAUNCH(4);
+    case 8: K5_LAUNCH(8);
+  }
+#undef K5_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" {
@@ -807,20 +791,24 @@ int msda_temporal_bf16(void* value, void* loc, void* att, void* out, int T, int 
 }
 
 int msda_temporal_bwd_f32(void* value, void* loc, void* att, void* grad_out, void* grad_value,
-                          void* grad_loc, void* grad_att, int T, int Q, int S, int M, int D,
-                          int P, const int* levels, int L, int rule_all, const int* offsets,
+                          void* grad_loc, void* grad_att, void* adds, int T, int Q, int S, int M,
+                          int D, int P, int qb, int cap, int slice, int pitch, int lanes,
+                          int groups, const int* levels, int L, int rule_all, const int* offsets,
                           int W, void* stream) {
-  return launch_temporal_bwd<float>(value, loc, att, grad_out, grad_value, grad_loc, grad_att, T,
-                                    Q, S, M, D, P, levels, L, rule_all, offsets, W, stream);
+  return launch_temporal_bwd<float>(value, loc, att, grad_out, grad_value, grad_loc, grad_att,
+                                    adds, T, Q, S, M, D, P, qb, cap, slice, pitch, lanes, groups,
+                                    levels, L, rule_all, offsets, W, stream);
 }
 
 int msda_temporal_bwd_bf16(void* value, void* loc, void* att, void* grad_out, void* grad_value,
-                           void* grad_loc, void* grad_att, int T, int Q, int S, int M, int D,
-                           int P, const int* levels, int L, int rule_all, const int* offsets,
-                           int W, void* stream) {
+                           void* grad_loc, void* grad_att, void* adds, int T, int Q, int S, int M,
+                           int D, int P, int qb, int cap, int slice, int pitch, int lanes,
+                           int groups, const int* levels, int L, int rule_all,
+                           const int* offsets, int W, void* stream) {
   return launch_temporal_bwd<__nv_bfloat16>(value, loc, att, grad_out, grad_value, grad_loc,
-                                            grad_att, T, Q, S, M, D, P, levels, L, rule_all,
-                                            offsets, W, stream);
+                                            grad_att, adds, T, Q, S, M, D, P, qb, cap, slice,
+                                            pitch, lanes, groups, levels, L, rule_all, offsets,
+                                            W, stream);
 }
 
 }  // extern "C"

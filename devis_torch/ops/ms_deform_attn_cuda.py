@@ -28,7 +28,15 @@ and `plain_calls` CPU dispatches, per op.
   * K6 `msda_rows` (replaces `_fwd_kernel_fused`) and K7 `msda_rows_bwd`
     (replaces `_bwd_kernel_rows`): single-frame attention, value
     (B, S, M, D) at any D, loc (B, Q, M, L, P, 2), att (B, Q, M, L, P), and
-    its backward.
+    its backward. `query_grid` (H, W) says the queries are an H x W pixel
+    grid (the DCN route), which K7 takes in 2-D tiles.
+  * K5 and K7 share one windowed block (`csrc/msda_common.cuh`): per query
+    tile and stage (frame slot, level) the corners' value-gradient adds are
+    sorted by window row (the box of rows the tile's taps touch, its first
+    `bwd_plan(...).cap` rows in raster order) and each row is summed on chip
+    and added once with a vector atomic; corners past the capacity add where
+    they lie. `msda_*_bwd_windowed_plain` repeat that in PyTorch and count
+    the adds.
   * K8 `msda_proj` (replaces `_fwd_kernel_proj`): single-frame attention
     from the raw projections, the image model's encoder and first decoder
     layer: value (B, S, M, D), references (B, Q, L, 2), offsets
@@ -45,7 +53,7 @@ On a CUDA tensor K1, K3, K6 and K8 run as `torch.autograd.Function`s whose
 backward is K5, K5, K7 and K7 (`msda_taps`: K6 forward, K9 backward). K1's backward rebuilds loc and att from the raw projections
 under autograd, launches K5 and lets autograd chain the loc and att gradients
 to references, offsets and logits. On the CPU autograd differentiates the
-plain versions. The value gradient is summed with f32 atomics: equal inputs
+plain versions. The value gradient's flushes are f32 atomics: equal inputs
 give results that differ in the last bits from run to run.
 
 Levels run frame-major: the current frame's L levels, then L levels for each
@@ -54,6 +62,7 @@ frame; no stacked copy is made.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -311,6 +320,198 @@ def msda_rows_bwd_plain(value, spatial_shapes, loc, att, grad_out):
 
 
 # ---------------------------------------------------------------------------
+# K5 and K7 on windows: the capacity plan and the windowed plain version
+# ---------------------------------------------------------------------------
+
+# The windowed backward block (csrc/msda_common.cuh, `msda_bwd_block`): 512
+# threads; 128 bytes of box, scan totals and flag; per (query, point) 64
+# bytes of tap (geometry, sums, the corners' places and sorted weights and
+# queries) and 4 f32 dots a 16-byte channel chunk; the queries' output
+# gradient slice as f32; 8 bytes per window row (its bin, the touched list)
+BWD_THREADS = 512
+BWD_HEAD_BYTES = 128
+BWD_TAP_BYTES = 64
+BWD_MAX_SLICE = 64            # channels a slice: at most 8 bf16 / 16 f32 lanes a query
+BwdPlan = collections.namedtuple("BwdPlan", "qb tile slice lanes pitch cap smem")
+_BWD_TILES = {128: (8, 16), 256: (16, 16), 512: (16, 32)}
+BWD_GRID_ROWS = 4096
+BWD_MIN_BLOCKS = 4 * 132    # two waves of two blocks an SM on an H100
+
+
+def bwd_smem_bytes(qb: int, n_points: int, cap: int, pitch: int, vec: int) -> int:
+    """Dynamic shared memory of one K5/K7 block, as the kernel lays it out
+    (`vec` channels in 16 bytes of the value's dtype)."""
+    return (BWD_HEAD_BYTES + qb * n_points * (BWD_TAP_BYTES + 16 * (pitch // vec))
+            + qb * pitch * 4 + -(-cap * 8 // 16) * 16)
+
+
+def bwd_plan(spatial_shapes, dtype, head_dim: int, n_points: int,
+             query_grid=None) -> BwdPlan:
+    """The capacity plan of K5 and K7. Channels in slices of at most
+    `BWD_MAX_SLICE` (a multiple of 16 bytes of the value's dtype), one block
+    a slice; `lanes` a query in the pass over corners past the capacity, each
+    owning 16 bytes of a slice; `qb` queries a block (128, or 256 and 512
+    where a query takes 2 and 1 lanes; twice that in a query grid where
+    shared memory still holds `BWD_GRID_ROWS` window rows), in 2-D `tile`s
+    (rows, columns) of the `query_grid` where one is given; `pitch` f32 of a
+    query's staged output gradient; `cap` window rows a stage sorts its
+    corners into (the first `cap` rows of the box in raster order), as many
+    as let two blocks share an SM's shared memory (two are what the
+    registers allow), at most the largest level. Raises where the taps alone
+    do not fit. A caller may `_replace` `cap` (0: no window); the launchers
+    check the bytes."""
+    grid = None if query_grid is None else tuple(int(v) for v in query_grid)
+    return _bwd_plan(normalize_shapes(spatial_shapes), dtype, int(head_dim), int(n_points),
+                     grid)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(spatial_shapes, dtype, D, P, query_grid):
+    vec = 16 // (torch.finfo(dtype).bits // 8)
+    n_slices = -(-D // BWD_MAX_SLICE)
+    slice_ = min(-(-(-(-D // n_slices)) // vec) * vec, D)
+    lanes = 1
+    while lanes * vec < slice_:
+        lanes *= 2
+    pitch = -(-slice_ // vec) * vec
+    limit = SMEM_PER_SM // 2 - SMEM_RESERVED
+    largest = max(h * w for h, w in spatial_shapes)
+    qb = max(128, BWD_THREADS // lanes)
+    # a query grid takes tiles twice as large where a window of BWD_GRID_ROWS
+    # rows (or the whole level) still fits: fewer halo rows a query are read
+    # and flushed
+    if query_grid is not None and qb < 512 and \
+            bwd_smem_bytes(2 * qb, P, min(BWD_GRID_ROWS, largest), pitch, vec) <= limit:
+        qb *= 2
+    if bwd_smem_bytes(qb, P, 0, pitch, vec) > limit or 4 * qb * P > 0xffff:
+        raise ValueError(f"bwd_plan: {P} points a query leave no shared memory for "
+                         f"{qb}-query blocks")
+    cap = min((limit - bwd_smem_bytes(qb, P, 0, pitch, vec)) // 16 * 2, largest)
+    return BwdPlan(qb, None if query_grid is None else _BWD_TILES[qb], slice_, lanes, pitch,
+                   cap, bwd_smem_bytes(qb, P, cap, pitch, vec))
+
+
+def _bwd_tiles(Q, plan, query_grid, device):
+    """(tile of every query (Q,), tiles per (frame, head))."""
+    q = torch.arange(Q, device=device)
+    if query_grid is None:
+        return q // plan.qb, -(-Q // plan.qb)
+    gh, gw = query_grid
+    th, tw = plan.tile
+    tiles_x = -(-gw // tw)
+    return (q // gw // th) * tiles_x + (q % gw) // tw, -(-gh // th) * tiles_x
+
+
+def _bwd_windowed_plain(value, spatial_shapes, loc, att, grad_out, frames, plan,
+                        query_grid):
+    """The windowed backward of K5 and K7 in plain PyTorch, block by block as
+    the kernel runs it: per block and stage the box of rows the live taps'
+    corners touch (clipped to the level), rows of the box in raster order,
+    row i staged where i < min(area, plan.cap); staged adds summed in the
+    block's accumulator and its touched rows flushed once, every other
+    corner added where it lies. `frames` (N, Lx / L) names the value frame
+    of each frame slot of the queries of frame n. Returns (grad_value in the
+    value's dtype, grad_loc f32, grad_att f32, adds): adds[0] the f32 values
+    the flushes add to grad_value, adds[1] those added past the capacity."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    N, Q, M, Lx, P, _ = loc.shape
+    F, S, _, D = value.shape
+    L = len(spatial_shapes)
+    dev = value.device
+    starts = level_start_index(spatial_shapes)
+    v = value.float().reshape(F * S * M, D)
+    g = grad_out.float().reshape(N, Q, M, 1, D)
+    g_value = torch.zeros(F * S * M, D, dtype=torch.float32, device=dev)
+    g_loc = torch.zeros(loc.shape, dtype=torch.float32, device=dev)
+    g_att = torch.zeros(att.shape, dtype=torch.float32, device=dev)
+    tile, n_tiles = _bwd_tiles(Q, plan, query_grid, dev)
+    mi = torch.arange(M, device=dev).view(1, 1, M, 1)
+    blk = ((torch.arange(N, device=dev).view(N, 1, 1, 1) * M + mi) * n_tiles
+           + tile.view(1, Q, 1, 1)).expand(N, Q, M, P)
+    n_blocks = N * M * n_tiles
+    adds = torch.zeros(2, dtype=torch.long)
+    for s in range(Lx):
+        j, l = divmod(s, L)
+        h, w = spatial_shapes[l]
+        x = loc[:, :, :, s, :, 0].float() * w - 0.5                # (N, Q, M, P)
+        y = loc[:, :, :, s, :, 1].float() * h - 0.5
+        live = (x >= -1) & (x < w) & (y >= -1) & (y < h)          # tap_geometry
+        x0f = torch.floor(torch.where(live, x, 0.0))
+        y0f = torch.floor(torch.where(live, y, 0.0))
+        dx, dy = x - x0f, y - y0f
+        x0, y0 = x0f.long(), y0f.long()
+        a = att[:, :, :, s].float()
+
+        def box(vals, init, how):
+            out = torch.full((n_blocks,), init, dtype=torch.long, device=dev)
+            return out.scatter_reduce(0, blk[live], vals[live], how)
+        by0 = box(y0.clamp(min=0), 2 ** 62, "amin")
+        by1 = box((y0 + 1).clamp(max=h - 1), -1, "amax")
+        bx0 = box(x0.clamp(min=0), 2 ** 62, "amin")
+        bx1 = box((x0 + 1).clamp(max=w - 1), -1, "amax")
+        bw = torch.where(by1 >= 0, bx1 - bx0 + 1, 0)
+        nst = torch.where(by1 >= 0, (by1 - by0 + 1) * bw, 0).clamp(max=plan.cap)
+        acc = torch.zeros(n_blocks, plan.cap, D, dtype=torch.float32, device=dev)
+        touched = torch.zeros(n_blocks, plan.cap, dtype=torch.bool, device=dev)
+        base = (frames[:, j].view(N, 1, 1, 1) * S + starts[l]) * M + mi
+        s_v, s_x, s_y = (torch.zeros_like(x) for _ in range(3))
+        for oy, ox, wc, cx, cy in ((0, 0, (1 - dy) * (1 - dx), -(1 - dy), -(1 - dx)),
+                                   (0, 1, (1 - dy) * dx, 1 - dy, -dx),
+                                   (1, 0, dy * (1 - dx), -dy, 1 - dx),
+                                   (1, 1, dy * dx, dy, dx)):
+            yi, xi = y0 + oy, x0 + ox
+            ok = live & (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            rows = base + (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)) * M
+            gv = torch.where(ok, (g * v[rows]).sum(-1), 0.0)
+            s_v, s_x, s_y = s_v + wc * gv, s_x + cx * gv, s_y + cy * gv
+            add = (a * wc)[..., None] * g                          # (N, Q, M, P, D)
+            r = (yi - by0[blk]) * bw[blk] + (xi - bx0[blk])
+            staged = ok & (r < nst[blk])
+            over = ok & ~staged
+            acc.index_put_((blk[staged], r[staged]), add[staged], accumulate=True)
+            touched[blk[staged], r[staged]] = True
+            g_value.index_add_(0, rows[over], add[over])
+            adds[1] += int(over.sum()) * D
+        bi, ri = touched.nonzero(as_tuple=True)
+        nb, mb = bi // (M * n_tiles), bi // n_tiles % M
+        ry, rx = by0[bi] + ri // bw[bi], bx0[bi] + ri % bw[bi]
+        rows = (frames[nb, j] * S + starts[l] + ry * w + rx) * M + mb
+        g_value.index_add_(0, rows, acc[bi, ri])
+        adds[0] += bi.numel() * D
+        g_att[:, :, :, s] = torch.where(live, s_v, 0.0)
+        g_loc[:, :, :, s, :, 0] = torch.where(live, a * s_x * w, 0.0)
+        g_loc[:, :, :, s, :, 1] = torch.where(live, a * s_y * h, 0.0)
+    return g_value.reshape(value.shape).to(value.dtype), g_loc, g_att, adds
+
+
+def msda_temporal_bwd_windowed_plain(value, spatial_shapes, loc, att, grad_out,
+                                     rule=("all",), plan=None):
+    """Plain K5 as the windowed kernel sums it (`_bwd_windowed_plain`), at
+    `plan` (default `bwd_plan`). Returns (grad_value, grad_loc, grad_att,
+    adds)."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    T = value.shape[0]
+    plan = plan or bwd_plan(spatial_shapes, value.dtype, value.shape[3], loc.shape[4])
+    table = torch.as_tensor(temporal_frame_table(rule, T), dtype=torch.long,
+                            device=value.device)
+    frames = torch.cat([torch.arange(T, device=value.device)[:, None], table], 1)
+    return _bwd_windowed_plain(value, spatial_shapes, loc, att, grad_out, frames, plan, None)
+
+
+def msda_rows_bwd_windowed_plain(value, spatial_shapes, loc, att, grad_out, plan=None,
+                                 query_grid=None):
+    """Plain K7 as the windowed kernel sums it, in raster blocks or in 2-D
+    tiles of `query_grid` (H, W). Returns (grad_value, grad_loc, grad_att,
+    adds)."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    plan = plan or bwd_plan(spatial_shapes, value.dtype, value.shape[3], loc.shape[4],
+                            query_grid)
+    frames = torch.arange(value.shape[0], device=value.device)[:, None]
+    return _bwd_windowed_plain(value, spatial_shapes, loc, att, grad_out, frames, plan,
+                               query_grid)
+
+
+# ---------------------------------------------------------------------------
 # kernel launchers
 # ---------------------------------------------------------------------------
 
@@ -547,11 +748,13 @@ def _launch_temporal(value, spatial_shapes, loc, att, rule):
     return out
 
 
-def _grad_buffers(value, loc, att):
+def _grad_buffers(value, loc, att, sliced=False):
     """f32 gradient buffers of a backward kernel; the value's is zeroed for
-    the atomic adds."""
+    the atomic adds, and so are loc's and att's where the channels take
+    several slices (each adds its share)."""
+    rows = torch.zeros_like if sliced else torch.empty_like
     return (torch.zeros(value.shape, dtype=torch.float32, device=value.device),
-            torch.empty_like(loc), torch.empty_like(att))
+            rows(loc), rows(att))
 
 
 class MSDATemporalFunction(torch.autograd.Function):
@@ -586,14 +789,29 @@ msda_temporal.launches = 0
 msda_temporal.plain_calls = 0
 
 
-def msda_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule=("all",)):
-    """K5 (see module docstring). Returns (grad_value in the value's dtype,
-    grad_loc f32, grad_att f32)."""
-    spatial_shapes = normalize_shapes(spatial_shapes)
-    if not value.is_cuda:
-        msda_temporal_bwd.plain_calls += 1
-        return msda_temporal_bwd_plain(value, spatial_shapes, loc, att, grad_out,
-                                       rule)
+def bwd_stage_groups(n_blocks: int, n_stages: int) -> int:
+    """Groups of stages (levels of frame slots) a K5/K7 launch splits over
+    blocks: enough that `n_blocks` blocks a group reach `BWD_MIN_BLOCKS`,
+    at most one a stage. The stages are independent; splitting them costs
+    each extra block the staging of its queries' output gradient."""
+    return max(1, min(n_stages, -(-BWD_MIN_BLOCKS // max(n_blocks, 1))))
+
+
+def _check_bwd_plan(name, plan, n_points, dtype):
+    vec = 16 // (torch.finfo(dtype).bits // 8)
+    smem = bwd_smem_bytes(plan.qb, n_points, plan.cap, plan.pitch, vec)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{name}: plan {plan} needs {smem} bytes of shared memory, more "
+                         f"than {SMEM_PER_BLOCK}")
+
+
+def launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule, out, plan=None,
+                        adds=None):
+    """One K5 launch into `out` = (grad_value f32, zeroed; grad_loc; grad_att,
+    zeroed where the plan cuts D into slices) at `plan` (default `bwd_plan`).
+    `adds`, a zeroed (2,) int64 tensor on the device, receives the kernel's
+    counts of f32 values added to grad_value (by flushes, past the
+    capacity). Counts no launch."""
     L = len(spatial_shapes)
     W = rule_window(rule, value.shape[0])
     _check_geometry("msda_temporal_bwd", spatial_shapes, value.shape[3], W)
@@ -602,17 +820,34 @@ def msda_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule=("all",)):
     _check_cuda("msda_temporal_bwd", value.device, (grad_out,), value.dtype)
     if tuple(grad_out.shape) != (T, Q, M * D):
         raise ValueError("msda_temporal_bwd: inconsistent shapes")
-    g_value, g_loc, g_att = _grad_buffers(value, loc, att)
-    fn = _function(f"msda_temporal_bwd_{_DTYPES[value.dtype]}", 7, 6)
+    plan = plan or bwd_plan(spatial_shapes, value.dtype, D, P)
+    _check_bwd_plan("msda_temporal_bwd", plan, P, value.dtype)
+    g_value, g_loc, g_att = out
+    groups = bwd_stage_groups(T * M * -(-Q // plan.qb) * -(-D // plan.slice), (1 + W) * L)
+    fn = _function(f"msda_temporal_bwd_{_DTYPES[value.dtype]}", 8, 12)
     rule_all, offsets = _rule_args(rule)
     with torch.cuda.device(value.device):
         _build.check(fn(value.data_ptr(), loc.data_ptr(), att.data_ptr(),
                         grad_out.data_ptr(), g_value.data_ptr(), g_loc.data_ptr(),
-                        g_att.data_ptr(), T, Q, S, M, D, P, _levels(spatial_shapes),
-                        L, rule_all, offsets, W, _stream(value)),
-                     "msda_temporal_bwd")
+                        g_att.data_ptr(), None if adds is None else adds.data_ptr(),
+                        T, Q, S, M, D, P, plan.qb, plan.cap, plan.slice, plan.pitch,
+                        plan.lanes, groups, _levels(spatial_shapes), L, rule_all, offsets, W,
+                        _stream(value)), "msda_temporal_bwd")
+
+
+def msda_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule=("all",)):
+    """K5 (see module docstring). Returns (grad_value in the value's dtype,
+    grad_loc f32, grad_att f32)."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    if not value.is_cuda:
+        msda_temporal_bwd.plain_calls += 1
+        return msda_temporal_bwd_plain(value, spatial_shapes, loc, att, grad_out,
+                                       rule)
+    plan = bwd_plan(spatial_shapes, value.dtype, value.shape[3], loc.shape[4])
+    out = _grad_buffers(value, loc, att, plan.slice < value.shape[3])
+    launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule, out, plan)
     msda_temporal_bwd.launches += 1
-    return g_value.to(value.dtype), g_loc, g_att
+    return out[0].to(value.dtype), out[1], out[2]
 
 
 msda_temporal_bwd.launches = 0
@@ -638,8 +873,8 @@ class MSDARowsFunction(torch.autograd.Function):
     """K6 forward, K7 backward."""
 
     @staticmethod
-    def forward(ctx, value, loc, att, spatial_shapes):
-        ctx.spatial_shapes = spatial_shapes
+    def forward(ctx, value, loc, att, spatial_shapes, query_grid):
+        ctx.spatial_shapes, ctx.query_grid = spatial_shapes, query_grid
         ctx.save_for_backward(value, loc, att)
         return _launch_rows(value, spatial_shapes, loc, att)
 
@@ -647,31 +882,31 @@ class MSDARowsFunction(torch.autograd.Function):
     def backward(ctx, grad_out):
         value, loc, att = ctx.saved_tensors
         grads = msda_rows_bwd(value, ctx.spatial_shapes, loc, att,
-                              grad_out.contiguous())
+                              grad_out.contiguous(), ctx.query_grid)
         return (*(g if n else None for g, n in zip(grads, ctx.needs_input_grad)),
-                None)
+                None, None)
 
 
-def msda_rows(value, spatial_shapes, loc, att):
-    """K6 (see module docstring). Returns (B, Q, M*D) in the value's dtype."""
+def msda_rows(value, spatial_shapes, loc, att, query_grid=None):
+    """K6 (see module docstring). Returns (B, Q, M*D) in the value's dtype.
+    `query_grid` (H, W) is passed to the backward (K7's 2-D tiles)."""
     spatial_shapes = normalize_shapes(spatial_shapes)
     if not value.is_cuda:
         msda_rows.plain_calls += 1
         return ms_deform_attn(value, spatial_shapes, loc, att)
-    return MSDARowsFunction.apply(value, loc, att, spatial_shapes)
+    return MSDARowsFunction.apply(value, loc, att, spatial_shapes, query_grid)
 
 
 msda_rows.launches = 0
 msda_rows.plain_calls = 0
 
 
-def msda_rows_bwd(value, spatial_shapes, loc, att, grad_out):
-    """K7 (see module docstring). Returns (grad_value in the value's dtype,
-    grad_loc f32, grad_att f32)."""
-    spatial_shapes = normalize_shapes(spatial_shapes)
-    if not value.is_cuda:
-        msda_rows_bwd.plain_calls += 1
-        return msda_rows_bwd_plain(value, spatial_shapes, loc, att, grad_out)
+def launch_rows_bwd(value, spatial_shapes, loc, att, grad_out, out, plan=None,
+                    query_grid=None, adds=None):
+    """One K7 launch into `out` = (grad_value f32, zeroed; grad_loc; grad_att,
+    zeroed where the plan cuts D into slices) at `plan` (default `bwd_plan`),
+    in 2-D tiles of `query_grid` (H, W) where given, else in raster blocks;
+    `adds` as in `launch_temporal_bwd`. Counts no launch."""
     L = len(spatial_shapes)
     if L > _MAX_LEVELS:
         raise ValueError(f"msda_rows_bwd: at most {_MAX_LEVELS} levels")
@@ -680,15 +915,42 @@ def msda_rows_bwd(value, spatial_shapes, loc, att, grad_out):
     _check_cuda("msda_rows_bwd", value.device, (grad_out,), value.dtype)
     if tuple(grad_out.shape) != (B, Q, M * D):
         raise ValueError("msda_rows_bwd: inconsistent shapes")
-    g_value, g_loc, g_att = _grad_buffers(value, loc, att)
-    fn = _function(f"msda_rows_bwd_{_DTYPES[value.dtype]}", 7, 6)
+    if query_grid is not None and query_grid[0] * query_grid[1] != Q:
+        raise ValueError(f"msda_rows_bwd: query grid {tuple(query_grid)} for {Q} queries")
+    plan = plan or bwd_plan(spatial_shapes, value.dtype, D, P, query_grid)
+    _check_bwd_plan("msda_rows_bwd", plan, P, value.dtype)
+    if (plan.tile is None) != (query_grid is None):
+        raise ValueError("msda_rows_bwd: a plan with tiles needs a query grid, and one "
+                         "without tiles none")
+    gh, gw = query_grid or (0, 0)
+    th, tw = plan.tile if query_grid else (0, 0)
+    n_tiles = -(-gh // th) * -(-gw // tw) if query_grid else -(-Q // plan.qb)
+    groups = bwd_stage_groups(B * M * n_tiles * -(-D // plan.slice), L)
+    g_value, g_loc, g_att = out
+    fn = _function(f"msda_rows_bwd_{_DTYPES[value.dtype]}", 8, 16)
     with torch.cuda.device(value.device):
         _build.check(fn(value.data_ptr(), loc.data_ptr(), att.data_ptr(),
                         grad_out.data_ptr(), g_value.data_ptr(), g_loc.data_ptr(),
-                        g_att.data_ptr(), B, Q, S, M, D, P, _levels(spatial_shapes),
-                        L, _stream(value)), "msda_rows_bwd")
+                        g_att.data_ptr(), None if adds is None else adds.data_ptr(),
+                        B, Q, S, M, D, P, plan.qb, gh, gw, th, tw, plan.cap, plan.slice,
+                        plan.pitch, plan.lanes, groups, _levels(spatial_shapes), L,
+                        _stream(value)),
+                     "msda_rows_bwd")
+
+
+def msda_rows_bwd(value, spatial_shapes, loc, att, grad_out, query_grid=None):
+    """K7 (see module docstring). `query_grid` (H, W): the queries are an
+    H x W pixel grid (the DCN route), taken in 2-D tiles. Returns
+    (grad_value in the value's dtype, grad_loc f32, grad_att f32)."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    if not value.is_cuda:
+        msda_rows_bwd.plain_calls += 1
+        return msda_rows_bwd_plain(value, spatial_shapes, loc, att, grad_out)
+    plan = bwd_plan(spatial_shapes, value.dtype, value.shape[3], loc.shape[4], query_grid)
+    out = _grad_buffers(value, loc, att, plan.slice < value.shape[3])
+    launch_rows_bwd(value, spatial_shapes, loc, att, grad_out, out, plan, query_grid)
     msda_rows_bwd.launches += 1
-    return g_value.to(value.dtype), g_loc, g_att
+    return out[0].to(value.dtype), out[1], out[2]
 
 
 msda_rows_bwd.launches = 0

@@ -259,6 +259,122 @@ def test_backward_on_the_lines_x_and_y_minus_one(dev, kernel):
         _close(g, w, torch.float32)
 
 
+# ---------------------------------------------------------------------------
+# K5 and K7 on windows: fitted plans and plans of 6 accumulator rows (most
+# corners add past the capacity), raster references (every pixel of the
+# pyramid a query at its centre, offsets of a pixel or two), random ones, the
+# DCN route's query grid in 2-D tiles, D from 1 to 264 (a channel slice). The
+# kernel's counts of f32 adds equal the windowed plain version's.
+# ---------------------------------------------------------------------------
+
+GRID = (9, 21)
+
+
+def _bwd_inputs(dev, dtype, refs, D, n_frames=2, rule=None, seed=13):
+    """(shapes, value, loc, att, grad, query grid) of K7 (rule None) or K5."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    n_levels = L if rule is None else (1 + rule_window(rule, n_frames)) * L
+    if refs == "grid":
+        h, w = GRID
+        shapes, M, P, n_levels = (GRID,) * 9, 1, 1, 9
+        ys = torch.arange(h, device=dev).repeat_interleave(w).float()
+        xs = torch.arange(w, device=dev).repeat(h).float()
+        k = torch.arange(9, device=dev)
+        off = r(n_frames, h * w, 9, 2) * 1.5
+        loc = torch.stack([(xs[:, None] + (k % 3 - 1) + off[..., 1] + 0.5) / w,
+                           (ys[:, None] + (k // 3 - 1) + off[..., 0] + 0.5) / h], -1)
+        loc = loc.reshape(n_frames, h * w, M, 9, P, 2)
+    else:
+        shapes, M, P = SHAPES, 1 if D > 32 else 2, 2
+        if refs == "raster":
+            centre = torch.cat([torch.stack(torch.meshgrid(
+                (torch.arange(w, device=dev) + 0.5) / w, (torch.arange(h, device=dev) + 0.5) / h,
+                indexing="xy"), -1).reshape(-1, 2) for h, w in SHAPES])     # (S, 2)
+            size = torch.tensor([[w, h] for h, w in SHAPES], device=dev, dtype=torch.float32)
+            size = size[torch.arange(n_levels, device=dev) % L]
+            loc = centre[None, :, None, None, None] + r(n_frames, S, M, n_levels, P, 2) * 1.5 \
+                / size[:, None, :]
+        else:
+            loc = torch.rand(n_frames, 150, M, n_levels, P, 2, generator=g, device=dev) * 1.4 - 0.2
+    S_v = sum(h * w for h, w in shapes)
+    Q = loc.shape[1]
+    return (shapes, r(n_frames, S_v, M, D).to(dtype), loc.contiguous(),
+            torch.rand(n_frames, Q, M, n_levels, P, generator=g, device=dev),
+            r(n_frames, Q, M * D).to(dtype), GRID if refs == "grid" else None)
+
+
+def _bwd_close(got, want, dtype):
+    # f32: the atomics' order; bf16: the value gradient is rounded once to
+    # bf16 (against the plain version on the inputs upcast to f32), the row
+    # gradients stay f32
+    tols = (1e-4, 1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-4, 1e-4)
+    for gg, w, tol in zip(got, want, tols):
+        assert gg.shape == w.shape
+        err = (gg.float() - w.float()).abs().max().item()
+        assert err <= tol * w.float().abs().max().item()
+
+
+def _buffers(value, loc, att):
+    return (torch.zeros(value.shape, dtype=torch.float32, device=value.device),
+            torch.zeros_like(loc), torch.zeros_like(att),
+            torch.zeros(2, dtype=torch.int64, device=value.device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan", ["fitted", "overflow"])
+@pytest.mark.parametrize("refs", ["raster", "random", "grid"])
+@pytest.mark.parametrize("D", [1, 16, 32, 264])
+def test_windowed_rows_bwd_kernel(dev, dtype, plan, refs, D):
+    shapes, value, loc, att, grad, grid = _bwd_inputs(dev, dtype, refs, D)
+    p = K.bwd_plan(shapes, dtype, D, loc.shape[4], grid)
+    p = p._replace(cap=6) if plan == "overflow" else p
+    *out, adds = _buffers(value, loc, att)
+    K.launch_rows_bwd(value, shapes, loc, att, grad, out, p, grid, adds)
+    torch.cuda.synchronize()
+    want = K.msda_rows_bwd_plain(value.float(), shapes, loc, att, grad.float())
+    _bwd_close((out[0].to(dtype), out[1], out[2]), want, dtype)
+    want_adds = K.msda_rows_bwd_windowed_plain(value, shapes, loc, att, grad, p, grid)[3]
+    assert adds.tolist() == want_adds.tolist()
+    assert (adds[1] > 0).item() == (plan == "overflow")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan", ["fitted", "overflow"])
+@pytest.mark.parametrize("refs", ["raster", "random"])
+@pytest.mark.parametrize("rule,D", [(("all",), 32), (("window", (-1, 1)), 16)])
+def test_windowed_temporal_bwd_kernel(dev, dtype, plan, refs, rule, D):
+    shapes, value, loc, att, grad, _ = _bwd_inputs(dev, dtype, refs, D, 3, rule)
+    p = K.bwd_plan(shapes, dtype, D, loc.shape[4])
+    p = p._replace(cap=6) if plan == "overflow" else p
+    *out, adds = _buffers(value, loc, att)
+    K.launch_temporal_bwd(value, shapes, loc, att, grad, rule, out, p, adds)
+    torch.cuda.synchronize()
+    want = K.msda_temporal_bwd_plain(value.float(), shapes, loc, att, grad.float(), rule)
+    _bwd_close((out[0].to(dtype), out[1], out[2]), want, dtype)
+    want_adds = K.msda_temporal_bwd_windowed_plain(value, shapes, loc, att, grad, rule, p)[3]
+    assert adds.tolist() == want_adds.tolist()
+    assert (adds[1] > 0).item() == (plan == "overflow")
+
+
+def test_windowed_bwd_ops_launch_and_raise(dev):
+    """The ops launch the windowed kernels on CUDA tensors (no plain call),
+    K7 in 2-D tiles where given its grid; a plan that does not fit raises."""
+    shapes, value, loc, att, grad, grid = _bwd_inputs(dev, torch.bfloat16, "grid", 16)
+    before = (K.msda_rows_bwd.launches, K.msda_rows_bwd.plain_calls)
+    tiled = K.msda_rows_bwd(value, shapes, loc, att, grad, grid)
+    raster = K.msda_rows_bwd(value, shapes, loc, att, grad)
+    assert (K.msda_rows_bwd.launches, K.msda_rows_bwd.plain_calls) == (before[0] + 2, before[1])
+    assert tiled[0].dtype == torch.bfloat16 and tiled[1].dtype == torch.float32
+    _bwd_close(tiled, raster, torch.bfloat16)
+    p = K.bwd_plan(shapes, torch.bfloat16, 16, 1, grid)
+    *out, _ = _buffers(value, loc, att)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.launch_rows_bwd(value, shapes, loc, att, grad, out, p._replace(cap=30000), grid)
+    with pytest.raises(ValueError, match="query grid"):
+        K.launch_rows_bwd(value, shapes, loc, att, grad, out, p, (4, 4))
+
+
 def _grads(fn, tensors):
     leaves = [t.detach().requires_grad_(t.is_floating_point()) for t in tensors]
     out = fn(*leaves)
