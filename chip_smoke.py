@@ -8,7 +8,10 @@
 2. Holds each kernel against its plain PyTorch version at the YT-VIS-19
    main-path shapes: f32 with TF32 off to 1e-4 of max|plain|, bf16 to 2e-2.
    Offsets are random and off the pixel grid. Times kernel and plain version
-   with CUDA events. K1 encoder temporal attention on K2's tap windows, at
+   with CUDA events; K2 and K3, whose launches the host takes longer to make
+   than they run, by their device time (torch.profiler), the op's CUDA-event
+   time beside it, each with its grid (blocks, warps a block). K1 encoder
+   temporal attention on K2's tap windows (K2 equal to its plain version), at
    raster references (the encoder's own, with the reference init's offsets)
    and at random ones (the windows' worst case): the windows' sizes per
    stage, the corners read from global memory (none may lie in a window
@@ -34,7 +37,8 @@
    counters are zeroed just before and read just after; each clip must
    launch K1, K2, K3 and K4 six times and no plain path. One clip also runs
    with the plain versions on the card, and the two are compared. K2 and K1
-   run alone on the first encoder layer's inputs. One clip is profiled:
+   run alone on the first encoder layer's inputs, K3 on decoder layer 0's
+   (f32 and bf16). One clip is profiled:
    device time by kernel group and the device's idle share.
 4. Drives the train path: the same model in training mode (dropout 0.1,
    mask loss on decoder levels -1 and 2), `create_train_state` and
@@ -170,6 +174,45 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel: str, iters: int = 20, tries: int = 3) -> float:
+    """Mean device time of the kernels whose name holds `kernel` over
+    `iters` calls of `fn`, from torch.profiler: the kernel's own time, which
+    CUDA events around back-to-back calls miss where the host takes longer
+    to launch a small kernel than the kernel runs. The profiler's schedule
+    traces a warm-up window of `iters` calls first and keeps the second;
+    the card idles 20 ms at each window's edges. A kept window must hold
+    every launch: one that lost some (2-3 of 20 in a few windows, cause
+    unknown) is logged and taken again, up to `tries` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(tries):
+        kept = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: kept.extend(p.key_averages())) as prof:
+            for _ in range(2):
+                time.sleep(0.02)
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.02)
+                prof.step()
+        total, n = 0.0, 0
+        for e in kept:
+            if kernel in e.key and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                total += e.self_cuda_time_total if us is None else us
+                n += e.count
+        if n == iters:
+            return total / 1e3 / n
+        counts.append(n)
+        log(f"    {kernel}: {n} launches of {iters} in the profiler's window; taken again")
+    raise AssertionError(f"{kernel}: {counts} launches profiled of {iters} in {tries} windows")
+
+
 def compare(name, got, want, rel):
     import torch
     err = (got.float() - want.float()).abs().max().item()
@@ -284,6 +327,21 @@ def encoder_inputs(torch, dev, gen, refs):
             ("all",))
 
 
+def k2_grid(torch, c_off, Q, n_frames=T, window=T - 1):
+    """(blocks, warps a block) of K2's default launch on these offsets."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    plan = K.tap_window_plan(M, window, len(SHAPES), P, c_off.dtype)
+    blocks, threads = K.tap_window_grid(n_frames, Q, M, plan)
+    return blocks, threads // 32
+
+
+def k3_grid(torch, loc):
+    """(blocks, warps a block) of K3's launch: a block per (t, q, m)."""
+    from devis_torch.ops import _build
+    return (loc.shape[0] * loc.shape[1] * loc.shape[2],
+            _build.source_define("ms_deform_attn", "K3_WARPS"))
+
+
 def k1_phase(torch, dev, gen, results):
     """K1 (with K2 before it, as the op runs them) at raster and at random
     references: f32 and bf16 against the plain version, the `count` mode's
@@ -308,6 +366,8 @@ def k1_phase(torch, dev, gen, results):
         err = compare("bf16", K.msda_temporal_proj(*args16),
                       K.msda_temporal_proj_plain(*args16), 2e-2)
         windows = K.msda_tap_window(SHAPES, args16[2], args16[3], args16[4], M)
+        if not torch.equal(windows, K.msda_tap_window_plain(SHAPES, *args16[2:5], M)):
+            raise AssertionError(f"K2 windows differ from the plain version ({refs} references)")
         stats = window_stats(torch, windows, plan, L)
         _, reads = K.launch_k1(*args16, windows, plan, "count")
         log(f"    corners read from global memory: {reads[0].item()} in windows that fit, "
@@ -317,8 +377,8 @@ def k1_phase(torch, dev, gen, results):
             raise AssertionError("a K2 window missed a tap of K1")
         op_ms = cuda_time(lambda: K.msda_temporal_proj(*args16), 20)
         k1_ms = cuda_time(lambda: K.launch_k1(*args16, windows, plan), 20)
-        k2_ms = cuda_time(lambda: K.msda_tap_window(SHAPES, args16[2], args16[3], args16[4], M),
-                          20)
+        k2_ms = device_ms(lambda: K.msda_tap_window(SHAPES, args16[2], args16[3], args16[4], M),
+                          "msda_tap_window_kernel")
         plain_ms = cuda_time(lambda: K.msda_temporal_proj_plain(*args16), 3, 1)
         loc = K.temporal_proj_locations(SHAPES, args16[2], args16[3], args16[4], M)
         io = sum(t.numel() * t.element_size() for t in args16[2:] if torch.is_tensor(t)) \
@@ -326,8 +386,9 @@ def k1_phase(torch, dev, gen, results):
         nbytes = io + touched_value_bytes(loc, SHAPES, table, 2)
         flops = T * Q * M * (1 + W) * L * P * (8 * D + 40)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-        log(f"    K1 + K2 {op_ms:.4f} ms (K1 {k1_ms:.4f}, K2 {k2_ms:.4f}); plain {plain_ms:.3f} "
-            f"ms; bound {bound:.4f} ms")
+        log(f"    K1 + K2 {op_ms:.4f} ms (K1 {k1_ms:.4f}, K2 {k2_ms:.4f} on grid "
+            f"{k2_grid(torch, args16[3], Q)}, windows equal to the plain K2's); plain "
+            f"{plain_ms:.3f} ms; bound {bound:.4f} ms")
         out[refs] = dict(max_abs_err=err, ms=k1_ms, op_ms=op_ms, k2_ms=k2_ms,
                          plain_ms=plain_ms, bytes=nbytes, flops=flops, bound_ms=bound,
                          reads=reads.tolist(), windows=stats,
@@ -405,10 +466,14 @@ def msda_phases(torch, dev, gen, results):
     v16 = bf(value)
     err = compare("bf16", K.msda_temporal(v16, SHAPES, loc, att, rule),
                   K.ms_deform_attn_temporal_plain(v16, SHAPES, loc, att, rule), 2e-2)
-    ms = cuda_time(lambda: K.msda_temporal(v16, SHAPES, loc, att, rule), 50)
+    ms = device_ms(lambda: K.msda_temporal(v16, SHAPES, loc, att, rule), "msda_temporal_kernel")
+    op_ms = cuda_time(lambda: K.msda_temporal(v16, SHAPES, loc, att, rule), 50)
     plain_ms = cuda_time(lambda: K.ms_deform_attn_temporal_plain(v16, SHAPES, loc, att,
                                                                  rule), 5, 1)
-    results["K3"] = dict(
+    grid = k3_grid(torch, loc)
+    log(f"    K3 {ms:.4f} ms of device time on grid {grid} (blocks, warps a block); the op "
+        f"{op_ms:.4f} ms a call by CUDA events (the host's launch); plain {plain_ms:.3f} ms")
+    results["K3"] = dict(grid=grid, op_ms=op_ms,
         name="msda_temporal", route="cuda", source="devis_torch/csrc/ms_deform_attn.cu",
         replaces="devis_tpu/ops/ms_deform_attn_pallas.py:1406",
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -417,12 +482,20 @@ def msda_phases(torch, dev, gen, results):
         flops=T * Qd * M * (1 + W) * L * P * 8 * D, flop_rate=F32_FLOPS, library_ms=None)
 
 
-def tap_window_phase(torch, model, x, pad, results):
-    """K2, and K1 on its windows, on the inputs the main path gives the
-    first encoder layer: K2 against its plain version, the windows' sizes,
-    the `count` mode's reads from global memory, K1 against its plain
-    version and the two times."""
-    from devis_torch.ops import ms_deform_attn_cuda as K
+def clip_input(torch, dev, infer, video):
+    """(x, pad): the model's normalized input for the first clip of `video`
+    as `VISInferFn` prepares it."""
+    images, _, _ = infer.prepare(video, 0)
+    x = torch.from_numpy(images).to(dev)
+    x = (x.float() / 255.0 - infer._mean) / infer._std
+    pad = torch.zeros(x.shape[:3], dtype=torch.bool, device=dev)
+    pad[:, VIDEO_HW[0]:] = True
+    return x, pad
+
+
+def capture_encoder0(model, x, pad):
+    """Encoder layer 0's attention module and what the main path gives it:
+    (attn, query, ref (f32), src, shapes, padding, c_off, t_off)."""
     enc = model.def_detr.transformer.encoder.layers[0].self_attn
     captured = {}
     hook = enc.register_forward_pre_hook(lambda mod, args: captured.setdefault("a", args))
@@ -431,9 +504,41 @@ def tap_window_phase(torch, model, x, pad, results):
     finally:
         hook.remove()
     query, ref, src, shapes, padding = captured["a"][:5]
-    ref = ref.float().contiguous()
-    c_off = enc.sampling_offsets(query).contiguous()
-    t_off = enc.temporal_sampling_offsets(query).contiguous()
+    return (enc, query, ref.float().contiguous(), src, shapes, padding,
+            enc.sampling_offsets(query).contiguous(),
+            enc.temporal_sampling_offsets(query).contiguous())
+
+
+def capture_decoder0(model, x, pad):
+    """The arguments decoder layer 0's temporal cross-attention passes to
+    `msda_temporal` on the main path: (value, shapes, loc, att, rule)."""
+    from devis_torch.models import attention as attn_mod
+    layer = model.def_detr.transformer.decoder.layers[0].cross_attn
+    captured = {}
+    op = attn_mod.msda_temporal
+
+    def grab(*args):
+        if captured.get("armed") and "a" not in captured:
+            captured["a"] = args
+        return op(*args)
+
+    hook = layer.register_forward_pre_hook(lambda mod, args: captured.update(armed=True))
+    attn_mod.msda_temporal = grab
+    try:
+        model(x, pad)
+    finally:
+        hook.remove()
+        attn_mod.msda_temporal = op
+    return captured["a"]
+
+
+def tap_window_phase(torch, model, x, pad, results):
+    """K2, and K1 on its windows, on the inputs the main path gives the
+    first encoder layer: K2 against its plain version, the windows' sizes,
+    the `count` mode's reads from global memory, K1 against its plain
+    version and the two times."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    enc, query, ref, src, shapes, padding, c_off, t_off = capture_encoder0(model, x, pad)
     Tn, Q, L, _ = ref.shape
     W = t_off.shape[-1] // c_off.shape[-1]
     log(f"K2 msda_tap_window on encoder layer 0's inputs: T={Tn} Q={Q} Lf={(1 + W) * L}, "
@@ -444,9 +549,16 @@ def tap_window_phase(torch, model, x, pad, results):
     log(f"  windows equal: {bool(torch.equal(got, want))}; live share {live:.3f}")
     if not torch.equal(got, want):
         raise AssertionError("K2 windows differ from the plain version")
-    ms = cuda_time(lambda: K.msda_tap_window(shapes, ref, c_off, t_off, M), 20)
+    ms = device_ms(lambda: K.msda_tap_window(shapes, ref, c_off, t_off, M),
+                   "msda_tap_window_kernel")
+    op_ms = cuda_time(lambda: K.msda_tap_window(shapes, ref, c_off, t_off, M), 20)
     plain_ms = cuda_time(lambda: K.msda_tap_window_plain(shapes, ref, c_off, t_off, M), 3, 1)
     P = c_off.shape[-1] // (M * L * 2)
+    grid = k2_grid(torch, c_off, Q, Tn, W)
+    log(f"  K2 {ms:.4f} ms of device time on grid {grid} (blocks, warps a block), the op "
+        f"{op_ms:.4f} ms a call by CUDA events, plain {plain_ms:.3f} ms; "
+        f"at raster references {results['K1']['k2_ms']:.4f} ms, random "
+        f"{results['K1']['random_refs']['k2_ms']:.4f} ms")
     value = enc._value(src, padding).contiguous()
     args = (value, shapes, ref, c_off, t_off, enc.attention_weights(query).contiguous(),
             enc.temporal_attention_weights(query).contiguous(), ("all",))
@@ -463,12 +575,40 @@ def tap_window_phase(torch, model, x, pad, results):
     results["K2"] = dict(
         name="msda_tap_window", route="cuda", source="devis_torch/csrc/ms_deform_attn.cu",
         replaces="devis_tpu/ops/ms_deform_attn_pallas.py:1935",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        max_abs_err=0.0, ms=ms, op_ms=op_ms, plain_ms=plain_ms, grid=grid,
+        raster_ms=results["K1"]["k2_ms"], random_ms=results["K1"]["random_refs"]["k2_ms"],
         bytes=ref.numel() * 4 + (c_off.numel() + t_off.numel()) * c_off.element_size()
         + got.numel() * 4,
         flops=Tn * Q * M * (1 + W) * L * P * 12, flop_rate=F32_FLOPS, library_ms=None)
     results["K1"]["path_inputs"] = dict(ms=k1_ms, max_abs_err=err, reads=reads.tolist(),
                                         windows=stats)
+
+
+def temporal_path_phase(torch, model, x, pad, results):
+    """K3 on the inputs the main path gives decoder layer 0's temporal
+    cross-attention (its call of `msda_temporal`, captured): against the
+    plain version in bf16 (2e-2) and, upcast, in f32 with TF32 off (1e-4);
+    its time beside its grid."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    value, shapes, loc, att, rule = capture_decoder0(model, x, pad)
+    Tn, Qd = loc.shape[:2]
+    log(f"K3 msda_temporal on decoder layer 0's inputs: T={Tn} Q={Qd} M={M} D={D} "
+        f"Lf={loc.shape[3]} P={loc.shape[4]}, {value.dtype} value")
+    v32 = value.float()
+    compare("  f32 ", K.msda_temporal(v32, shapes, loc, att, rule),
+            K.ms_deform_attn_temporal_plain(v32, shapes, loc, att, rule), 1e-4)
+    err = compare("  bf16", K.msda_temporal(value, shapes, loc, att, rule),
+                  K.ms_deform_attn_temporal_plain(value, shapes, loc, att, rule), 2e-2)
+    ms = device_ms(lambda: K.msda_temporal(value, shapes, loc, att, rule),
+                   "msda_temporal_kernel")
+    op_ms = cuda_time(lambda: K.msda_temporal(value, shapes, loc, att, rule), 50)
+    plain_ms = cuda_time(lambda: K.ms_deform_attn_temporal_plain(value, shapes, loc, att, rule),
+                         5, 1)
+    grid = k3_grid(torch, loc)
+    log(f"  K3 {ms:.4f} ms of device time on grid {grid} (blocks, warps a block), the op "
+        f"{op_ms:.4f} ms a call by CUDA events, plain {plain_ms:.3f} ms")
+    results["K3"]["path_inputs"] = dict(ms=ms, op_ms=op_ms, plain_ms=plain_ms, max_abs_err=err,
+                                        grid=grid)
 
 
 def dcn_phase(torch, dev, gen, results):
@@ -1062,11 +1202,7 @@ def main_path(torch, dev, card, cfg, model, results):
         f"FPS = stride {STRIDE} / latency = {STRIDE / clip_ms * 1e3:.3f} ({card})")
 
     # One clip with the plain versions on the card, against the kernels.
-    images, _, clip_len = infer.prepare(video, 0)
-    x = torch.from_numpy(images).to(dev)
-    x = (x.float() / 255.0 - infer._mean) / infer._std
-    pad = torch.zeros(x.shape[:3], dtype=torch.bool, device=dev)
-    pad[:, VIDEO_HW[0]:] = True
+    x, pad = clip_input(torch, dev, infer, video)
     with torch.inference_mode():
         out_k, res_k = model(x, pad)
         saved = (attn_mod.msda_temporal_proj, attn_mod.msda_temporal,
@@ -1098,6 +1234,7 @@ def main_path(torch, dev, card, cfg, model, results):
         raise AssertionError("kernel path disagrees with the plain path")
     with torch.inference_mode():
         tap_window_phase(torch, model, x, pad, results)
+        temporal_path_phase(torch, model, x, pad, results)
     profile_run(torch, "clip", lambda: infer(video, 0))
     return launches, clip_ms
 
@@ -1895,12 +2032,18 @@ def coco_infer_path(torch, dev, card, cfg, model, results):
         t_off = c_off.new_zeros(c_off.shape[:2] + (0,))
         got = K.msda_tap_window(shapes, ref, c_off, t_off, M)
         want = K.msda_tap_window_plain(shapes, ref, c_off, t_off, M)
-        ms = cuda_time(lambda: K.msda_tap_window(shapes, ref, c_off, t_off, M), 20)
+        ms = device_ms(lambda: K.msda_tap_window(shapes, ref, c_off, t_off, M),
+                       "msda_tap_window_kernel")
+        op_ms = cuda_time(lambda: K.msda_tap_window(shapes, ref, c_off, t_off, M), 20)
     log(f"K2 msda_tap_window at F = 1 on COCO encoder layer 0's inputs (Q={ref.shape[1]}, "
         f"{tuple(got.shape)} windows): equal {bool(torch.equal(got, want))}, live share "
-        f"{(want[..., 1] >= 0).float().mean().item():.3f}, {ms:.4f} ms")
+        f"{(want[..., 1] >= 0).float().mean().item():.3f}, {ms:.4f} ms of device time on grid "
+        f"{k2_grid(torch, c_off, ref.shape[1], ref.shape[0], 0)} (blocks, warps a block), the "
+        f"op {op_ms:.4f} ms a call by CUDA events")
     if not torch.equal(got, want):
         raise AssertionError("K2 windows at F = 1 differ from the plain version")
+    results["K2"]["coco_f1"] = dict(ms=ms, op_ms=op_ms,
+                                    grid=k2_grid(torch, c_off, ref.shape[1], ref.shape[0], 0))
 
     # K10's path: the public op on given fields recomputes the image's six
     # mask-head layers (fields by cuDNN convolutions) and is held against K4
@@ -2090,7 +2233,8 @@ def main() -> int:
                                  "coco_shapes", "route_ms", "layers", "op_ms",
                                  "k2_ms", "windows", "lab", "random_refs", "path_inputs",
                                  "script_shape", "shapes", "hmma_in_sass", "max_sm_clock_mhz",
-                                 "method_flops")
+                                 "method_flops", "grid", "raster_ms", "random_ms",
+                                 "coco_f1")
                if k in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"clip_ms": clip_ms, "fps": STRIDE / clip_ms * 1e3, "card": card}))

@@ -32,11 +32,16 @@
 // the parts. The TPU kernel's one-hot matmul form exists only because the
 // TPU has no fast gather, and is not taken.
 //
-// Mapping (K3): one warp per (t, q, m); lane d owns channel d (D <= 32).
-// Every lane walks the (1 + W) * L * P taps; the four corner reads of a tap
-// are 32 neighbouring channels of one value row, so each is one coalesced
-// 64-byte (bf16) or 128-byte (f32) load. The decoder's 60 queries are too
-// few for windows to pay: the kernel is launch-bound.
+// K2 (see its kernel below): blocks over (t, q-block, group of heads); each
+// thread reads 16 bytes of offsets of a query at a time, neighbouring
+// threads neighbouring bytes, and keeps its (head, stage)'s first and last
+// rows in registers until one shared-memory reduction at the end.
+//
+// K3 (see its kernel below): one block per (t, q, m), its taps spread over
+// the block's warps, a few lanes a tap (16 bytes of channels each), several
+// taps' corner reads in flight a lane. The decoder's 60 queries are too few
+// for windows to pay: what bounds it is the latency of its two dependent
+// reads (location, then corners), not bytes.
 //
 // K5 (`msda_bwd_block` in msda_common.cuh, shared with K7): the value
 // gradient is a scatter, one add per (tap, corner, channel) onto the frame the
@@ -447,67 +452,154 @@ __global__ void __launch_bounds__(K1_THREADS, 2) msda_temporal_proj_win_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K2: tap windows. One block of QB threads per (t, m, q-block); thread i
-// takes query q-block * QB + i. out (T, M, nqb, (1+W)*L, 2) int32 holds the
-// first and last raster row (within the level) touched by a live tap, or
-// (0, -1) where no tap of the block is live.
-template <typename scalar_t>
-__global__ void msda_tap_window_kernel(const float* __restrict__ ref,
-                                       const scalar_t* __restrict__ c_off,
-                                       const scalar_t* __restrict__ t_off,
-                                       int* __restrict__ out, int T, int Q, int M, int P,
-                                       int nqb, Pyramid pyr, int W) {
-  extern __shared__ int s_win[];  // [Lf] minima then [Lf] maxima
-  const int L = pyr.L, Lf = (1 + W) * L;
-  const int qb = blockIdx.x % nqb;
-  const int tm = blockIdx.x / nqb;
-  const int m = tm % M, t = tm / M;
-  for (int i = threadIdx.x; i < Lf; i += blockDim.x) {
-    s_win[i] = 0x7fffffff;
-    s_win[Lf + i] = -1;
+// K2: tap windows. out (T, M, nqb, (1+W)*L, 2) int32 holds, per (t, m,
+// q-block of `qblk` queries, stage = frame slot x level), the first and last
+// raster row (within the level) touched by a live tap, or (0, -1) where no
+// tap of the block is live.
+//
+// One block per (t, q-block, group of G heads; the wrapper's
+// `tap_window_plan`: all M heads at the clip's shapes). The block reads its
+// offsets as memory lays them out: per query, the G heads' offsets are one
+// contiguous piece of G*L*P (x, y) pairs in c_off and one of G*W*L*P pairs
+// in t_off, together `vq` loads of VP pairs (16 bytes where the pieces are
+// 16-byte aligned and P is a multiple of the pairs in 16 bytes, else one
+// pair). Thread i takes load pos = i % span of the queries i / span,
+// i / span + qpp, ...: neighbouring threads read neighbouring 16 bytes,
+// K2_UNROLL loads in flight a thread, kept raw in registers until used. A
+// load's pairs are of one (head, stage) for all the thread's queries, so the
+// thread keeps its running first and last rows in registers and adds them
+// to the block's once, at the end, with one shared atomicMin / atomicMax.
+// The block's references are staged in shared memory first, once for its G
+// heads. What bounds it: the bytes of the offsets (each read once) and about
+// 30 instructions of f32 location and integer row arithmetic a tap, which
+// take about as long as the bytes at the clip's shapes and overlap them only
+// in part.
+#define K2_MAX_THREADS 512  // the wrapper's `tap_window_plan` reads this
+#define K2_UNROLL 4         // loads in flight a thread (8 and 16 were slower: registers)
+
+// VP (x, y) offset pairs as they are loaded: 16 bytes kept raw in registers
+// (half the registers of their floats) where VP pairs are 16 bytes, else the
+// floats, element by element.
+template <typename scalar_t, int VP, bool VEC = 2 * VP == Vec16<scalar_t>::N>
+struct OffsetPairs {
+  float v[2 * VP];
+  __device__ __forceinline__ void load(const scalar_t* __restrict__ p) {
+#pragma unroll
+    for (int i = 0; i < 2 * VP; ++i) v[i] = to_f(p[i]);
+  }
+  __device__ __forceinline__ void floats(float* xy) const {
+#pragma unroll
+    for (int i = 0; i < 2 * VP; ++i) xy[i] = v[i];
+  }
+};
+template <typename scalar_t, int VP>
+struct OffsetPairs<scalar_t, VP, true> {
+  uint4 raw;
+  __device__ __forceinline__ void load(const scalar_t* __restrict__ p) {
+    raw = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void floats(float* xy) const { Vec16<scalar_t>::unpack(raw, xy); }
+};
+
+// floor(v) for |v| < 2^22, exact: v + 1.5 * 2^23 rounded down holds floor(v)
+// in its low mantissa bits (an add, where a float-to-int conversion runs at a
+// sixteenth of the FP32 rate).
+__device__ __forceinline__ int floor_small(float v) {
+  return __float_as_int(__fadd_rd(v, 12582912.f)) - 0x4B400000;
+}
+
+// The VP pairs of a load share one (head, stage): VP divides P (the
+// wrapper takes one pair a load where it does not), so a thread keeps one
+// level, one reference and one running first and last row.
+template <typename scalar_t, int VP>
+__global__ void __launch_bounds__(K2_MAX_THREADS, 2) msda_tap_window_kernel(
+    const float* __restrict__ ref, const scalar_t* __restrict__ c_off,
+    const scalar_t* __restrict__ t_off, int* __restrict__ out, int T, int Q, int M, int P,
+    int qblk, int G, int nqb, Pyramid pyr, int W) {
+  extern __shared__ __align__(16) unsigned char k2_smem[];
+  const int L = pyr.L, Lf = (1 + W) * L, LP = L * P;
+  const int ng = M / G;
+  const int g = blockIdx.x % ng, tqb = blockIdx.x / ng;
+  const int qb = tqb % nqb, t = tqb / nqb;
+  const int q0 = qb * qblk, nq = min(qblk, Q - q0);
+  float* s_ref = reinterpret_cast<float*>(k2_smem);               // [qblk][L][2]
+  int* s_mn = reinterpret_cast<int*>(s_ref + (size_t)qblk * L * 2);  // [G][Lf]
+  int* s_mx = s_mn + G * Lf;
+  const size_t tq0 = (size_t)t * Q + q0;
+  for (int i = threadIdx.x; i < nq * L * 2; i += blockDim.x) s_ref[i] = ref[tq0 * L * 2 + i];
+  for (int i = threadIdx.x; i < G * Lf; i += blockDim.x) {
+    s_mn[i] = INT_MAX;
+    s_mx[i] = -1;
   }
   __syncthreads();
-  const int q = qb * blockDim.x + threadIdx.x;
-  const bool live_q = q < Q;
-  const long tq = (long)t * Q + (live_q ? q : 0);
-  const float* r = ref + tq * L * 2;
-  const int nc = L * P, nt = W * L * P;
-  const scalar_t* co = c_off + (tq * M + m) * nc * 2;
-  const scalar_t* to = t_off + (tq * M + m) * nt * 2;
-  for (int lvl = 0; lvl < Lf; ++lvl) {
-    const int j = lvl / L, l = lvl % L;
+
+  const int nc = G * LP;                  // pairs of a query's current piece
+  const int vq = (1 + W) * nc / VP;       // loads a query
+  const int span = min(vq, (int)blockDim.x), qpp = blockDim.x / span;
+  // one pass over the queries unless a query's loads outnumber the threads
+  for (int p0 = 0; p0 < vq; p0 += span) {
+    const int pos = p0 + threadIdx.x % span, ql0 = threadIdx.x / span;
+    if (pos >= vq || ql0 >= qpp) continue;
+    // the load's array, first element, key (head, stage), level and
+    // reference level (the temporal reference is level 0's)
+    int e = pos * VP, gm, st, l, lref;
+    const bool cur = e < nc;
+    const scalar_t* src = cur ? c_off + (tq0 * M + (size_t)g * G) * LP * 2 + (size_t)e * 2
+                              : t_off + (tq0 * M + (size_t)g * G) * W * LP * 2 +
+                                    (size_t)(e - nc) * 2;
+    const size_t stride = (size_t)M * (cur ? 1 : W) * LP * 2;
+    if (cur) {
+      gm = e / LP;
+      l = (e - gm * LP) / P;
+      st = lref = l;
+    } else {
+      e -= nc;
+      gm = e / (W * LP);
+      const int r = e - gm * W * LP, jj = r / LP;
+      l = (r - jj * LP) / P;
+      st = (1 + jj) * L + l;
+      lref = 0;
+    }
     const int h = pyr.h[l], w = pyr.w[l];
-    int mn = 0x7fffffff, mxr = -1;
-    if (live_q) {
-      const float rx = j == 0 ? r[2 * l] : r[0];
-      const float ry = j == 0 ? r[2 * l + 1] : r[1];
-      const scalar_t* ob = j == 0 ? co : to + (size_t)(j - 1) * L * P * 2;
-      for (int p = 0; p < P; ++p) {
-        const int k = l * P + p;
-        const float lx = tap_loc(rx, to_f(ob[2 * k]), pyr.inv_w[l]);
-        const float ly = tap_loc(ry, to_f(ob[2 * k + 1]), pyr.inv_h[l]);
-        const float x = tap_px(lx, w), y = tap_px(ly, h);
-        if (!in_window(h, w, x, y)) continue;
-        const int x0 = (int)floorf(x), y0 = (int)floorf(y);
-        const int lo = max(y0, 0) * w + max(x0, 0);
-        const int hi = min(y0 + 1, h - 1) * w + min(x0 + 1, w - 1);
-        mn = min(mn, lo);
-        mxr = max(mxr, hi);
+    const float iw = pyr.inv_w[l], ih = pyr.inv_h[l];
+    int mn = INT_MAX, mx = -1;
+    for (int ql = ql0; ql < nq; ql += K2_UNROLL * qpp) {
+      OffsetPairs<scalar_t, VP> in[K2_UNROLL];
+#pragma unroll
+      for (int u = 0; u < K2_UNROLL; ++u) {
+        const int qq = ql + u * qpp;
+        if (qq < nq) in[u].load(src + (size_t)qq * stride);
+      }
+#pragma unroll
+      for (int u = 0; u < K2_UNROLL; ++u) {
+        const int qq = ql + u * qpp;
+        if (qq >= nq) break;
+        float xy[2 * VP];
+        in[u].floats(xy);
+        const float rx = s_ref[(qq * L + lref) * 2], ry = s_ref[(qq * L + lref) * 2 + 1];
+#pragma unroll
+        for (int s = 0; s < VP; ++s) {
+          const float x = tap_px(tap_loc(rx, xy[2 * s], iw), w);
+          const float y = tap_px(tap_loc(ry, xy[2 * s + 1], ih), h);
+          if (!in_window(h, w, x, y)) continue;
+          const int x0 = floor_small(x), y0 = floor_small(y);
+          mn = min(mn, max(y0, 0) * w + max(x0, 0));
+          mx = max(mx, min(y0 + 1, h - 1) * w + min(x0 + 1, w - 1));
+        }
       }
     }
-    mn = __reduce_min_sync(0xffffffffu, mn);
-    mxr = __reduce_max_sync(0xffffffffu, mxr);
-    if ((threadIdx.x & 31) == 0) {
-      atomicMin(&s_win[lvl], mn);
-      atomicMax(&s_win[Lf + lvl], mxr);
+    if (mx >= 0) {
+      atomicMin(&s_mn[gm * Lf + st], mn);
+      atomicMax(&s_mx[gm * Lf + st], mx);
     }
   }
   __syncthreads();
-  int* o = out + (size_t)blockIdx.x * Lf * 2;
-  for (int i = threadIdx.x; i < Lf; i += blockDim.x) {
-    const int hi = s_win[Lf + i];
-    o[2 * i] = hi >= 0 ? s_win[i] : 0;
-    o[2 * i + 1] = hi;
+  for (int i = threadIdx.x; i < G * Lf; i += blockDim.x) {
+    const int gm = i / Lf, s = i - gm * Lf;
+    int* o = out + ((((size_t)t * M + g * G + gm) * nqb + qb) * Lf + s) * 2;
+    const int hi = s_mx[i];
+    o[0] = hi >= 0 ? s_mn[i] : 0;
+    o[1] = hi;
   }
 }
 
@@ -515,37 +607,120 @@ __global__ void msda_tap_window_kernel(const float* __restrict__ ref,
 // K3: decoder temporal attention from precomputed locations and weights.
 //   value (T, S, M, D); loc (T, Q, M, Lf, P, 2) f32; att (T, Q, M, Lf, P) f32
 //   -> out (T, Q, M*D). Level lvl = j * L + l reads frame slot j.
+//
+// One block of K3_WARPS warps per (t, q, m): the decoder has few queries
+// (60 a clip: 480 blocks at M = 8), and one warp walking a (t, q, m)'s 96
+// taps one after another waited a memory round trip a tap. Here the taps are
+// spread over the block: `lpt` lanes a tap (the least power of two whose
+// 16-byte chunks hold D channels: 4 for bf16 at D = 32), 32 / lpt taps a
+// warp at a time, neighbouring lanes on neighbouring taps so loc and att are
+// read coalesced. A lane first loads the locations and weights of K3_UNROLL
+// taps, then their 4 K3_UNROLL corner chunks, all in flight together, then
+// accumulates in f32. The lanes of a channel chunk are summed with shuffles,
+// the warps through shared memory, and one thread a channel stores it. The
+// CPU tests' mirror of this loop reads the two defines below.
+#define K3_WARPS 4
+#define K3_UNROLL 4
+
+// 16 bytes of channels c0... of a value row, zeros past D (n = D - c0) or
+// where the corner lies outside the level (ok false).
 template <typename scalar_t>
-__global__ void msda_temporal_kernel(const scalar_t* __restrict__ value,
-                                     const float* __restrict__ loc,
-                                     const float* __restrict__ att,
-                                     scalar_t* __restrict__ out, int T, int Q, int S, int M,
-                                     int D, int P, Pyramid pyr, FrameRule rule) {
-  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (long)T * Q * M) return;
-  const int m = (int)(warp % M);
-  const long tq = warp / M;
-  const int t = (int)(tq / Q);
-  const int L = pyr.L, W = rule.W;
-  const int LfP = (1 + W) * L * P;
-  const float* lc = loc + (tq * M + m) * LfP * 2;
-  const float* at = att + (tq * M + m) * LfP;
+__device__ __forceinline__ uint4 load_chunk(const scalar_t* __restrict__ p, int n, bool ok,
+                                            bool aligned) {
+  constexpr int VN = Vec16<scalar_t>::N;
+  if (!ok || n <= 0) return make_uint4(0u, 0u, 0u, 0u);
+  if (aligned) return __ldg(reinterpret_cast<const uint4*>(p));
+  alignas(16) scalar_t e[VN];
+#pragma unroll
+  for (int v = 0; v < VN; ++v) e[v] = v < n ? p[v] : from_f<scalar_t>(0.f);
+  return *reinterpret_cast<const uint4*>(e);
+}
+
+template <typename scalar_t>
+__global__ void __launch_bounds__(K3_WARPS * 32) msda_temporal_kernel(
+    const scalar_t* __restrict__ value, const float* __restrict__ loc,
+    const float* __restrict__ att, scalar_t* __restrict__ out, int T, int Q, int S, int M, int D,
+    int P, int lpt, bool aligned, Pyramid pyr, FrameRule rule) {
+  using V = Vec16<scalar_t>;
+  constexpr int VN = V::N;
+  __shared__ float s_red[K3_WARPS][32];  // per warp its sum a channel
+  const long item = blockIdx.x;          // (t * Q + q) * M + m
+  const int m = (int)(item % M), t = (int)(item / M / Q);
+  const int L = pyr.L, ntap = (1 + rule.W) * L * P;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tpw = 32 / lpt, grp = lane / lpt, c0 = (lane % lpt) * VN;
+  const int step = K3_WARPS * tpw;  // taps the block takes at a time
+  const float2* lc = reinterpret_cast<const float2*>(loc) + item * ntap;
+  const float* at = att + item * ntap;
   const size_t row = (size_t)M * D;
-  if (lane >= D) return;
-  float acc = 0.f;
-  for (int j = 0; j <= W; ++j) {
-    const int f = j == 0 ? t : source_frame(rule, j - 1, t, T);
-    const scalar_t* vf = value + (size_t)f * S * row + (size_t)m * D;
-    for (int l = 0; l < L; ++l) {
-      const scalar_t* vl = vf + (size_t)pyr.start[l] * row;
-      for (int p = 0; p < P; ++p) {
-        const int k = (j * L + l) * P + p;
-        acc += at[k] * sample_bilinear(vl, pyr.h[l], pyr.w[l], row, lc[2 * k], lc[2 * k + 1], lane);
+  const scalar_t* vm = value + (size_t)m * D + c0;
+  float acc[VN];
+#pragma unroll
+  for (int v = 0; v < VN; ++v) acc[v] = 0.f;
+
+  for (int k0 = warp * tpw + grp; k0 < ntap; k0 += K3_UNROLL * step) {
+    float2 xy[K3_UNROLL];
+    float a[K3_UNROLL];
+#pragma unroll
+    for (int u = 0; u < K3_UNROLL; ++u) {
+      const int k = k0 + u * step;
+      xy[u] = k < ntap ? lc[k] : make_float2(-4.f, -4.f);  // outside every level
+      a[u] = k < ntap ? at[k] : 0.f;
+    }
+    uint4 raw[K3_UNROLL][4];
+    float wt[K3_UNROLL][4];
+#pragma unroll
+    for (int u = 0; u < K3_UNROLL; ++u) {
+      const int k = min(k0 + u * step, ntap - 1);
+      const int s = k / P, j = s / L, l = s - j * L, h = pyr.h[l], w = pyr.w[l];
+      const int f = j == 0 ? t : source_frame(rule, j - 1, t, T);
+      int x0 = 0, y0 = 0;
+      float dx = 0.f, dy = 0.f;
+      const bool live = tap_geometry(h, w, xy[u].x, xy[u].y, x0, y0, dx, dy);
+      const scalar_t* vl = vm + ((size_t)f * S + pyr.start[l]) * row;
+      const bool yin[2] = {live && y0 >= 0, live && y0 + 1 < h};
+      const bool xin[2] = {x0 >= 0, x0 + 1 < w};
+      wt[u][0] = (1.f - dy) * (1.f - dx);
+      wt[u][1] = (1.f - dy) * dx;
+      wt[u][2] = dy * (1.f - dx);
+      wt[u][3] = dy * dx;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int cy = c >> 1, cx = c & 1;
+        const bool ok = yin[cy] && xin[cx];
+        // a corner outside the level is not read (its row index may be -1)
+        raw[u][c] = load_chunk(vl + ((long)(y0 + cy) * w + x0 + cx) * (long)row, D - c0, ok,
+                               aligned);
       }
     }
+#pragma unroll
+    for (int u = 0; u < K3_UNROLL; ++u) {
+      float tap[VN], vals[VN];
+#pragma unroll
+      for (int v = 0; v < VN; ++v) tap[v] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        V::unpack(raw[u][c], vals);
+#pragma unroll
+        for (int v = 0; v < VN; ++v) tap[v] += wt[u][c] * vals[v];
+      }
+#pragma unroll
+      for (int v = 0; v < VN; ++v) acc[v] += a[u] * tap[v];
+    }
   }
-  out[(tq * M + m) * D + lane] = from_f<scalar_t>(acc);
+  for (int o = lpt; o < 32; o <<= 1)
+#pragma unroll
+    for (int v = 0; v < VN; ++v) acc[v] += __shfl_xor_sync(0xffffffffu, acc[v], o);
+  if (grp == 0)
+#pragma unroll
+    for (int v = 0; v < VN; ++v)
+      if (c0 + v < D) s_red[warp][c0 + v] = acc[v];
+  __syncthreads();
+  if (threadIdx.x < D) {
+    float sum = 0.f;
+    for (int i = 0; i < K3_WARPS; ++i) sum += s_red[i][threadIdx.x];
+    out[item * D + threadIdx.x] = from_f<scalar_t>(sum);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -591,8 +766,6 @@ static FrameRule make_rule(int rule_all, const int* offsets, int W) {
   for (int j = 0; j < MAX_WINDOW; ++j) r.off[j] = (!rule_all && j < W) ? offsets[j] : 0;
   return r;
 }
-
-static const int kThreads = 256;
 
 // Everything a K1 launch takes, passed through the (LPR, MODE) dispatch.
 struct K1Launch {
@@ -665,16 +838,33 @@ static int launch_temporal_proj(void* value, void* ref, void* c_off, void* t_off
   return (int)cudaErrorInvalidValue;
 }
 
+// `G` heads a block, `threads` a block and `vp` pairs a load come from the
+// wrapper's `tap_window_plan`; vp > 1 only where every load is 16 bytes,
+// 16-byte aligned and of one (head, stage): a misaligned vector load would
+// be a fault the context does not survive, so it is refused here.
 template <typename scalar_t>
 static int launch_tap_window(void* ref, void* c_off, void* t_off, void* out, int T, int Q, int M,
-                             int P, int q_block, const int* levels, int L, int W,
-                             void* stream) {
-  int nqb = (Q + q_block - 1) / q_block;
-  int Lf = (1 + W) * L;
-  msda_tap_window_kernel<scalar_t>
-      <<<T * M * nqb, q_block, 2 * Lf * sizeof(int), (cudaStream_t)stream>>>(
-          (const float*)ref, (const scalar_t*)c_off, (const scalar_t*)t_off, (int*)out, T, Q, M,
-          P, nqb, make_pyramid(levels, L), W);
+                             int P, int q_block, int G, int threads, int vp, const int* levels,
+                             int L, int W, void* stream) {
+  constexpr int VP16 = Vec16<scalar_t>::N / 2;
+  if (G < 1 || M % G || threads < 32 || threads > K2_MAX_THREADS || threads % 32 ||
+      q_block < 1 || (vp != 1 && (vp != VP16 || P % vp)))
+    return (int)cudaErrorInvalidValue;
+  if (vp > 1 && ((uintptr_t)c_off % 16 || (W > 0 && (uintptr_t)t_off % 16)))
+    return (int)cudaErrorInvalidValue;
+  const int nqb = (Q + q_block - 1) / q_block, Lf = (1 + W) * L;
+  const size_t smem = ((size_t)q_block * L * 2 + 2 * (size_t)G * Lf) * 4;
+  auto kernel =
+      vp == 1 ? msda_tap_window_kernel<scalar_t, 1> : msda_tap_window_kernel<scalar_t, VP16>;
+  if (smem > 48 * 1024) {
+    if (smem > SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<T * nqb * (M / G), threads, smem, (cudaStream_t)stream>>>(
+      (const float*)ref, (const scalar_t*)c_off, (const scalar_t*)t_off, (int*)out, T, Q, M, P,
+      q_block, G, nqb, make_pyramid(levels, L), W);
   return (int)cudaGetLastError();
 }
 
@@ -682,11 +872,14 @@ template <typename scalar_t>
 static int launch_temporal(void* value, void* loc, void* att, void* out, int T, int Q, int S,
                            int M, int D, int P, const int* levels, int L, int rule_all,
                            const int* offsets, int W, void* stream) {
-  long warps = (long)T * Q * M;
-  int blocks = (int)((warps * 32 + kThreads - 1) / kThreads);
-  msda_temporal_kernel<scalar_t><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  constexpr int VN = Vec16<scalar_t>::N;
+  if (D < 1 || D > 32) return (int)cudaErrorInvalidValue;
+  int lpt = 1;  // lanes a tap
+  while (lpt * VN < D) lpt <<= 1;
+  const bool aligned = (D * (int)sizeof(scalar_t)) % 16 == 0 && (uintptr_t)value % 16 == 0;
+  msda_temporal_kernel<scalar_t><<<T * Q * M, K3_WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const scalar_t*)value, (const float*)loc, (const float*)att, (scalar_t*)out, T, Q, S, M,
-      D, P, make_pyramid(levels, L), make_rule(rule_all, offsets, W));
+      D, P, lpt, aligned, make_pyramid(levels, L), make_rule(rule_all, offsets, W));
   return (int)cudaGetLastError();
 }
 
@@ -765,15 +958,17 @@ int msda_temporal_proj_bf16(void* value, void* ref, void* c_off, void* t_off, vo
 }
 
 int msda_tap_window_f32(void* ref, void* c_off, void* t_off, void* out, int T, int Q, int M,
-                        int P, int q_block, const int* levels, int L, int W, void* stream) {
-  return launch_tap_window<float>(ref, c_off, t_off, out, T, Q, M, P, q_block, levels, L, W,
-                                  stream);
+                        int P, int q_block, int G, int threads, int vp, const int* levels, int L,
+                        int W, void* stream) {
+  return launch_tap_window<float>(ref, c_off, t_off, out, T, Q, M, P, q_block, G, threads, vp,
+                                  levels, L, W, stream);
 }
 
 int msda_tap_window_bf16(void* ref, void* c_off, void* t_off, void* out, int T, int Q, int M,
-                         int P, int q_block, const int* levels, int L, int W, void* stream) {
-  return launch_tap_window<__nv_bfloat16>(ref, c_off, t_off, out, T, Q, M, P, q_block, levels,
-                                          L, W, stream);
+                         int P, int q_block, int G, int threads, int vp, const int* levels,
+                         int L, int W, void* stream) {
+  return launch_tap_window<__nv_bfloat16>(ref, c_off, t_off, out, T, Q, M, P, q_block, G,
+                                          threads, vp, levels, L, W, stream);
 }
 
 int msda_temporal_f32(void* value, void* loc, void* att, void* out, int T, int Q, int S, int M,
@@ -784,8 +979,8 @@ int msda_temporal_f32(void* value, void* loc, void* att, void* out, int T, int Q
 }
 
 int msda_temporal_bf16(void* value, void* loc, void* att, void* out, int T, int Q, int S, int M,
-                       int D, int P, const int* levels, int L, int rule_all,
-                       const int* offsets, int W, void* stream) {
+                       int D, int P, const int* levels, int L, int rule_all, const int* offsets,
+                       int W, void* stream) {
   return launch_temporal<__nv_bfloat16>(value, loc, att, out, T, Q, S, M, D, P, levels, L,
                                         rule_all, offsets, W, stream);
 }

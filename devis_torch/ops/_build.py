@@ -10,7 +10,9 @@ at import.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -91,6 +93,17 @@ def build_log(name: str) -> str:
     """The compiler's output (register and shared-memory use per kernel)."""
     with open(_paths(name)[2]) as f:
         return f.read()
+
+
+@functools.lru_cache(maxsize=None)
+def source_define(name: str, macro: str) -> int:
+    """The integer a `#define macro` of source `name` sets: the one place a
+    launch constant is kept where Python needs it too."""
+    with open(_paths(name)[0]) as f:
+        found = re.search(rf"^#define {macro} (\d+)\b", f.read(), re.M)
+    if found is None:
+        raise KeyError(f"{macro} is not defined in {name}.cu")
+    return int(found.group(1))
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -191,6 +191,38 @@ def _window_plan(spatial_shapes, dtype, head_dim, n_points, blocks_per_sm):
     return caps(k)
 
 
+# K2's launch (csrc/ms_deform_attn.cu, `msda_tap_window_kernel`): one block
+# per (t, q-block, group of G heads); a thread takes one load of VP (x, y)
+# offset pairs of a query, the same load of every qpp-th query
+@functools.lru_cache(maxsize=None)
+def tap_window_plan(n_heads: int, window: int, n_levels: int, n_points: int, dtype,
+                    aligned: bool = True):
+    """(G, threads, VP) of a K2 launch: VP pairs a load (16 bytes where the
+    offsets are `aligned` to 16 bytes and 16 bytes of pairs divide a level's
+    P points, so that a load is of one (head, stage); else one pair), G heads
+    a block (the most whose loads of one query fit in the kernel's most
+    threads: the block stages its queries' references once for all its
+    heads), and the threads of a block: whole queries' loads, at most that
+    many, rounded up to a warp."""
+    most = _build.source_define("ms_deform_attn", "K2_MAX_THREADS")
+    vp16 = 16 // (torch.finfo(dtype).bits // 8) // 2
+    vp = vp16 if aligned and n_points % vp16 == 0 else 1
+
+    def loads(G):
+        return (1 + window) * G * n_levels * n_points // vp
+
+    G = max(G for G in range(1, n_heads + 1) if n_heads % G == 0 and
+            (G == 1 or loads(G) <= most))
+    vq = loads(G)
+    used = max(most // vq, 1) * vq if vq <= most else most
+    return G, min(-(-used // 32) * 32, most), vp
+
+
+def tap_window_grid(T: int, Q: int, n_heads: int, plan):
+    """(blocks, threads a block) of a K2 launch with `plan`."""
+    return T * -(-Q // Q_BLOCK) * (n_heads // plan[0]), plan[1]
+
+
 def msda_tap_window_plain(spatial_shapes, ref, c_off, t_off, n_heads: int,
                           q_block: int = Q_BLOCK):
     """Plain K2 → (T, M, n_qblocks, Lf, 2) int32 [first, last] rows."""
@@ -699,13 +731,15 @@ def msda_tap_window(spatial_shapes, ref, c_off, t_off, n_heads: int):
     if (tuple(c_off.shape) != (T, Q, M * L * P * 2)
             or tuple(t_off.shape) != (T, Q, M * W * L * P * 2)):
         raise ValueError("msda_tap_window: inconsistent shapes")
+    aligned = c_off.data_ptr() % 16 == 0 and (W == 0 or t_off.data_ptr() % 16 == 0)
+    plan = tap_window_plan(M, W, L, P, c_off.dtype, aligned)
     nqb = -(-Q // Q_BLOCK)
     out = torch.empty((T, M, nqb, (1 + W) * L, 2), dtype=torch.int32,
                       device=ref.device)
-    fn = _function(f"msda_tap_window_{_DTYPES[c_off.dtype]}", 4, 5)
+    fn = _function(f"msda_tap_window_{_DTYPES[c_off.dtype]}", 4, 8)
     with torch.cuda.device(ref.device):
         _build.check(fn(ref.data_ptr(), c_off.data_ptr(), t_off.data_ptr(),
-                        out.data_ptr(), T, Q, M, P, Q_BLOCK,
+                        out.data_ptr(), T, Q, M, P, Q_BLOCK, *plan,
                         _levels(spatial_shapes), L, W, _stream(ref)),
                      "msda_tap_window")
     msda_tap_window.launches += 1

@@ -52,11 +52,98 @@ def test_temporal_proj_kernel(dev, dtype, rule):
            K.msda_temporal_proj_plain(a[0], SHAPES, *a[1:], rule), dtype)
 
 
+LINES = ((8, 16), (4, 8), (2, 4))      # powers of two: x = -1 and y = -1 exactly
+
+
+def _tap_window_inputs(dev, rule, dtype, case):
+    """K2's inputs: "random" as `_proj` gives them (M 2, P 2, Q 150, a
+    partial q-block); "heads8" at the clip's head geometry (M 8, P 4, T 6:
+    W 5 under the rule "all"); "partial" one q-block of 37 queries;
+    "dead_block" the second of three q-blocks with references far outside
+    the image (no live tap); "lines" a third of the queries with every tap
+    on the line x = -1, a third on y = -1 (reference 0, offset -0.5 pixel).
+    Returns (shapes, ref, c_off, t_off, M)."""
+    if case in ("random", "dead_block", "lines"):
+        T, Q, M, P = 3, (300 if case == "dead_block" else 150), 2, 2
+    else:
+        T, Q, M, P = 6, (37 if case == "partial" else 300), 8, 4
+    shapes = LINES if case == "lines" else SHAPES
+    g = torch.Generator(device=dev).manual_seed(5)
+    W = rule_window(rule, T)
+    ref = torch.rand(T, Q, L, 2, generator=g, device=dev)
+    c_off = torch.randn(T, Q, M * L * P * 2, generator=g, device=dev) * 3
+    t_off = torch.randn(T, Q, M * W * L * P * 2, generator=g, device=dev) * 3
+    if case == "dead_block":
+        ref[:, 128:256] = -5.0
+    if case == "lines":
+        for axis in (0, 1):
+            q = torch.arange(axis, Q, 3, device=dev)
+            ref[:, q, :, axis] = 0.0
+            c_off.view(T, Q, -1, 2)[:, q, :, axis] = -0.5
+            t_off.view(T, Q, -1, 2)[:, q, :, axis] = -0.5
+    return shapes, ref, c_off.to(dtype), t_off.to(dtype), M
+
+
+@pytest.mark.parametrize("case", ["random", "heads8", "partial", "dead_block", "lines"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rule", [("all",), ("window", (-1, 1))])
-def test_tap_window_kernel(dev, rule):
-    _, ref, c_off, t_off, _, _ = _proj(dev, rule)
-    assert torch.equal(K.msda_tap_window(SHAPES, ref, c_off, t_off, 2),
-                       K.msda_tap_window_plain(SHAPES, ref, c_off, t_off, 2))
+def test_tap_window_kernel(dev, rule, dtype, case):
+    shapes, ref, c_off, t_off, M = _tap_window_inputs(dev, rule, dtype, case)
+    got = K.msda_tap_window(shapes, ref, c_off, t_off, M)
+    want = K.msda_tap_window_plain(shapes, ref, c_off, t_off, M)
+    assert torch.equal(got, want)
+    if case == "dead_block":
+        assert (want[:, :, 1, :, 1] == -1).all() and (want[:, :, 1, :, 0] == 0).all()
+    assert (want[..., 1] >= 0).any()
+
+
+def _off_16_bytes(t):
+    """A copy of `t` that starts one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,P,aligned", [(8, 8, True), (8, 4, False), (2, 3, True),
+                                         (2, 33, True)])
+def test_tap_window_kernel_geometries(dev, dtype, M, P, aligned):
+    """Each launch geometry `tap_window_plan` gives, through the op: heads
+    split over blocks (M 8, P 8), offsets off 16 bytes and P not a multiple
+    of the pairs in 16 bytes (one pair a load), and a query's loads
+    outnumbering a block's threads (P 33)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    T, Q, W = 6, 150, 5
+    ref = torch.rand(T, Q, L, 2, generator=g, device=dev)
+    c_off = (torch.randn(T, Q, M * L * P * 2, generator=g, device=dev) * 3).to(dtype)
+    t_off = (torch.randn(T, Q, M * W * L * P * 2, generator=g, device=dev) * 3).to(dtype)
+    if not aligned:
+        c_off, t_off = _off_16_bytes(c_off), _off_16_bytes(t_off)
+    assert torch.equal(K.msda_tap_window(SHAPES, ref, c_off, t_off, M),
+                       K.msda_tap_window_plain(SHAPES, ref, c_off, t_off, M))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tap_window_launcher_refuses_misaligned_vector_loads(dev, dtype):
+    """The C launcher returns an error, and does not launch, where a plan of
+    16-byte loads meets offsets off 16 bytes (a misaligned vector load would
+    lose the context)."""
+    shapes, ref, c_off, t_off, M = _tap_window_inputs(dev, ("all",), dtype, "heads8")
+    T, Q = ref.shape[:2]
+    W = t_off.shape[-1] // c_off.shape[-1]
+    G, threads, vp = K.tap_window_plan(M, W, L, 4, dtype)
+    assert vp > 1
+    out = torch.empty((T, M, -(-Q // K.Q_BLOCK), (1 + W) * L, 2), dtype=torch.int32,
+                      device=dev)
+    fn = K._function(f"msda_tap_window_{K._DTYPES[dtype]}", 4, 8)
+    for c, t in ((_off_16_bytes(c_off), t_off), (c_off, _off_16_bytes(t_off))):
+        status = fn(ref.data_ptr(), c.data_ptr(), t.data_ptr(), out.data_ptr(), T, Q, M, 4,
+                    K.Q_BLOCK, G, threads, vp, K._levels(shapes), L, W, K._stream(ref))
+        assert status != 0
+    torch.cuda.synchronize()
+    assert torch.equal(K.msda_tap_window(shapes, ref, c_off, t_off, M),
+                       K.msda_tap_window_plain(shapes, ref, c_off, t_off, M))
 
 
 def test_tap_window_kernel_takes_an_empty_temporal_part(dev):
@@ -69,15 +156,20 @@ def test_tap_window_kernel_takes_an_empty_temporal_part(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_temporal_kernel(dev, dtype):
+@pytest.mark.parametrize("rule", [("all",), ("window", (-1, 1))])
+@pytest.mark.parametrize("T,Q,M,D,P", [(3, 7, 2, 32, 2), (6, 1, 8, 32, 4), (6, 10, 8, 32, 4),
+                                       (6, 10, 8, 16, 4), (3, 7, 2, 5, 2)])
+def test_temporal_kernel(dev, dtype, rule, T, Q, M, D, P):
+    """K3 at the decoder's head geometry (M 8, D 32, P 4, T 6) at Q 1 and
+    10, at D 16, and at D 5 (rows not a whole number of 16-byte chunks)."""
     g = torch.Generator(device=dev).manual_seed(1)
-    T, Q, M, D, P = 3, 7, 2, 32, 2
-    Lf = T * L
+    Lf = (1 + rule_window(rule, T)) * L
     value = torch.randn(T, S, M, D, generator=g, device=dev).to(dtype)
     loc = torch.rand(T, Q, M, Lf, P, 2, generator=g, device=dev) * 1.4 - 0.2
     att = torch.rand(T, Q, M, Lf, P, generator=g, device=dev)
-    _close(K.msda_temporal(value, SHAPES, loc, att),
-           ms_deform_attn_temporal_plain(value, SHAPES, loc, att, ("all",)), dtype)
+    _close(K.msda_temporal(value, SHAPES, loc, att, rule),
+           ms_deform_attn_temporal_plain(value, SHAPES, loc, att, rule), dtype)
+
 
 
 # ---------------------------------------------------------------------------
