@@ -8,8 +8,8 @@
 2. Holds each kernel against its plain PyTorch version at the YT-VIS-19
    main-path shapes: f32 with TF32 off to 1e-4 of max|plain|, bf16 to 2e-2.
    Offsets are random and off the pixel grid. Times kernel and plain version
-   with CUDA events; K2 and K3, whose launches the host takes longer to make
-   than they run, by their device time (torch.profiler), the op's CUDA-event
+   with CUDA events; K2, K3, K6 and K8 (K2 and K3's launches the host takes
+   longer to make than they run) by their device time (torch.profiler), the op's CUDA-event
    time beside it, each with its grid (blocks, warps a block). K1 encoder
    temporal attention on K2's tap windows (K2 equal to its plain version), at
    raster references (the encoder's own, with the reference init's offsets)
@@ -23,8 +23,9 @@
    run without one: the yardstick of the fused kernel); K5 backward of K1/K3 at the
    encoder's shape at raster references (K1's inputs) and at random
    locations, and at the decoder's; K6 and K7, single-frame attention
-   forward and backward, at the six mask-head layers (K7 on the route's
-   query grid); the differentiable DCNv2 route (K6) against K4. A backward
+   forward and backward, at the six mask-head layers on the route's query
+   grid (K6 by device time, its op's CUDA-event time beside it); the
+   differentiable DCNv2 route (K6) against K4. A backward
    kernel's bf16 run is held against the plain version on the same inputs
    upcast to f32 (the plain version's own bf16 scatter-add loses the sum).
    Every K5 and K7 case logs the kernel alone, the op (zero + kernel +
@@ -55,14 +56,16 @@
    every parameter's gradient against that tensor's own norm.
 5. The COCO image model (Deformable-DETR R50 + mask head, 91 classes, bf16,
    6+6 layers, 300 queries, top 50; one 800x1216 image on its 832x1344
-   canvas). K8 (projection-fused attention) at the encoder's and at decoder
-   layer 0's shape, K9 (backward from taps) at the decoder's shape, K10
+   canvas). K8 (projection-fused attention) at the encoder's shape (1 and 2
+   images) and at decoder layer 0's, by device time, with the corner
+   gathers' bytes through L2; K9 (backward from taps) at the decoder's shape, K10
    (deformable conv from given fields) and K4 at the six mask-head layers at
    batch 50 (each beside its route: `deform_conv2d_rows`,
    `modulated_deform_conv2d_rows`), K6 and K7 at the decoder's shape (1 and 2 images) and K7 at the
-   encoder's (Q = S, 2 images), each against its plain version; K7 at the
-   six mask-head layers at the image train step's 50 masks (held against
-   the plain version at 10 masks where its f32 copy of U passes 1.5 GB). The
+   encoder's (Q = S, 2 images), each against its plain version; K6 and K7
+   at the six mask-head layers at the image train step's 50 masks (held
+   against the plain versions at 10 masks where the f32 copy of U passes
+   1.5 GB; K6 by device time). The
    inference path:
    `build_model` and `evaluate_coco` over a seeded synthetic dataset, 1
    warm-up image + 3 images: an image must launch K8 7, K6 5 and K4 6 times
@@ -97,7 +100,8 @@
    each pipeline stage, and profiles one tracked video.
 8. Prints the `kernels` JSON line (K1-K10, K12a-K12c; K5 and K7 with
    `op_ms`, `global_adds`, `global_only_ms` and, per shape, window
-   statistics), a clip-latency line, a
+   statistics; K6 and K8 with `op_ms` and their times per shape), a
+   clip-latency line, a
    train-step line with peak memory, the image model's two lines, the e2e
    line, the card line, and last {"ok": true, "device": {...}}.
 
@@ -795,6 +799,22 @@ def temporal_bwd_phase(torch, dev, gen, results):
         flop_rate=F32_FLOPS, library_ms=None, shapes=cases)
 
 
+def mask_head_rows(torch, dev, gen, B, cout, h, w):
+    """(value f32, loc, att, grad f32) of K6/K7 at one clip mask-head layer:
+    U as 9 one-point levels of one head, each pixel's taps at its centre
+    plus offsets of N(0, 2) pixels, some off the map."""
+    hw = h * w
+    value = torch.randn(B, 9 * hw, 1, cout, generator=gen, device=dev)
+    base = torch.stack(torch.meshgrid(
+        (torch.arange(w, device=dev) + 0.5) / w, (torch.arange(h, device=dev) + 0.5) / h,
+        indexing="xy"), -1).reshape(1, hw, 1, 1, 1, 2)
+    jitter = torch.randn(B, hw, 1, 9, 1, 2, generator=gen, device=dev) * 2.0
+    loc = (base + jitter / torch.tensor([w, h], device=dev)).contiguous()
+    att = torch.rand(B, hw, 1, 9, 1, generator=gen, device=dev) * 2.0
+    grad = torch.randn(B, hw, cout, generator=gen, device=dev)
+    return value, loc, att, grad
+
+
 def rows_phase(torch, dev, gen, results):
     """K6 and K7 at the six mask-head layers (the K*K positions of U = x . W
     as 9 one-point levels of one head), and the K6 route against K4."""
@@ -805,40 +825,43 @@ def rows_phase(torch, dev, gen, results):
 
     log(f"K6 msda_rows / K7 msda_rows_bwd, B={DCN_B}, 9 levels, per mask-head layer")
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
-    fwd = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0)
+    fwd = dict(ms=0.0, op_ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, layers=[])
     bwd = dict(ms=0.0, op_ms=0.0, plain_ms=0.0, bytes=0, flops=0, global_adds=0,
                global_only_ms=0.0, err=0.0, layers=[])
     for name, cin, cout, h, w in DCN_LAYERS:
         shapes = ((h, w),) * 9
         hw = h * w
-        value = torch.randn(DCN_B, 9 * hw, 1, cout, generator=gen, device=dev)
-        # pixel centres plus offsets of a few pixels, some off the map
-        base = torch.stack(torch.meshgrid(
-            (torch.arange(w, device=dev) + 0.5) / w, (torch.arange(h, device=dev) + 0.5) / h,
-            indexing="xy"), -1).reshape(1, hw, 1, 1, 1, 2)
-        jitter = torch.randn(DCN_B, hw, 1, 9, 1, 2, generator=gen, device=dev) * 2.0
-        loc = (base + jitter / torch.tensor([w, h], device=dev)).contiguous()
-        att = torch.rand(DCN_B, hw, 1, 9, 1, generator=gen, device=dev) * 2.0
-        grad = torch.randn(DCN_B, hw, cout, generator=gen, device=dev)
+        value, loc, att, grad = mask_head_rows(torch, dev, gen, DCN_B, cout, h, w)
         v16, g16 = bf(value), bf(grad)
+        # K6 as the route calls it (the query grid is for its backward, K7)
+        grid = (h, w)
         with torch.no_grad():
             if name in ("lay1", "lay5"):
-                compare(f"{name} K6 f32 ", K.msda_rows(value, shapes, loc, att),
+                compare(f"{name} K6 f32 ", K.msda_rows(value, shapes, loc, att, grid),
                         ms_deform_attn(value, shapes, loc, att), 1e-4)
-            err = compare(f"{name} K6 bf16", K.msda_rows(v16, shapes, loc, att),
+            err = compare(f"{name} K6 bf16", K.msda_rows(v16, shapes, loc, att, grid),
                           ms_deform_attn(v16, shapes, loc, att), 2e-2)
             fwd["err"] = max(fwd["err"], err)
-            ms = cuda_time(lambda: K.msda_rows(v16, shapes, loc, att), 10)
+            op = lambda: K.msda_rows(v16, shapes, loc, att, grid)  # noqa: E731
+            ms = device_ms(op, "msda_rows_kernel", iters=10)
+            op_ms = cuda_time(op, 10)
             plain_ms = cuda_time(lambda: ms_deform_attn(v16, shapes, loc, att), 2, 1)
         taps, _, rows = corner_stats(loc, shapes)
+        nbytes = rows * cout * 2 + (loc.numel() + att.numel()) * 4 + DCN_B * hw * cout * 2
         fwd["ms"] += ms
+        fwd["op_ms"] += op_ms
         fwd["plain_ms"] += plain_ms
-        fwd["bytes"] += rows * cout * 2 + (loc.numel() + att.numel()) * 4 + DCN_B * hw * cout * 2
+        fwd["bytes"] += nbytes
         fwd["flops"] += taps * 8 * cout
-        line = f"    {name} D={cout} at {h}x{w}: K6 {ms:.3f} ms (plain {plain_ms:.3f})"
+        fwd["layers"].append(dict(layer=name, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
+                                  bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                               taps * 8 * cout / F32_FLOPS) * 1e3))
+        line = (f"    {name} D={cout} at {h}x{w}: K6 {ms:.4f} ms by device time, op "
+                f"{op_ms:.4f} ms (plain {plain_ms:.3f}), bound "
+                f"{fwd['layers'][-1]['bound_ms']:.4f} ms")
 
         # the route's K7 takes 2-D tiles of the h x w query grid
-        a16, grid = (v16, shapes, loc, att, g16), (h, w)
+        a16 = (v16, shapes, loc, att, g16)
         err = bwd_compare(torch, f"{name} K7", lambda *a: K.msda_rows_bwd(*a, grid),
                           K.msda_rows_bwd_plain,
                           (value, shapes, loc, att, grad) if name in ("lay1", "lay5") else None,
@@ -857,7 +880,7 @@ def rows_phase(torch, dev, gen, results):
         bwd["layers"].append(rec)
         log(line)
         log_bwd(f"{name} K7", rec)
-        del value, loc, att, grad, v16, g16, jitter, a16
+        del value, loc, att, grad, v16, g16, a16
         torch.cuda.empty_cache()
     for key, tot, nm, line in (("K6", fwd, "msda_rows", 354), ("K7", bwd, "msda_rows_bwd", 773)):
         results[key] = dict(
@@ -865,8 +888,8 @@ def rows_phase(torch, dev, gen, results):
             replaces=f"devis_tpu/ops/ms_deform_attn_pallas.py:{line}", max_abs_err=tot["err"],
             ms=tot["ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"], flops=tot["flops"],
             flop_rate=F32_FLOPS, library_ms=None,
-            **({k: tot[k] for k in ("op_ms", "global_adds", "global_only_ms", "layers")}
-               if key == "K7" else {}))
+            **{k: tot[k] for k in ("op_ms", "global_adds", "global_only_ms", "layers")
+               if k in tot})
 
     log("DCNv2 layer: the differentiable route (K6) against K4 on the same inputs")
     Kk = 3
@@ -1572,6 +1595,31 @@ def train_compare(torch, dev):
 # the COCO image model
 # ---------------------------------------------------------------------------
 
+def k8_inputs(torch, dev, gen, B, Q):
+    """(value, ref, off, logit) f32 of K8 at the image model's heads: random
+    references, offsets of N(0, 3) pixels (off the grid, some off the map),
+    N(0, 1) logits."""
+    L = len(COCO_SHAPES)
+    S = sum(h * w for h, w in COCO_SHAPES)
+    value = torch.randn(B, S, M, D, generator=gen, device=dev)
+    ref = torch.rand(B, Q, L, 2, generator=gen, device=dev)
+    off = torch.randn(B, Q, M * L * P * 2, generator=gen, device=dev) * 3.0
+    logit = torch.randn(B, Q, M * L * P, generator=gen, device=dev)
+    return value, ref, off, logit
+
+
+def image_decoder_rows(torch, dev, gen, B):
+    """(value f32, loc, att) of K6 at the image decoder's shape: Q 300,
+    locations uniform on [-0.1, 1.1], softmax weights."""
+    L = len(COCO_SHAPES)
+    S = sum(h * w for h, w in COCO_SHAPES)
+    value = torch.randn(B, S, M, D, generator=gen, device=dev)
+    loc = torch.rand(B, COCO_NQ, M, L, P, 2, generator=gen, device=dev) * 1.2 - 0.1
+    att = torch.softmax(torch.randn(B, COCO_NQ, M, L * P, generator=gen, device=dev),
+                        -1).reshape(B, COCO_NQ, M, L, P)
+    return value, loc, att
+
+
 def coco_kernel_phases(torch, dev, gen, results):
     """K8, K9 and K10, and K6, K7 and K4 again, at the image model's shapes
     against their plain versions."""
@@ -1589,46 +1637,54 @@ def coco_kernel_phases(torch, dev, gen, results):
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
-    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0)
+    # K8 by device time (its op's CUDA-event time beside it) at the encoder
+    # (one image, and the train step's two) and at decoder layer 0; the
+    # kernels line sums one encoder and one decoder-layer-0 launch of an image
+    tot = dict(ms=0.0, op_ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, shapes={})
     with torch.inference_mode():
-        for where, Q in (("encoder", S), ("decoder layer 0", COCO_NQ)):
-            log(f"K8 msda_proj ({where}), B=1 Q={Q} S={S} M={M} D={D} L={L} P={P}")
-            value = rnd(1, S, M, D)
-            ref = torch.rand(1, Q, L, 2, generator=gen, device=dev)
-            off = rnd(1, Q, M * L * P * 2, scale=3.0)        # pixels, off the grid
-            logit = rnd(1, Q, M * L * P)
+        for where, B, Q in (("encoder", 1, S), ("encoder B=2", 2, S),
+                            ("decoder layer 0", 1, COCO_NQ)):
+            log(f"K8 msda_proj ({where}), B={B} Q={Q} S={S} M={M} D={D} L={L} P={P}")
+            value, ref, off, logit = k8_inputs(torch, dev, gen, B, Q)
             a32 = (value, COCO_SHAPES, ref, off, logit)
             a16 = (bf(value), COCO_SHAPES, ref, bf(off), bf(logit))
-            compare("f32 ", K.msda_proj(*a32), K.msda_proj_plain(*a32), 1e-4)
-            tot["err"] = max(tot["err"], compare("bf16", K.msda_proj(*a16),
-                                                 K.msda_proj_plain(*a16), 2e-2))
-            ms = cuda_time(lambda: K.msda_proj(*a16), 20)
+            if B == 1:
+                compare("f32 ", K.msda_proj(*a32), K.msda_proj_plain(*a32), 1e-4)
+            err = compare("bf16", K.msda_proj(*a16), K.msda_proj_plain(*a16), 2e-2)
+            op = lambda: K.msda_proj(*a16)  # noqa: E731
+            ms = device_ms(op, "msda_proj_kernel")
+            op_ms = cuda_time(op, 20)
             plain_ms = cuda_time(lambda: K.msda_proj_plain(*a16), 3, 1)
             loc = K.proj_locations(COCO_SHAPES, ref, a16[3], M)
-            rows = corner_stats(loc, COCO_SHAPES)[2]
+            taps, corners, rows = corner_stats(loc, COCO_SHAPES)
             nbytes = rows * D * 2 + ref.numel() * 4 + (off.numel() + logit.numel()) * 2 \
-                + Q * M * D * 2
-            flops = Q * M * L * P * (8 * D + 40)
-            log(f"    {where}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
-                f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms by bytes, "
-                f"{flops / F32_FLOPS * 1e3:.5f} ms by operations")
-            tot["ms"] += ms
-            tot["plain_ms"] += plain_ms
-            tot["bytes"] += nbytes
-            tot["flops"] += flops
+                + B * Q * M * D * 2
+            flops = B * Q * M * L * P * (8 * D + 40)
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+            # the corner gathers' traffic through L2: D channels a live corner
+            l2_bytes = corners * D * 2
+            log(f"    {where}: kernel {ms:.5f} ms by device time, op {op_ms:.4f} ms, plain "
+                f"{plain_ms:.3f} ms; bound {bound:.5f} ms ({nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.3f} GFLOP); corner gathers {l2_bytes / 1e9:.3f} GB through L2")
+            tot["shapes"][where] = dict(ms=ms, op_ms=op_ms, plain_ms=plain_ms, bound_ms=bound,
+                                        l2_bytes=l2_bytes)
+            tot["err"] = max(tot["err"], err)
+            if B == 1:
+                tot["ms"] += ms
+                tot["op_ms"] += op_ms
+                tot["plain_ms"] += plain_ms
+                tot["bytes"] += nbytes
+                tot["flops"] += flops
             del value, ref, off, logit, a32, a16, loc
-    # one encoder plus one decoder-layer-0 launch: an image runs six and one
     results["K8"] = dict(
         name="msda_proj", route="cuda", source="devis_torch/csrc/ms_deform_attn_proj.cu",
         replaces="devis_tpu/ops/ms_deform_attn_pallas.py:2210", max_abs_err=tot["err"],
-        ms=tot["ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"], flops=tot["flops"],
-        flop_rate=F32_FLOPS, library_ms=None)
+        ms=tot["ms"], op_ms=tot["op_ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"],
+        flops=tot["flops"], flop_rate=F32_FLOPS, library_ms=None, shapes=tot["shapes"])
 
     B, Q = COCO_BATCH, COCO_NQ
     log(f"K9 msda_taps_bwd (decoder), B={B} Q={Q} M={M} D={D} L={L}, {4 * P} entries a level")
-    value = rnd(B, S, M, D)
-    loc = torch.rand(B, Q, M, L, P, 2, generator=gen, device=dev) * 1.2 - 0.1
-    att = torch.softmax(rnd(B, Q, M, L * P), -1).reshape(B, Q, M, L, P)
+    value, loc, att = image_decoder_rows(torch, dev, gen, B)
     grad = rnd(B, Q, M * D)
     idx, wt = K.taps(COCO_SHAPES, loc, att)
     for tag, v, g, tols in (("f32 ", value, grad, (1e-4, 1e-4)),
@@ -1666,11 +1722,13 @@ def coco_kernel_phases(torch, dev, gen, results):
                         ms_deform_attn(value, COCO_SHAPES, loc, att), 1e-4)
                 compare(f"{where} K6 bf16", K.msda_rows(v16, COCO_SHAPES, loc, att),
                         ms_deform_attn(v16, COCO_SHAPES, loc, att), 2e-2)
-                ms = cuda_time(lambda: K.msda_rows(v16, COCO_SHAPES, loc, att), 20)
+                op = lambda: K.msda_rows(v16, COCO_SHAPES, loc, att)  # noqa: E731
+                ms = device_ms(op, "msda_rows_kernel")
+                op_ms = cuda_time(op, 20)
                 plain_ms = cuda_time(lambda: ms_deform_attn(v16, COCO_SHAPES, loc, att), 3, 1)
             taps, _, rows = corner_stats(loc, COCO_SHAPES)
             nbytes = rows * D * 2 + (loc.numel() + att.numel()) * 4 + grad.numel() * 2
-            times["K6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(
+            times["K6"] = dict(ms=ms, op_ms=op_ms, plain_ms=plain_ms, bound_ms=max(
                 nbytes / HBM_BYTES_PER_S, taps * 8 * D / F32_FLOPS) * 1e3)
         a16 = (v16, COCO_SHAPES, loc, att, g16)
         bwd_compare(torch, f"{where} K7", K.msda_rows_bwd, K.msda_rows_bwd_plain,
@@ -1686,8 +1744,8 @@ def coco_kernel_phases(torch, dev, gen, results):
             if key == "K7":
                 log_bwd(f"{where} K7", t)
             else:
-                log(f"    {where}: {key} {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
-                    f"bound {t['bound_ms']:.5f} ms")
+                log(f"    {where}: {key} {t['ms']:.5f} ms by device time, op {t['op_ms']:.4f} "
+                    f"ms, plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms")
             results[key].setdefault("coco_shapes", {})[where] = t
         torch.cuda.empty_cache()
 
@@ -1770,17 +1828,20 @@ def coco_kernel_phases(torch, dev, gen, results):
 
 
 def coco_mask_head_bwd_phase(torch, dev, gen, results):
-    """K7 at the image mask head's six DCNv2 layers at the batch the image
-    train step gives it (2 images x 25 slots = 50 masks a mask level), on
-    the route's rows (`deform_conv2d_rows`: pixel + kernel position + an
-    offset of N(0, 2) pixels, 9 one-point levels). Held against the plain
-    version at `COCO_MASK_CMP_B` masks where the plain version's f32 copy of
-    U passes 1.5 GB (lay5), timed at full batch."""
+    """K6 and K7 at the image mask head's six DCNv2 layers at the batch the
+    image train step gives them (2 images x 25 slots = 50 masks a mask
+    level), on the route's rows (`deform_conv2d_rows`: pixel + kernel
+    position + an offset of N(0, 2) pixels, 9 one-point levels) and its
+    query grid. Each is held against its plain version at `COCO_MASK_CMP_B`
+    masks where the plain version's f32 copy of U passes 1.5 GB (lay5), and
+    timed at full batch: K6 by device time, its op by CUDA events beside it."""
     from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.ms_deform_attn import ms_deform_attn
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
     B = COCO_SLOTS * COCO_BATCH
     tot = dict(ms=0.0, op_ms=0.0, bound_ms=0.0, global_adds=0, global_only_ms=0.0, layers=[])
-    log(f"K7 msda_rows_bwd at the image mask head, B={B}, 9 levels, per layer")
+    fwd = dict(ms=0.0, op_ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, layers=[])
+    log(f"K6 msda_rows / K7 msda_rows_bwd at the image mask head, B={B}, 9 levels, per layer")
     for name, cin, cout, h, w in COCO_DCN_LAYERS:
         shapes = ((h, w),) * 9
         loc = dcn_route_loc(torch, dev, gen, B, h, w)
@@ -1791,6 +1852,23 @@ def coco_mask_head_bwd_phase(torch, dev, gen, results):
         nb = B if B * 9 * h * w * cout * 4 <= 1.5e9 else COCO_MASK_CMP_B
         cut = tuple(t[:nb] if torch.is_tensor(t) else t for t in a16)
         grid = (h, w)
+        with torch.no_grad():
+            op = lambda: K.msda_rows(v16, shapes, loc, att, grid)  # noqa: E731
+            err = compare(f"{name} B={nb} K6 bf16", op()[:nb], ms_deform_attn(*cut[:4]), 2e-2)
+            ms = device_ms(op, "msda_rows_kernel", iters=5)
+            op_ms = cuda_time(op, 5)
+            plain_ms = cuda_time(lambda: ms_deform_attn(*cut[:4]), 2, 1)
+        taps, _, rows = corner_stats(loc, shapes)
+        nbytes = rows * cout * 2 + (loc.numel() + att.numel()) * 4 + B * h * w * cout * 2
+        bound = max(nbytes / HBM_BYTES_PER_S, taps * 8 * cout / F32_FLOPS) * 1e3
+        log(f"    {name} D={cout} at {h}x{w}: K6 {ms:.4f} ms by device time, op {op_ms:.4f} "
+            f"ms (plain at B={nb} {plain_ms:.3f}), bound {bound:.4f} ms")
+        fwd["layers"].append(dict(layer=name, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
+                                  bound_ms=bound, compare_batch=nb))
+        for k, v in (("ms", ms), ("op_ms", op_ms), ("plain_ms", plain_ms), ("bound_ms", bound)):
+            fwd[k] += v
+        fwd["err"] = max(fwd["err"], err)
+
         bwd_compare(torch, f"{name} B={nb} K7", lambda *a: K.msda_rows_bwd(*a, grid),
                     K.msda_rows_bwd_plain, None, cut)
         nbytes, flops, corners = backward_cost(loc, att, v16, shapes, None, cout)
@@ -1807,8 +1885,11 @@ def coco_mask_head_bwd_phase(torch, dev, gen, results):
         tot["layers"].append(rec)
         del loc, att, v16, g16, a16, cut
         torch.cuda.empty_cache()
-    log(f"    six layers: K7 {tot['ms']:.3f} ms, op {tot['op_ms']:.3f} ms, bound "
+    log(f"    six layers: K6 {fwd['ms']:.4f} ms, op {fwd['op_ms']:.4f} ms, bound "
+        f"{fwd['bound_ms']:.4f} ms; K7 {tot['ms']:.3f} ms, op {tot['op_ms']:.3f} ms, bound "
         f"{tot['bound_ms']:.4f} ms")
+    results["K6"]["max_abs_err"] = max(results["K6"]["max_abs_err"], fwd.pop("err"))
+    results["K6"].setdefault("coco_shapes", {})[f"mask head B={B}"] = fwd
     results["K7"].setdefault("coco_shapes", {})[f"mask head B={B}"] = tot
 
 

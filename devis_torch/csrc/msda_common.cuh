@@ -1,7 +1,8 @@
 // Shared device code of the deformable-attention kernels (ms_deform_attn.cu,
 // ms_deform_attn_rows.cu, ms_deform_attn_proj.cu, ms_deform_attn_taps.cu):
-// the level table, type conversion, warp reductions, the bilinear tap, and
-// the windowed backward block of K5 and K7 (`msda_bwd_block`, below).
+// the level table, type conversion, warp reductions, the bilinear tap, the
+// chunked corner loads of K6 and K8 (`Chunk`, `tap_corners`), and the
+// windowed backward block of K5 and K7 (`msda_bwd_block`, below).
 //
 // Location arithmetic uses explicit round-to-nearest intrinsics so nvcc does
 // not contract it into FMAs: every kernel then computes exactly the f32
@@ -113,6 +114,19 @@ __device__ __forceinline__ float sample_bilinear(const scalar_t* __restrict__ vl
   return acc;
 }
 
+// The level of tap k of a query's L*P taps: a shift where P is a power of
+// two (`pshift` = log2 P, from `point_shift`), else a division.
+__device__ __forceinline__ int tap_level(int k, int P, int pshift) {
+  return pshift >= 0 ? k >> pshift : k / P;
+}
+
+static inline int point_shift(int P) {
+  if (P < 1 || (P & (P - 1)) != 0) return -1;
+  int s = 0;
+  while ((1 << s) < P) ++s;
+  return s;
+}
+
 // `levels` is (L, 2) host ints (h, w).
 static Pyramid make_pyramid(const int* levels, int L) {
   Pyramid p;
@@ -218,6 +232,79 @@ template <> struct Vec16<__nv_bfloat16> {
     return make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
+
+// CW channels of a value row a thread reads and writes at once: 16 bytes
+// (CW = Vec16<scalar_t>::N, one vector access; the row must be 16-byte
+// aligned) or one channel (CW = 1, any alignment).
+template <typename scalar_t, int CW>
+struct Chunk {  // CW == Vec16<scalar_t>::N
+  using raw_t = uint4;
+  static __device__ __forceinline__ raw_t load(const scalar_t* __restrict__ p, bool ok) {
+    return ok ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  static __device__ __forceinline__ void unpack(raw_t r, float* v) {
+    Vec16<scalar_t>::unpack(r, v);
+  }
+  static __device__ __forceinline__ void store(scalar_t* __restrict__ p, const float* v) {
+    *reinterpret_cast<uint4*>(p) = Vec16<scalar_t>::pack(v);
+  }
+};
+template <typename scalar_t>
+struct Chunk<scalar_t, 1> {
+  using raw_t = scalar_t;
+  static __device__ __forceinline__ raw_t load(const scalar_t* __restrict__ p, bool ok) {
+    return ok ? p[0] : from_f<scalar_t>(0.f);
+  }
+  static __device__ __forceinline__ void unpack(raw_t r, float* v) { v[0] = to_f(r); }
+  static __device__ __forceinline__ void store(scalar_t* __restrict__ p, const float* v) {
+    p[0] = from_f<scalar_t>(v[0]);
+  }
+};
+
+// The four corner chunks of one tap and their bilinear weights. `packed`
+// is the tap's corner ((y0 + 1) << 16 | (x0 + 1)), or TAP_DEAD where all
+// four corners lie outside the level; `vl` points at the thread's first
+// channel in row 0 of the tap's level for the head.
+#define TAP_DEAD 0xffffffffu
+template <typename scalar_t, int CW>
+__device__ __forceinline__ void tap_corners(const scalar_t* __restrict__ vl, int h, int w,
+                                            size_t row, unsigned packed, float dx, float dy,
+                                            typename Chunk<scalar_t, CW>::raw_t raw[4],
+                                            float wt[4]) {
+  const bool live = packed != TAP_DEAD;
+  const int x0 = (int)(packed & 0xffffu) - 1, y0 = (int)(packed >> 16) - 1;
+  const bool yin[2] = {live && y0 >= 0, live && y0 + 1 < h};
+  const bool xin[2] = {x0 >= 0, x0 + 1 < w};
+  wt[0] = (1.f - dy) * (1.f - dx);
+  wt[1] = (1.f - dy) * dx;
+  wt[2] = dy * (1.f - dx);
+  wt[3] = dy * dx;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int cy = c >> 1, cx = c & 1;
+    // a corner outside the level is not read (its row index may be -1)
+    raw[c] = Chunk<scalar_t, CW>::load(vl + ((long)(y0 + cy) * w + x0 + cx) * (long)row,
+                                       yin[cy] && xin[cx]);
+  }
+}
+
+// acc += a * (the tap's bilinear sum of its four corner chunks), in f32.
+template <typename scalar_t, int CW>
+__device__ __forceinline__ void tap_accumulate(float* acc, float a,
+                                               const typename Chunk<scalar_t, CW>::raw_t raw[4],
+                                               const float wt[4]) {
+  float tap[CW], vals[CW];
+#pragma unroll
+  for (int v = 0; v < CW; ++v) tap[v] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    Chunk<scalar_t, CW>::unpack(raw[c], vals);
+#pragma unroll
+    for (int v = 0; v < CW; ++v) tap[v] += wt[c] * vals[v];
+  }
+#pragma unroll
+  for (int v = 0; v < CW; ++v) acc[v] += a * tap[v];
+}
 
 // How a block's queries lie: raster runs of `qb` queries (grid_w == 0), or
 // tiles of tile_h x tile_w pixels of a grid_h x grid_w query grid.

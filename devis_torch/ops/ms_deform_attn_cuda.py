@@ -29,7 +29,10 @@ and `plain_calls` CPU dispatches, per op.
     (replaces `_bwd_kernel_rows`): single-frame attention, value
     (B, S, M, D) at any D, loc (B, Q, M, L, P, 2), att (B, Q, M, L, P), and
     its backward. `query_grid` (H, W) says the queries are an H x W pixel
-    grid (the DCN route), which K7 takes in 2-D tiles.
+    grid (the DCN route), which K7 takes in 2-D tiles. K6 takes raster runs
+    of (b, q, m) in the split `rows_plan` gives: each tap's geometry
+    computed once, chunks of channels over the threads, taps over groups of
+    threads where the launch is too small to fill the card.
   * K5 and K7 share one windowed block (`csrc/msda_common.cuh`): per query
     tile and stage (frame slot, level) the corners' value-gradient adds are
     sorted by window row (the box of rows the tile's taps touch, its first
@@ -41,7 +44,8 @@ and `plain_calls` CPU dispatches, per op.
     from the raw projections, the image model's encoder and first decoder
     layer: value (B, S, M, D), references (B, Q, L, 2), offsets
     (B, Q, M*L*P*2), logits (B, Q, M*L*P). Locations = ref + off / (w_l, h_l)
-    and one softmax per (b, q, m) over L*P, both inside the kernel.
+    and one softmax per (b, q, m) over L*P, both inside the kernel: a warp
+    per (b, q, m), its taps over groups of `proj_plan(...).lanes` lanes.
   * K9 `msda_taps_bwd` (replaces `_bwd_kernel`): the backward of the q-major
     op from precomputed taps: idx, wt (B, MG, Q, L, 4P) from `taps`, the
     output gradient (B, Q, MG*D) -> grad_value and grad_wt. MG = M * G heads
@@ -888,17 +892,75 @@ msda_temporal_bwd.launches = 0
 msda_temporal_bwd.plain_calls = 0
 
 
+# K6's launch (csrc/ms_deform_attn_rows.cu, `msda_rows_kernel`): raster
+# runs of units a block, a unit one (b, q, m) and one slice of its channels;
+# the tap geometry of the block's units in shared memory, then `groups` tap
+# groups of `lanes` threads a unit, each thread one chunk of channels
+RowsPlan = collections.namedtuple("RowsPlan",
+                                  "vec lanes groups slices chunks units threads smem")
+
+
+@functools.lru_cache(maxsize=None)
+def rows_plan(head_dim: int, dtype, aligned: bool, n_heads: int, n_levels: int,
+              n_points: int, n_queries: int) -> RowsPlan:
+    """The split of a K6 launch over `n_queries` = B * Q queries of
+    `n_heads` heads, from the kernel's constants (`K6_*`). `vec`: chunks of
+    16 bytes where the value is `aligned` to 16 bytes and D fills whole
+    chunks, else of one channel. Channels in `slices` of `chunks` chunks
+    (one slice up to `K6_MAX_CHUNKS`). `groups` tap groups of `lanes`
+    threads a unit: one group of a thread a chunk (any count) where the
+    launch fills the card (`K6_FILL_THREADS`), else the taps spread over up
+    to 32 / lanes groups of a power of two of lanes (a unit in one warp).
+    `units` a block: the count in 256 or 512 threads that leaves the fewest
+    idle, as far as the units' tap geometry (`smem` bytes) fits `K6_SMEM`
+    (none where a unit is one thread: it computes its taps itself);
+    `threads` a block. Raises where one unit's taps do not fit."""
+    k6 = functools.partial(_build.source_define, "ms_deform_attn_rows")
+    vn = 16 // (torch.finfo(dtype).bits // 8)
+    vec = bool(aligned) and head_dim % vn == 0
+    taps = n_levels * n_points
+    n_chunks = -(-head_dim // (vn if vec else 1))
+    slices = -(-n_chunks // k6("K6_MAX_CHUNKS"))
+    chunks = -(-n_chunks // slices)
+    lanes, groups = chunks, 1
+    if chunks <= 16:
+        pow2 = 1 << (chunks - 1).bit_length()
+        while (2 * groups * pow2 <= 32 and 2 * groups <= taps
+               and n_queries * n_heads * slices * groups * pow2 < k6("K6_FILL_THREADS")):
+            groups *= 2
+        lanes = pow2 if groups > 1 else chunks
+    per_unit = groups * lanes
+    most = k6("K6_MAX_THREADS") if per_unit == 1 else k6("K6_SMEM") // (16 * taps)
+    if most < 1:
+        raise ValueError(f"rows_plan: {taps} taps a query leave no shared memory for one "
+                         f"unit ({k6('K6_SMEM')} bytes)")
+    best = None
+    for size in (256, k6("K6_MAX_THREADS")):
+        units = min(max(1, size // per_unit), most)
+        threads = -(-units * per_unit // 32) * 32
+        idle = (threads - units * per_unit) / threads
+        if best is None or idle < best[0]:
+            best = (idle, units, threads)
+    _, units, threads = best
+    return RowsPlan(vec, lanes, groups, slices, chunks, units, threads,
+                    0 if per_unit == 1 else units * taps * 16)
+
+
 def _launch_rows(value, spatial_shapes, loc, att):
     L = len(spatial_shapes)
     if L > _MAX_LEVELS:
         raise ValueError(f"msda_rows: at most {_MAX_LEVELS} levels")
     B, Q, S, M, D, P = _check_rows("msda_rows", value, spatial_shapes, loc, att, L)
+    if loc.data_ptr() % 8:          # the kernel reads a tap's (x, y) as one float2
+        loc = loc.clone()
+    plan = rows_plan(D, value.dtype, value.data_ptr() % 16 == 0, M, L, P, B * Q)
     out = torch.empty((B, Q, M * D), dtype=value.dtype, device=value.device)
-    fn = _function(f"msda_rows_{_DTYPES[value.dtype]}", 4, 6)
+    fn = _function(f"msda_rows_{_DTYPES[value.dtype]}", 4, 13)
     with torch.cuda.device(value.device):
         _build.check(fn(value.data_ptr(), loc.data_ptr(), att.data_ptr(),
-                        out.data_ptr(), B, Q, S, M, D, P, _levels(spatial_shapes),
-                        L, _stream(value)), "msda_rows")
+                        out.data_ptr(), B, Q, S, M, D, P, int(plan.vec), plan.lanes,
+                        plan.groups, plan.slices, plan.chunks, plan.units, plan.threads,
+                        _levels(spatial_shapes), L, _stream(value)), "msda_rows")
     msda_rows.launches += 1
     return out
 
@@ -1023,6 +1085,27 @@ def msda_proj_plain(value, spatial_shapes, ref, off, logit):
     return ms_deform_attn(value, spatial_shapes, loc, att)
 
 
+# K8's launch (csrc/ms_deform_attn_proj.cu, `msda_proj_kernel`): one warp
+# per (b, q, m), 32 / lanes taps at a time, each thread 16 bytes of channels
+ProjPlan = collections.namedtuple("ProjPlan", "vec lanes")
+
+
+@functools.lru_cache(maxsize=None)
+def proj_plan(head_dim: int, dtype, aligned: bool) -> ProjPlan:
+    """(vec, lanes) of a K8 launch: `vec`, chunks of 16 bytes where the
+    value is `aligned` to 16 bytes and D fills whole chunks, else of one
+    channel; `lanes` a tap, the least power of two whose chunks hold
+    `head_dim` channels (4 in bf16 and 8 in f32 at D 32 with 16 bytes)."""
+    vn = 16 // (torch.finfo(dtype).bits // 8)
+    vec = bool(aligned) and head_dim % vn == 0
+    lanes = 1
+    while lanes * (vn if vec else 1) < head_dim:
+        lanes *= 2
+    if lanes > 32:
+        raise ValueError(f"proj_plan: head dim {head_dim} does not fit one warp")
+    return ProjPlan(vec, lanes)
+
+
 def _launch_proj(value, spatial_shapes, ref, off, logit):
     B, S, M, D = value.shape
     _, Q, L, _ = ref.shape
@@ -1037,12 +1120,14 @@ def _launch_proj(value, spatial_shapes, ref, off, logit):
             or tuple(off.shape) != (B, Q, M * L * P * 2)
             or tuple(logit.shape) != (B, Q, M * L * P)):
         raise ValueError("msda_proj: inconsistent shapes")
+    plan = proj_plan(D, value.dtype, value.data_ptr() % 16 == 0)
     out = torch.empty((B, Q, M * D), dtype=value.dtype, device=value.device)
-    fn = _function(f"msda_proj_{_DTYPES[value.dtype]}", 5, 6)
+    fn = _function(f"msda_proj_{_DTYPES[value.dtype]}", 5, 8)
     with torch.cuda.device(value.device):
         _build.check(fn(value.data_ptr(), ref.data_ptr(), off.data_ptr(),
-                        logit.data_ptr(), out.data_ptr(), B, Q, S, M, D, P,
-                        _levels(spatial_shapes), L, _stream(value)), "msda_proj")
+                        logit.data_ptr(), out.data_ptr(), B, Q, S, M, D, P, plan.lanes,
+                        int(plan.vec), _levels(spatial_shapes), L, _stream(value)),
+                     "msda_proj")
     msda_proj.launches += 1
     return out
 

@@ -1,26 +1,40 @@
 #!/usr/bin/env python3
-"""Device times of K2 (`msda_tap_window`) and K3 (`msda_temporal`) in
-several checkouts of the port, on one card and on the same inputs.
+"""Device times of K2 (`msda_tap_window`), K3 (`msda_temporal`), K6
+(`msda_rows`) and K8 (`msda_proj`) in several checkouts of the port, on one
+card and on the same inputs.
 
     python3 kernel_ab.py DIR [DIR ...]
 
 Each DIR is the root of a checkout that holds `devis_torch/`: `.` for this
 one, or an older commit unpacked with `git archive` into a git-ignored
-directory. The inputs are made once, in this process, with this checkout
-(`chip_smoke.py`'s model and phases, seed 0, bf16):
+directory. Only the kernels' wrappers come from DIR; the inputs and the
+timing code are this checkout's (`chip_smoke.py` beside this file), bf16:
 
 * K2 on clip encoder layer 0's inputs from the main path (`path`), at the
   encoder's raster references and at random ones (`chip_smoke.encoder_inputs`),
-  and at F = 1 on the COCO encoder's pyramid (raster references, one image);
+  and at F = 1 on the COCO encoder's pyramid (`f1`: its references, the
+  reference init's offset biases plus N(0, 1) pixels, one image);
 * K3 on decoder layer 0's inputs from the main path (`path`) and at Q 10
-  (random locations, as `chip_smoke.msda_phases` makes them).
+  (random locations, as `chip_smoke.msda_phases` makes them);
+* K8 at the image encoder (Q = S = 23 205; 1 image, and the train step's
+  2) and at decoder layer 0 (Q 300), random references and offsets as
+  `chip_smoke.coco_kernel_phases` makes them;
+* K6 at the clip mask head's six layers (B 60, `chip_smoke.mask_head_rows`)
+  and the image mask head's (50 masks, `chip_smoke.dcn_route_loc`), called
+  as the DCN route calls it (with its query grid), and at the image decoder
+  (Q 300, 1 and 2 images, `chip_smoke.image_decoder_rows`).
 
-Then each DIR is timed in a process of its own, in the order given (parent,
-change, change, parent compares two commits): the kernel's device time by
-`chip_smoke.device_ms` (torch.profiler) and the op's time a call by CUDA
-events. K2 must equal its plain version and K3 agree with its own to 2e-2
-of max|plain| in each DIR. Prints one JSON line a DIR, the card's name and
-power limit, and last one JSON object of every run. Needs one CUDA card.
+K2 and K3's inputs are made once, in this process (they come from the clip
+model's path), and saved; K6 and K8's are made in each DIR's process from
+seeded generators on the card, the same in every process. Then each DIR is
+timed in a process of its own, in the order given (parent, change, change,
+parent compares two commits): each kernel's device time by
+`chip_smoke.device_ms` (torch.profiler) and its op's time a call by CUDA
+events. K2 must equal its plain version, and K3, K6 and K8 agree with
+theirs to 2e-2 of max|plain| (K6 at the image mask head on its first
+`chip_smoke.COCO_MASK_CMP_B` masks where the f32 copy of U passes 1.5 GB),
+in each DIR. Prints one JSON line a DIR, the card's name and power limit,
+and last one JSON object of every run. Needs one CUDA card.
 """
 import importlib.util
 import json
@@ -85,7 +99,8 @@ def make_inputs(torch, cs, path):
 
 
 def time_checkout(root, path):
-    """Times K2 and K3 of the checkout at `root` on the inputs at `path`."""
+    """Times K2, K3, K6 and K8 of the checkout at `root`, K2 and K3 on the
+    inputs at `path`."""
     import torch
     cs = _chip_smoke()
     sys.path.insert(0, os.path.abspath(root))
@@ -111,7 +126,59 @@ def time_checkout(root, path):
                              2e-2)
             out["K3"][name] = dict(ms=cs.device_ms(op, "msda_temporal_kernel"),
                                    op_ms=cs.cuda_time(op, 50), max_abs_err=err)
+    out.update(rows_proj_times(torch, cs, K, dev))
     print(json.dumps(out), flush=True)
+
+
+def rows_proj_times(torch, cs, K, dev):
+    """K8 and K6 of a checkout (its wrappers `K`) on inputs made here from
+    seeded generators (see the module docstring)."""
+    from devis_torch.ops.ms_deform_attn import ms_deform_attn
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 10)
+    bf = torch.bfloat16
+    res = {"K6": {}, "K8": {}}
+
+    def timed(kernel, name, op, got, want, kernel_name, iters=20):
+        err = cs.compare(f"{kernel} ({name})", got(), want(), 2e-2)
+        res[kernel][name] = dict(ms=cs.device_ms(op, kernel_name),
+                                 op_ms=cs.cuda_time(op, iters), max_abs_err=err)
+
+    with torch.inference_mode():
+        S = sum(h * w for h, w in cs.COCO_SHAPES)
+        for name, B, Q in (("encoder", 1, S), ("encoder B=2", 2, S),
+                           ("decoder layer 0", 1, cs.COCO_NQ)):
+            value, ref, off, logit = cs.k8_inputs(torch, dev, gen, B, Q)
+            a = (value.to(bf), cs.COCO_SHAPES, ref, off.to(bf), logit.to(bf))
+            op = lambda: K.msda_proj(*a)  # noqa: E731
+            timed("K8", name, op, op, lambda: K.msda_proj_plain(*a), "msda_proj_kernel")
+            del value, ref, off, logit, a
+        for B in (1, 2):
+            value, loc, att = cs.image_decoder_rows(torch, dev, gen, B)
+            v16 = value.to(bf)
+            op = lambda: K.msda_rows(v16, cs.COCO_SHAPES, loc, att)  # noqa: E731
+            timed("K6", f"image decoder B={B}", op, op,
+                  lambda: ms_deform_attn(v16, cs.COCO_SHAPES, loc, att), "msda_rows_kernel")
+            del value, loc, att, v16
+        for where, B, layers in (("clip", cs.DCN_B, cs.DCN_LAYERS),
+                                 ("image", cs.COCO_SLOTS * cs.COCO_BATCH, cs.COCO_DCN_LAYERS)):
+            for lname, _, cout, h, w in layers:
+                shapes = ((h, w),) * 9
+                if where == "clip":
+                    value, loc, att, _ = cs.mask_head_rows(torch, dev, gen, B, cout, h, w)
+                else:
+                    value = torch.randn(B, 9 * h * w, 1, cout, generator=gen, device=dev)
+                    loc = cs.dcn_route_loc(torch, dev, gen, B, h, w)
+                    att = torch.rand(B, h * w, 1, 9, 1, generator=gen, device=dev) * 2.0
+                v16 = value.to(bf)
+                del value
+                nb = B if B * 9 * h * w * cout * 4 <= 1.5e9 else cs.COCO_MASK_CMP_B
+                op = lambda: K.msda_rows(v16, shapes, loc, att, (h, w))  # noqa: E731
+                timed("K6", f"{where} {lname}", op, lambda: op()[:nb],
+                      lambda: ms_deform_attn(v16[:nb], shapes, loc[:nb], att[:nb]),
+                      "msda_rows_kernel", iters=10)
+                del v16, loc, att
+                torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:

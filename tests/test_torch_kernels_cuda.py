@@ -314,16 +314,64 @@ def test_temporal_bwd_kernel(dev, dtype, rule, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,D,Q", [(1, 1, 70), (1, 5, 33), (2, 32, 9), (1, 72, 40)])
-def test_rows_kernels(dev, dtype, M, D, Q):
+@pytest.mark.parametrize("M,D,Q,grid,case", [
+    (1, 1, 70, None, "random"), (1, 5, 33, None, "random"), (2, 32, 9, None, "random"),
+    (1, 72, 40, None, "random"), (1, 1, 70, (7, 10), "random"), (1, 16, 40, (5, 8), "random"),
+    (1, 264, 35, (5, 7), "random"), (1, 264, 40, None, "random"), (8, 32, 37, None, "random"),
+    (1, 16, 48, (6, 8), "lines"), (1, 1, 48, (6, 8), "lines"), (1, 264, 48, None, "lines"),
+    (8, 32, 37, None, "lines"), (1, 16, 48, (6, 8), "unaligned"),
+    (8, 32, 48, None, "unaligned"), (1, 264, 48, None, "unaligned")])
+def test_rows_kernels(dev, dtype, M, D, Q, grid, case):
+    """K6 in both regimes (a thread a chunk; taps spread over a warp, M 8,
+    D 32), with and without the query grid the DCN route passes (K7's 2-D
+    tiles), D 264 (33 or 66 chunks a unit); "lines": taps exactly on the
+    pixel lines x = -1 and y = -1 (their corners inside the level weigh 0)
+    and off the map; "unaligned": value and loc views off 16 and 8 bytes
+    (element-by-element chunks; the wrapper copies loc). K7 on the same
+    inputs."""
     value, loc, att, grad = _rows_inputs(dev, dtype, 2, Q, M, D, 2, L)
-    _close(K.msda_rows(value, SHAPES, loc, att),
+    if case == "lines":
+        for lvl, (h, w) in enumerate(SHAPES):
+            loc[:, 0::4, :, lvl, :, 0] = -0.5 / w          # on x = -1
+            loc[:, 1::4, :, lvl, :, 1] = -0.5 / h          # on y = -1
+            loc[:, 2::4, :, lvl, :, :] = 1.7               # off the map
+    v_k, loc_k = value, loc
+    if case == "unaligned":
+        v_k, loc_k = _off_16_bytes(value), _off_16_bytes(loc)
+        assert v_k.data_ptr() % 16 and loc_k.data_ptr() % 8
+        assert not K.rows_plan(D, dtype, False, M, L, 2, 2 * Q).vec
+    _close(K.msda_rows(v_k, SHAPES, loc_k, att, grid),
            ms_deform_attn(value, SHAPES, loc, att), dtype)
-    got = K.msda_rows_bwd(value, SHAPES, loc, att, grad)
+    got = K.msda_rows_bwd(v_k, SHAPES, loc_k, att, grad, grid)
     want = K.msda_rows_bwd_plain(value, SHAPES, loc, att, grad)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_and_proj_launchers_refuse_misaligned_vector_access(dev, dtype):
+    """The C launchers return an error, and do not launch, where a plan of
+    16-byte access meets a value off 16 bytes."""
+    value, loc, att, _ = _rows_inputs(dev, dtype, 2, 48, 1, 16, 1, L)
+    shifted = _off_16_bytes(value)
+    plan = K.rows_plan(16, dtype, True, 1, L, 1, 96)
+    assert plan.vec
+    out = torch.empty((2, 48, 16), dtype=dtype, device=dev)
+    fn = K._function(f"msda_rows_{K._DTYPES[dtype]}", 4, 13)
+    status = fn(shifted.data_ptr(), loc.data_ptr(), att.data_ptr(), out.data_ptr(), 2, 48, S,
+                1, 16, 1, 1, plan.lanes, plan.groups, plan.slices, plan.chunks, plan.units,
+                plan.threads, K._levels(SHAPES), L, K._stream(value))
+    assert status != 0
+    a = _proj_single(dev, Q=20, M=8, D=32, P=4, dtype=dtype)
+    out = torch.empty((2, 20, 8 * 32), dtype=dtype, device=dev)
+    lanes = K.proj_plan(32, dtype, True).lanes
+    fn = K._function(f"msda_proj_{K._DTYPES[dtype]}", 5, 8)
+    status = fn(_off_16_bytes(a[0]).data_ptr(), a[1].data_ptr(), a[2].data_ptr(),
+                a[3].data_ptr(), out.data_ptr(), 2, 20, S, 8, 32, 4, lanes, 1,
+                K._levels(SHAPES), L, K._stream(out))
+    assert status != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("kernel", ["temporal", "rows"])
@@ -535,11 +583,25 @@ def _proj_single(dev, B=2, Q=150, M=2, D=16, P=2, dtype=torch.float32, seed=5):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,D,P,Q", [(2, 16, 2, 150), (8, 32, 4, 37), (1, 5, 3, 9)])
-def test_proj_kernel(dev, dtype, M, D, P, Q):
+@pytest.mark.parametrize("M,D,P,Q,case", [
+    (2, 16, 2, 150, "random"), (8, 32, 4, 37, "random"), (1, 5, 3, 9, "random"),
+    (8, 32, 4, 301, "random"), (8, 32, 4, 301, "lines"), (8, 32, 4, 45, "unaligned"),
+    (3, 8, 16, 7, "random")])
+def test_proj_kernel(dev, dtype, M, D, P, Q, case):
+    """K8 against its plain version: the image model's heads (M 8, D 32,
+    P 4) at a Q no block size divides, the scalar path (D 5; a value off
+    16 bytes), 48 taps a head (two runs of 32), taps exactly on x = -1 and
+    y = -1 and off the map."""
     a = _proj_single(dev, Q=Q, M=M, D=D, P=P, dtype=dtype)
+    if case == "lines":
+        ref, off = a[1], a[2].float().reshape(2, Q, M, L, P, 2)
+        ref[:, 0::3] = 0.0                      # pixel -0.5: offset -0.5 puts a tap on -1
+        off[:, 0::3] = -0.5
+        off[:, 1::3] = 40.0                     # off the map
+        a = (a[0], ref, off.reshape(2, Q, -1).to(dtype), a[3])
+    value = _off_16_bytes(a[0]) if case == "unaligned" else a[0]
     before = K.msda_proj.launches
-    got = K.msda_proj(a[0], SHAPES, *a[1:])
+    got = K.msda_proj(value, SHAPES, *a[1:])
     assert K.msda_proj.launches == before + 1
     _close(got, K.msda_proj_plain(a[0], SHAPES, *a[1:]), dtype)
 
