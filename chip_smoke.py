@@ -58,7 +58,10 @@
    6+6 layers, 300 queries, top 50; one 800x1216 image on its 832x1344
    canvas). K8 (projection-fused attention) at the encoder's shape (1 and 2
    images) and at decoder layer 0's, by device time, with the corner
-   gathers' bytes through L2; K9 (backward from taps) at the decoder's shape, K10
+   gathers' bytes through L2; K9 (backward from taps) at the decoder's shape
+   by device time, its op's CUDA-event time and the op's breakdown (the
+   zero, the cast, the op, the chain rule through `taps`, the whole backward:
+   device ms, launches and host-clock ms a call), K10
    (deformable conv from given fields) and K4 at the six mask-head layers at
    batch 50 (each beside its route: `deform_conv2d_rows`,
    `modulated_deform_conv2d_rows`), K6 and K7 at the decoder's shape (1 and 2 images) and K7 at the
@@ -83,7 +86,7 @@
    path; run after step 5's kernel phases, before the models): K12a `tent_band` and K12b `corner_gather` at the JAX script's shape
    (C 16, Wp 384, N 32 Wp, ncand 4, reps 9) and at C 512, N 96 Wp, each
    against its plain version and K12a against K12b (f32, 1e-5 of
-   max|plain|); K12c `mma_probe` at `benchmarks/mxu_probe.py:79-86`'s eight
+   max|plain|), timed by device time with the op's CUDA-event time; K12c `mma_probe` at `benchmarks/mxu_probe.py:79-86`'s eight
    (n_dots, K, N), grid 912, on seeded bf16 operands (2e-2), with its SM
    cycles a dot and TFLOP/s, beside n_dots cuBLAS products of the same MACs;
    96 dots must take longer than 48, and the compiled library must hold
@@ -98,9 +101,11 @@
    / (wait + stitch), as `inference_vis` computes it), the wait and stitch
    seconds, the host seconds of the full-resolution resize and RLE and of
    each pipeline stage, and profiles one tracked video.
-8. Prints the `kernels` JSON line (K1-K10, K12a-K12c; K5 and K7 with
-   `op_ms`, `global_adds`, `global_only_ms` and, per shape, window
-   statistics; K6 and K8 with `op_ms` and their times per shape), a
+8. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
+   `redesigned`: whether its first port has been redesigned for Hopper; K5
+   and K7 with `op_ms`, `global_adds`, `global_only_ms` and, per shape,
+   window statistics; K6 and K8 with `op_ms` and their times per shape; K9
+   with `op_ms` and its op's `breakdown`; K12a and K12b with `op_ms`), a
    clip-latency line, a
    train-step line with peak memory, the image model's two lines, the e2e
    line, the card line, and last {"ok": true, "device": {...}}.
@@ -149,6 +154,8 @@ BAND_SHAPES = (("script", 16, 32), ("large", 512, 96))
 MMA_SHAPES = ((48, 128, 256), (24, 256, 256), (12, 512, 256), (2, 3072, 256),
               (48, 128, 128), (96, 128, 256), (48, 64, 256), (48, 32, 256))
 H100_SMS = 132
+# kernels whose first port has been redesigned for Hopper (PERF.md, section 6)
+REDESIGNED = frozenset(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K12a"))
 # the e2e corpus (bench.py:126-130): 4 videos of 36 frames, 20 instances each
 E2E_VIDEOS, E2E_FRAMES, E2E_SIZES, E2E_INSTANCES = 4, 36, ((360, 640), (480, 320)), 20
 
@@ -215,6 +222,38 @@ def device_ms(fn, kernel: str, iters: int = 20, tries: int = 3) -> float:
         counts.append(n)
         log(f"    {kernel}: {n} launches of {iters} in the profiler's window; taken again")
     raise AssertionError(f"{kernel}: {counts} launches profiled of {iters} in {tries} windows")
+
+
+def device_profile(fn, iters: int = 20):
+    """(device ms, kernel launches, wall ms) a call of `fn` over `iters`
+    calls: the device time of every kernel and memset it launched, from
+    torch.profiler (a warm-up window, then the kept one, as `device_ms`),
+    and host-clock time a call of an untraced run ending in a
+    synchronisation, which is the host's time where it exceeds the
+    device's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    kept = []
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kept.extend(p.key_averages())) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    total, n = 0.0, 0
+    for e in kept:
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            total += e.self_cuda_time_total if us is None else us
+            n += e.count
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return total / 1e3 / iters, n / iters, (time.perf_counter() - t0) * 1e3 / iters
 
 
 def compare(name, got, want, rel):
@@ -940,14 +979,15 @@ def probe_phase(torch, dev, gen, results):
                 ("K12a", probes.tent_band, probes.tent_band_plain, err_a,
                  2 * C * N * BAND_REPS * BAND_NCAND ** 2),
                 ("K12b", probes.corner_gather, probes.corner_gather_plain, err_b, flops)):
-            ms = cuda_time(lambda: op(*args), 20)
+            ms = device_ms(lambda: op(*args), op.__name__ + "_kernel")
+            op_ms = cuda_time(lambda: op(*args), 20)
             plain_ms = cuda_time(lambda: plain(*args), 3, 1)
             bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-            log(f"    {key} {op.__name__}: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
-                f"the method issues {method_flops / 1e9:.2f} GFLOP, "
+            log(f"    {key} {op.__name__}: {ms:.4f} ms by device time, op {op_ms:.4f} ms, "
+                f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.2f} GFLOP; the method issues {method_flops / 1e9:.2f} GFLOP, "
                 f"{method_flops / F32_FLOPS * 1e3:.4f} ms at the f32 peak)")
-            entry = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bytes=nbytes,
+            entry = dict(ms=ms, op_ms=op_ms, plain_ms=plain_ms, max_abs_err=err, bytes=nbytes,
                          flops=flops, method_flops=method_flops, C=C, N=N, bound_ms=bound)
             if label == "script":
                 results[key + "_script"] = entry
@@ -1620,6 +1660,34 @@ def image_decoder_rows(torch, dev, gen, B):
     return value, loc, att
 
 
+def taps_bwd_breakdown(torch, K, v16, loc, att, g16):
+    """K9's op and the backward around it at the image decoder's shape, as
+    `device_profile` gives them: the zero of the f32 value gradient, the
+    cast of it to bf16, the op (zero, K9, cast), the chain rule through
+    `taps` (the taps rebuilt under autograd, their weights' gradient taken
+    to loc and att), and the whole backward of `msda_taps` (the op and the
+    chain)."""
+    shape = v16.shape
+    gv = torch.zeros(shape, dtype=torch.float32, device=v16.device)
+    idx, wt = K.taps(COCO_SHAPES, loc, att)
+    g_wt = K.msda_taps_bwd(v16, COCO_SHAPES, idx, wt, g16)[1]
+
+    def chain():
+        with torch.enable_grad():
+            lc, at = loc.detach().requires_grad_(), att.detach().requires_grad_()
+            return torch.autograd.grad(K.taps(COCO_SHAPES, lc, at)[1], (lc, at), g_wt)
+
+    with torch.enable_grad():
+        leaves = tuple(t.detach().requires_grad_() for t in (v16, loc, att))
+        out = K.msda_taps(leaves[0], COCO_SHAPES, *leaves[1:])
+    parts = {"zero": lambda: torch.zeros(shape, dtype=torch.float32, device=v16.device),
+             "cast": lambda: gv.to(torch.bfloat16),
+             "op": lambda: K.msda_taps_bwd(v16, COCO_SHAPES, idx, wt, g16),
+             "chain through taps": chain,
+             "backward": lambda: torch.autograd.grad(out, leaves, g16, retain_graph=True)}
+    return {part: device_profile(fn) for part, fn in parts.items()}
+
+
 def coco_kernel_phases(torch, dev, gen, results):
     """K8, K9 and K10, and K6, K7 and K4 again, at the image model's shapes
     against their plain versions."""
@@ -1696,18 +1764,29 @@ def coco_kernel_phases(torch, dev, gen, results):
             if tag == "bf16" and part == "value":
                 err = e
     v16, g16 = bf(value), bf(grad)
-    ms = cuda_time(lambda: K.msda_taps_bwd(v16, COCO_SHAPES, idx, wt, g16), 50)
+    op = lambda: K.msda_taps_bwd(v16, COCO_SHAPES, idx, wt, g16)  # noqa: E731
+    ms = device_ms(op, "msda_taps_bwd_kernel")
+    op_ms = cuda_time(op, 50)
     plain_ms = cuda_time(lambda: K.msda_taps_bwd_plain(v16, COCO_SHAPES, idx, wt, g16), 3, 1)
     live = int((wt != 0).sum())
     rows = corner_stats(loc, COCO_SHAPES)[2]
+    nbytes = rows * D * 2 + idx.numel() * 4 + 2 * wt.numel() * 4 + g16.numel() * 2 \
+        + v16.numel() * 2
+    flops = idx.numel() * 2 * D + live * 2 * D
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    breakdown = taps_bwd_breakdown(torch, K, v16, loc, att, g16)
+    log(f"    kernel {ms:.5f} ms by device time, op {op_ms:.4f} ms, plain {plain_ms:.3f} ms; "
+        f"bound {bound:.5f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
+        f"{live} live entries, grid {K.taps_plan(D, torch.bfloat16, True)}")
+    for part, (dms, n, wall) in breakdown.items():
+        log(f"    {part}: device {dms:.5f} ms in {n:.1f} launches, wall {wall:.4f} ms a call")
     results["K9"] = dict(
         name="msda_taps_bwd", route="cuda", source="devis_torch/csrc/ms_deform_attn_taps.cu",
         replaces="devis_tpu/ops/ms_deform_attn_pallas.py:443", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms,
-        bytes=rows * D * 2 + idx.numel() * 4 + 2 * wt.numel() * 4 + g16.numel() * 2
-        + v16.numel() * 2,
-        flops=idx.numel() * 2 * D + live * 2 * D, flop_rate=F32_FLOPS, library_ms=None,
-        atomic_bytes=live * D * 4)
+        ms=ms, op_ms=op_ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
+        flop_rate=F32_FLOPS, library_ms=None, atomic_bytes=live * D * 4,
+        breakdown={part: dict(device_ms=dms, launches=n, wall_ms=wall)
+                   for part, (dms, n, wall) in breakdown.items()})
     del idx, wt, v16, g16
 
     # K6 and K7 where the image model launches them: K6 in decoder layers 1-5
@@ -2305,7 +2384,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "redesigned": key in REDESIGNED,
             "train_launches": train_launches.get(r["name"], 0),
             "coco_image_launches": coco_launches.get(r["name"], 0),
             "coco_train_launches": coco_train_launches.get(r["name"], 0),
@@ -2315,7 +2394,7 @@ def main() -> int:
                                  "k2_ms", "windows", "lab", "random_refs", "path_inputs",
                                  "script_shape", "shapes", "hmma_in_sass", "max_sm_clock_mhz",
                                  "method_flops", "grid", "raster_ms", "random_ms",
-                                 "coco_f1")
+                                 "coco_f1", "breakdown")
                if k in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"clip_ms": clip_ms, "fps": STRIDE / clip_ms * 1e3, "card": card}))

@@ -1243,6 +1243,102 @@ def msda_taps_bwd_plain(value, spatial_shapes, idx, wt, grad_out):
     return grad_v.to(value.dtype).contiguous(), torch.stack(grad_wt, 3)
 
 
+# K9's launch (csrc/ms_deform_attn_taps.cu, `msda_taps_bwd_kernel`): a warp
+# a (b, mg, q), its entries over 32 / lanes groups of `lanes` lanes, each
+# lane `per` chunks of `cw` channels (16 bytes where `vec`, else one)
+TapsPlan = collections.namedtuple("TapsPlan", "vec cw chunks lanes per")
+
+
+@functools.lru_cache(maxsize=None)
+def taps_plan(head_dim: int, dtype, aligned: bool) -> TapsPlan:
+    """The split of a K9 entry's `head_dim` channels over a lane group:
+    chunks of 16 bytes where the value, g and grad_value are `aligned` to
+    16 bytes and D fills whole chunks, else of one channel; `per` chunks a
+    lane (1, 2 or `K9_MAX_PER`: the fewest that put every chunk in one
+    warp), `lanes` the least power of two with lanes * per >= chunks."""
+    vn = 16 // (torch.finfo(dtype).bits // 8)
+    vec = bool(aligned) and head_dim % vn == 0
+    cw = vn if vec else 1
+    chunks = -(-head_dim // cw)
+    per = 1
+    while per * 32 < chunks:
+        per *= 2
+    if per > _build.source_define("ms_deform_attn_taps", "K9_MAX_PER"):
+        raise ValueError(f"taps_plan: head dim {head_dim} needs {chunks} chunks, more "
+                         f"than a warp holds")
+    lanes = 1
+    while lanes * per < chunks:
+        lanes *= 2
+    return TapsPlan(vec, cw, chunks, lanes, per)
+
+
+def taps_lanes(plan: TapsPlan, n_entries: int, head_dim: int, flush: bool = False):
+    """K9's work split inside one warp, in the kernel's order: yields
+    (entry, group, lane of the group, channels) for every chunk a lane
+    loads (or, with `flush`, every piece of the f32 row it adds to),
+    `channels` a range of the head's channels. Entries come in runs of 32;
+    within a run group `grp` takes entries grp, grp + 32 / lanes, ...
+    The flush splits
+    chunks wider than 4 channels (bf16's 8) into pieces of 4, piece p to
+    lane p % lanes."""
+    width, per = plan.cw, plan.per
+    if flush and plan.cw > 4:
+        width, per = 4, plan.per * plan.cw // 4
+    tpw = 32 // plan.lanes
+    for base in range(0, n_entries, 32):
+        cnt = min(32, n_entries - base)
+        for j in range(cnt):
+            for sub in range(plan.lanes):
+                for k in range(per):
+                    c0 = (sub + k * plan.lanes) * width
+                    if c0 < head_dim:
+                        yield base + j, j % tpw, sub, range(c0, min(c0 + width, head_dim))
+
+
+def msda_taps_bwd_mirror(value, spatial_shapes, idx, wt, grad_out, plan=None):
+    """K9's index arithmetic on the CPU: each warp's item (b, mg, q) decoded
+    as the kernel decodes it, each entry resolved to a value row (or
+    dropped), the lanes' chunks of `taps_lanes` summed per group for
+    grad_wt, its flush pieces added onto grad_value. Returns what
+    `msda_taps_bwd_plain` returns, in f32 arithmetic."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    B, S, M, D = value.shape
+    _, MG, Q, L, K4 = idx.shape
+    G = MG // M
+    plan = plan or taps_plan(D, value.dtype, True)
+    items = torch.arange(B * MG * Q)
+    q, mg, b = items % Q, (items // Q) % MG, items // Q // MG
+    m = mg // G
+    n = L * K4
+    ix = idx.reshape(-1, n).long()
+    w = wt.reshape(-1, n).float()
+    g = grad_out.float().reshape(B, Q, MG, D)[b, q, mg]                # (items, D)
+    v = value.float()
+    grad_v = torch.zeros((B, S, M, D), dtype=torch.float32)
+    starts = level_start_index(spatial_shapes)
+    sizes = [h * w_ for h, w_ in spatial_shapes]
+    dots = torch.zeros((B * MG * Q, n, plan.lanes), dtype=torch.float32)
+
+    def row(e):
+        i = ix[:, e]
+        live = (i >= 0) & (i < sizes[e // K4])
+        return live, torch.where(live, starts[e // K4] + i, torch.zeros_like(i))
+
+    for e, _grp, sub, chans in taps_lanes(plan, n, D):
+        live, r = row(e)
+        cs = torch.tensor(list(chans))
+        vals = v[b[:, None], r[:, None], m[:, None], cs] * live[:, None]
+        dots[:, e, sub] += (vals * g[:, cs]).sum(-1)
+    for e, _grp, _sub, chans in taps_lanes(plan, n, D, flush=True):
+        live, r = row(e)
+        cs = torch.tensor(list(chans))
+        add = live & (w[:, e] != 0)
+        grad_v.index_put_((b[add][:, None], r[add][:, None], m[add][:, None], cs),
+                          w[add, e][:, None] * g[add][:, cs], accumulate=True)
+    grad_wt = dots.sum(-1).reshape(idx.shape)
+    return grad_v.to(value.dtype), grad_wt
+
+
 def msda_taps_bwd(value, spatial_shapes, idx, wt, grad_out):
     """K9 (see module docstring). Returns (grad_value in the value's dtype,
     grad_wt f32)."""
@@ -1266,12 +1362,14 @@ def msda_taps_bwd(value, spatial_shapes, idx, wt, grad_out):
         raise ValueError("msda_taps_bwd: inconsistent shapes")
     g_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
     g_wt = torch.empty_like(wt)
-    fn = _function(f"msda_taps_bwd_{_DTYPES[value.dtype]}", 6, 7)
+    plan = taps_plan(D, value.dtype, all(t.data_ptr() % 16 == 0
+                                         for t in (value, grad_out, g_value)))
+    fn = _function(f"msda_taps_bwd_{_DTYPES[value.dtype]}", 6, 10)
     with torch.cuda.device(value.device):
         _build.check(fn(value.data_ptr(), idx.data_ptr(), wt.data_ptr(),
                         grad_out.data_ptr(), g_value.data_ptr(), g_wt.data_ptr(),
-                        B, Q, S, M, MG // M, D, K4, _levels(spatial_shapes), L,
-                        _stream(value)), "msda_taps_bwd")
+                        B, Q, S, M, MG // M, D, K4, plan.lanes, plan.per, int(plan.vec),
+                        _levels(spatial_shapes), L, _stream(value)), "msda_taps_bwd")
     msda_taps_bwd.launches += 1
     return g_value.to(value.dtype), g_wt
 

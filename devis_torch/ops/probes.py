@@ -18,7 +18,9 @@ raises; `launches` and `plain_calls` count the two.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -76,6 +78,84 @@ def tent_band_plain(u, dy, dx, ncand: int, Wp: int, reps: int) -> torch.Tensor:
                 start = lo + l + j * Wp
                 acc = acc + (wyj * wxs[l]) * u[:, start:start + N]
     return acc
+
+
+TentTile = collections.namedtuple("TentTile", "rn cc tx ty tn tc reads pitch")
+
+
+def tent_tile(ncand: int, vec: bool) -> TentTile:
+    """K12a's tile from `csrc/probes.cu`'s `TENT_*` defines: `rn`
+    consecutive n and `cc` channels a thread, `tx` x `ty` threads a block
+    (`tn` n by `tc` channels); `reads` floats a thread reads of a staged
+    band row (whole float4s holding its rn + ncand - 1 values, which start
+    up to 3 columns in where rows are staged from a float4 boundary,
+    `vec`) and `pitch` floats a staged row (where the last thread's reads
+    end)."""
+    define = functools.partial(_build.source_define, SOURCE)
+    rn, cc, tx, ty = (define(f"TENT_{k}") for k in ("RN", "CC", "TX", "TY"))
+    reads = -(-(rn + ncand - 1 + (3 if vec else 0)) // 4) * 4
+    return TentTile(rn, cc, tx, ty, tx * rn, ty * cc, reads, (tx - 1) * rn + reads)
+
+
+def tent_band_tiled(u, dy, dx, ncand: int, Wp: int, reps: int, vec=None):
+    """K12a's index arithmetic on the CPU, in the kernel's order: each
+    block's band row j of its channels staged as the kernel stages it (from
+    the float4 at or below the row's first column where `vec`, which
+    defaults to the kernel's choice for a 16-byte aligned u: rows of whole
+    float4s; zero past the array; staged columns outside the block's band
+    NaN, which no multiply-add may read), each thread's reads at its
+    offsets and its segment picked from them, per rep each n's ncand
+    weights of row j, the multiply-adds, and the stores. Returns (out (C,
+    N), how often each output was stored)."""
+    C, N = _band_shapes("tent_band", u, dy, dx, ncand, Wp)
+    NW = u.shape[1]
+    vec = NW % 4 == 0 if vec is None else vec
+    t = tent_tile(ncand, vec)
+    lo = (ncand - 1) // 2
+    W = t.tn + ncand - 1
+    span = t.rn + ncand - 1
+    gx, gy = -(-N // t.tn), -(-C // t.tc)
+    tx = torch.arange(t.tx)
+    # every thread's n (gx, tx, rn) and channels (gy, ty, cc)
+    n = (torch.arange(gx)[:, None, None] * t.tn + tx[None, :, None] * t.rn
+         + torch.arange(t.rn))
+    c = (torch.arange(gy)[:, None, None] * t.tc + torch.arange(t.ty)[None, :, None] * t.cc
+         + torch.arange(t.cc))
+    inn = n < N
+    dyn = torch.where(inn, dy[n.clamp(max=N - 1)], torch.zeros(()))
+    dxn = torch.where(inn, dx[n.clamp(max=N - 1)], torch.zeros(()))
+    wx = [torch.clamp(1.0 - (dxn - float(l - lo)).abs(), min=0.0) for l in range(ncand)]
+    acc = torch.zeros((gy, t.ty, t.cc, gx, t.tx, t.rn), dtype=torch.float32)
+    col_t = torch.arange(t.pitch)
+    ch = c.reshape(gy, t.tc)
+    for j in range(ncand):
+        col0 = lo + j * Wp + torch.arange(gx)[:, None] * t.tn             # (gx, 1)
+        shift = col0 % 4 if vec else torch.zeros_like(col0)
+        # the staged slot of every block: (gy, tc, gx, pitch)
+        col = col0 - shift + col_t
+        ok = (ch < C)[:, :, None, None] & (col < NW)[None, None]
+        slot = u[ch.clamp(max=C - 1)][:, :, col.clamp(max=NW - 1)] * ok
+        band = (col_t >= shift) & (col_t < shift + W)
+        slot = torch.where(band, slot, torch.tensor(float("nan")))
+        # each thread's reads (gy, ty, cc, gx, tx, reads), its segment from them
+        at = tx[:, None] * t.rn + torch.arange(t.reads)
+        raw = slot.reshape(gy, t.ty, t.cc, gx, t.pitch)[..., at]
+        pick = shift[:, :, None] + torch.arange(span)                      # (gx, 1, span)
+        seg = torch.gather(raw, -1, pick.expand(raw.shape[:-1] + (span,)))
+        for r in range(reps):
+            dyr = dyn + torch.tensor(r * 1e-6, dtype=torch.float32)
+            wy = torch.clamp(1.0 - (dyr - float(j - lo)).abs(), min=0.0)
+            for l in range(ncand):
+                acc = acc + (wy * wx[l]) * seg[..., l:l + t.rn]
+    out = torch.zeros((C, N), dtype=torch.float32)
+    stored = torch.zeros((C, N), dtype=torch.int32)
+    cc = c[:, :, :, None, None, None].expand(acc.shape)
+    nn = n[None, None, None].expand(acc.shape)
+    keep = (cc < C) & (nn < N)
+    out.index_put_((cc[keep], nn[keep]), acc[keep])
+    stored.index_put_((cc[keep], nn[keep]), torch.ones((), dtype=torch.int32),
+                      accumulate=True)
+    return out, stored
 
 
 def tent_band(u, dy, dx, ncand: int, Wp: int, reps: int) -> torch.Tensor:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device times of K2 (`msda_tap_window`), K3 (`msda_temporal`), K6
-(`msda_rows`) and K8 (`msda_proj`) in several checkouts of the port, on one
-card and on the same inputs.
+(`msda_rows`), K8 (`msda_proj`), K9 (`msda_taps_bwd`) and K12a
+(`tent_band`) in several checkouts of the port, on one card and on the same
+inputs.
 
     python3 kernel_ab.py DIR [DIR ...]
 
@@ -22,19 +23,25 @@ timing code are this checkout's (`chip_smoke.py` beside this file), bf16:
 * K6 at the clip mask head's six layers (B 60, `chip_smoke.mask_head_rows`)
   and the image mask head's (50 masks, `chip_smoke.dcn_route_loc`), called
   as the DCN route calls it (with its query grid), and at the image decoder
-  (Q 300, 1 and 2 images, `chip_smoke.image_decoder_rows`).
+  (Q 300, 1 and 2 images, `chip_smoke.image_decoder_rows`);
+* K9 at the image train step's decoder layers (2 images, Q 300: the taps of
+  `chip_smoke.image_decoder_rows`' locations, a N(0, 1) output gradient);
+* K12a at `chip_smoke.BAND_SHAPES` (the JAX script's C 16 and C 512, N 96
+  Wp), f32, as `chip_smoke.probe_phase` makes its inputs.
 
 K2 and K3's inputs are made once, in this process (they come from the clip
-model's path), and saved; K6 and K8's are made in each DIR's process from
-seeded generators on the card, the same in every process. Then each DIR is
+model's path), and saved; K6, K8, K9 and K12a's are made in each DIR's
+process from seeded generators on the card, the same in every process. Then each DIR is
 timed in a process of its own, in the order given (parent, change, change,
 parent compares two commits): each kernel's device time by
 `chip_smoke.device_ms` (torch.profiler) and its op's time a call by CUDA
 events. K2 must equal its plain version, and K3, K6 and K8 agree with
 theirs to 2e-2 of max|plain| (K6 at the image mask head on its first
 `chip_smoke.COCO_MASK_CMP_B` masks where the f32 copy of U passes 1.5 GB),
-in each DIR. Prints one JSON line a DIR, the card's name and power limit,
-and last one JSON object of every run. Needs one CUDA card.
+K9 to 1e-2 (value gradient) and 1e-4 (tap weights) of the plain version on
+the upcast inputs, and K12a to 1e-5, in each DIR. Prints one JSON line a
+DIR, the card's name and power limit, and last one JSON object of every
+run. Needs one CUDA card.
 """
 import importlib.util
 import json
@@ -99,8 +106,8 @@ def make_inputs(torch, cs, path):
 
 
 def time_checkout(root, path):
-    """Times K2, K3, K6 and K8 of the checkout at `root`, K2 and K3 on the
-    inputs at `path`."""
+    """Times K2, K3, K6, K8, K9 and K12a of the checkout at `root`, K2 and
+    K3 on the inputs at `path`."""
     import torch
     cs = _chip_smoke()
     sys.path.insert(0, os.path.abspath(root))
@@ -127,7 +134,40 @@ def time_checkout(root, path):
             out["K3"][name] = dict(ms=cs.device_ms(op, "msda_temporal_kernel"),
                                    op_ms=cs.cuda_time(op, 50), max_abs_err=err)
     out.update(rows_proj_times(torch, cs, K, dev))
+    out.update(taps_tent_times(torch, cs, K, dev))
     print(json.dumps(out), flush=True)
+
+
+def taps_tent_times(torch, cs, K, dev):
+    """K9 and K12a of a checkout (its wrappers) on inputs made here from
+    seeded generators (see the module docstring)."""
+    from devis_torch.ops import probes
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 20)
+    res = {"K9": {}, "K12a": {}}
+    B, Q = cs.COCO_BATCH, cs.COCO_NQ
+    value, loc, att = cs.image_decoder_rows(torch, dev, gen, B)
+    grad = torch.randn(B, Q, cs.M * cs.D, generator=gen, device=dev)
+    idx, wt = K.taps(cs.COCO_SHAPES, loc, att)
+    v16, g16 = value.to(torch.bfloat16), grad.to(torch.bfloat16)
+    op = lambda: K.msda_taps_bwd(v16, cs.COCO_SHAPES, idx, wt, g16)  # noqa: E731
+    want = K.msda_taps_bwd_plain(v16.float(), cs.COCO_SHAPES, idx, wt, g16.float())
+    got = op()
+    err = cs.compare("K9 (decoder) grad_value", got[0], want[0], 1e-2)
+    cs.compare("K9 (decoder) grad_wt", got[1], want[1], 1e-4)
+    res["K9"]["decoder B=2"] = dict(ms=cs.device_ms(op, "msda_taps_bwd_kernel"),
+                                    op_ms=cs.cuda_time(op, 50), max_abs_err=err)
+    del value, loc, att, grad, idx, wt, v16, g16, got, want
+    for label, C, rows in cs.BAND_SHAPES:
+        N = rows * cs.BAND_WP
+        u = torch.rand(C, N + cs.BAND_NCAND * cs.BAND_WP, generator=gen, device=dev)
+        dy = torch.rand(N, generator=gen, device=dev) * 2 - 1
+        dx = torch.rand(N, generator=gen, device=dev) * 2 - 1
+        args = (u, dy, dx, cs.BAND_NCAND, cs.BAND_WP, cs.BAND_REPS)
+        op = lambda: probes.tent_band(*args)  # noqa: E731
+        err = cs.compare(f"K12a ({label})", op(), probes.tent_band_plain(*args), 1e-5)
+        res["K12a"][f"C={C} N={N}"] = dict(ms=cs.device_ms(op, "tent_band_kernel"),
+                                           op_ms=cs.cuda_time(op, 20), max_abs_err=err)
+    return res
 
 
 def rows_proj_times(torch, cs, K, dev):

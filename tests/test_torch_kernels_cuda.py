@@ -633,18 +633,29 @@ def test_proj_function_gives_gradients(dev):
         _close(g, w, torch.float32)
 
 
+COCO_SHAPES = ((104, 168), (52, 84), (26, 42), (13, 21))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,G,D,Q", [(2, 1, 32, 9), (1, 3, 5, 33), (2, 2, 72, 20)])
-def test_taps_bwd_kernel(dev, dtype, M, G, D, Q):
-    """K9 at grouped heads and ragged widths; bf16 against the plain version
+@pytest.mark.parametrize("M,G,D,Q,B,shapes,P", [
+    (2, 1, 32, 9, 2, SHAPES, 2), (1, 3, 5, 33, 2, SHAPES, 2), (2, 2, 72, 20, 2, SHAPES, 2),
+    (1, 2, 10, 25, 2, SHAPES, 2), (8, 1, 32, 300, 2, COCO_SHAPES, 4)])
+def test_taps_bwd_kernel(dev, dtype, M, G, D, Q, B, shapes, P):
+    """K9 at grouped heads and ragged widths (D 5 and 10: one-channel
+    chunks in f32 and bf16), and at the image train step's decoder shape
+    (B 2, Q 300, M 8, D 32, the COCO pyramid); bf16 against the plain version
     on the upcast inputs. Some indices lie outside their level."""
-    value, loc, att, grad = _rows_inputs(dev, dtype, 2, Q, M * G, D, 2, L, seed=6)
-    value = value[:, :, :M].contiguous()
-    idx, wt = K.taps(SHAPES, loc, att)
+    g = torch.Generator(device=dev).manual_seed(6)
+    value = torch.randn(B, sum(h * w for h, w in shapes), M, D, generator=g,
+                        device=dev).to(dtype)
+    loc = torch.rand(B, Q, M * G, len(shapes), P, 2, generator=g, device=dev) * 1.4 - 0.2
+    att = torch.rand(B, Q, M * G, len(shapes), P, generator=g, device=dev)
+    grad = torch.randn(B, Q, M * G * D, generator=g, device=dev).to(dtype)
+    idx, wt = K.taps(shapes, loc, att)
     idx[:, :, ::3, :, 0] = -1
     idx[:, :, 1::3, :, 1] = 10 ** 6
-    got_v, got_w = K.msda_taps_bwd(value, SHAPES, idx, wt, grad)
-    want_v, want_w = K.msda_taps_bwd_plain(value.float(), SHAPES, idx, wt, grad.float())
+    got_v, got_w = K.msda_taps_bwd(value, shapes, idx, wt, grad)
+    want_v, want_w = K.msda_taps_bwd_plain(value.float(), shapes, idx, wt, grad.float())
     assert got_v.dtype == dtype and got_w.dtype == torch.float32
     _close(got_v, want_v, dtype)
     _close(got_w, want_w, torch.float32)
@@ -718,11 +729,19 @@ def _band(dev, C=20, Wp=40, N=300, ncand=4, seed=0):
 
 
 @pytest.mark.parametrize("ncand", [2, 4, 5])
-def test_tent_band_and_corner_gather_kernels(dev, ncand):
+@pytest.mark.parametrize("layout", ["aligned", "ragged", "shifted"])
+def test_tent_band_and_corner_gather_kernels(dev, ncand, layout):
     """f32: multiply-adds fused or not, 1e-5 of max|plain|; a ragged channel
-    chunk (C 20) and n block (N 300); K12a against K12b in the band."""
-    probes, u, dy, dx = _band(dev, ncand=ncand)
-    args = (u, dy, dx, ncand, 40, 3)
+    tile (C 20) and n tile (N 300); K12a against K12b in the band. K12a's
+    staging: 16-byte copies with each band row at one offset into its
+    float4 ("aligned": Wp 40), 4-byte copies (rows of N + ncand Wp not a
+    multiple of 4: N 301), 16-byte copies with the rows at every offset
+    ("shifted": Wp 43)."""
+    Wp = 43 if layout == "shifted" else 40
+    N = {"aligned": 300, "ragged": 301, "shifted": 300 + (-(300 + ncand * Wp)) % 4}[layout]
+    assert ((N + ncand * Wp) % 4 == 0) == (layout != "ragged")
+    probes, u, dy, dx = _band(dev, Wp=Wp, N=N, ncand=ncand)
+    args = (u, dy, dx, ncand, Wp, 3)
     tent = probes.tent_band(*args)
     gather = probes.corner_gather(*args)
     for got, want in ((tent, probes.tent_band_plain(*args)),

@@ -107,3 +107,39 @@ def test_mma_probe_residency_rule():
     assert probes.mma_probe_resident(256, 256)
     assert not probes.mma_probe_resident(512, 256)
     assert not probes.mma_probe_resident(3072, 256)
+
+
+@pytest.mark.parametrize("C,Wp,N,ncand,reps", [
+    (16, 384, 32 * 384, 4, 9),        # bench_tent_gather.py's shape
+    (512, 384, 96 * 384, 4, 9),       # chip_smoke.py's large shape
+    (20, 40, 300, 2, 3), (20, 40, 301, 3, 3), (33, 40, 129, 4, 2),
+    (7, 40, 127, 5, 3), (40, 40, 257, 6, 2),
+    (20, 41, 301, 3, 3), (33, 42, 128, 4, 2), (7, 43, 133, 5, 3), (40, 45, 262, 6, 2)])
+def test_tent_band_tiled_mirror_matches_plain(C, Wp, N, ncand, reps):
+    """K12a's tiled index arithmetic (`tent_band_tiled`: staged band rows,
+    each thread's reads and its segment, the stores) equals
+    `tent_band_plain` to 1e-5 of max|plain| (f32 sums in another order),
+    stores every output exactly once and reads no staged column outside the
+    band (those are NaN); ragged N and C against the tile, ncand 2-6, rows
+    staged by 16-byte copies (N + ncand Wp a multiple of 4, at one offset
+    into a float4 or, Wp 41-45, at several) and by 4-byte copies."""
+    rs = np.random.RandomState(ncand)
+    u = torch.from_numpy(rs.rand(C, N + ncand * Wp).astype(np.float32))
+    dy = torch.from_numpy((rs.rand(N) * 2 - 1).astype(np.float32))
+    dx = torch.from_numpy((rs.rand(N) * 2 - 1).astype(np.float32))
+    got, stored = probes.tent_band_tiled(u, dy, dx, ncand, Wp, reps)
+    assert bool((stored == 1).all()) and bool(torch.isfinite(got).all())
+    _close(got.numpy(), probes.tent_band_plain(u, dy, dx, ncand, Wp, reps).numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("vec", [False, True])
+@pytest.mark.parametrize("ncand", [2, 3, 4, 5, 6])
+def test_tent_tile_geometry(ncand, vec):
+    """A thread's reads hold its rn + ncand - 1 band values in whole float4s,
+    from up to 3 columns in where rows are staged from a float4 boundary,
+    and the last thread's reads end at the staged row's pitch."""
+    t = probes.tent_tile(ncand, vec)
+    assert t.rn % 4 == 0 and t.reads % 4 == 0 and t.pitch % 4 == 0
+    span = t.rn + ncand - 1 + (3 if vec else 0)
+    assert span <= t.reads < span + 4
+    assert (t.tx - 1) * t.rn + t.reads == t.pitch >= t.tn + ncand - 1
