@@ -86,11 +86,16 @@
    path; run after step 5's kernel phases, before the models): K12a `tent_band` and K12b `corner_gather` at the JAX script's shape
    (C 16, Wp 384, N 32 Wp, ncand 4, reps 9) and at C 512, N 96 Wp, each
    against its plain version and K12a against K12b (f32, 1e-5 of
-   max|plain|), timed by device time with the op's CUDA-event time; K12c `mma_probe` at `benchmarks/mxu_probe.py:79-86`'s eight
-   (n_dots, K, N), grid 912, on seeded bf16 operands (2e-2), with its SM
-   cycles a dot and TFLOP/s, beside n_dots cuBLAS products of the same MACs;
-   96 dots must take longer than 48, and the compiled library must hold
-   HMMA instructions (`cuobjdump -sass`, printed).
+   max|plain|), timed by device time with the op's CUDA-event time, K12b
+   beside its method's floor (its gathered reads at 128 bytes a clock an
+   SM); K12c in both forms, `mma_probe` (wgmma) and `mma_probe_sync`
+   (mma.sync), at 1-3 dots and at `benchmarks/mxu_probe.py:79-86`'s eight
+   (n_dots, K, N), grid 912, on seeded bf16 operands (2e-2), with SM cycles
+   a dot and TFLOP/s, beside one cuBLAS product of the same MACs and n_dots
+   products (rate yardsticks), the wgmma form's streamed shapes also with
+   clusters of 2 and 4 blocks; 96 dots must take longer than 48 in both
+   forms, and the compiled library must hold HGMMA in the wgmma form's
+   kernels and HMMA in the mma.sync form's (`cuobjdump -sass`, printed).
 7. Video in, tracks out (right after step 3's clips, before training):
    `build_tracker` + `inference_vis` with the clip model of step 3 over the synthetic corpus of `bench.py:126-130` (4 videos
    of 36 frames, 360x640 and 480x320, 20 instances each; T 6, stride 4): one
@@ -105,7 +110,9 @@
    `redesigned`: whether its first port has been redesigned for Hopper; K5
    and K7 with `op_ms`, `global_adds`, `global_only_ms` and, per shape,
    window statistics; K6 and K8 with `op_ms` and their times per shape; K9
-   with `op_ms` and its op's `breakdown`; K12a and K12b with `op_ms`), a
+   with `op_ms` and its op's `breakdown`; K12a and K12b with `op_ms`, K12b
+   with `method_floor_ms`; K12c with its shapes and, under `sync`, the
+   mma.sync form's), a
    clip-latency line, a
    train-step line with peak memory, the image model's two lines, the e2e
    line, the card line, and last {"ok": true, "device": {...}}.
@@ -155,7 +162,8 @@ MMA_SHAPES = ((48, 128, 256), (24, 256, 256), (12, 512, 256), (2, 3072, 256),
               (48, 128, 128), (96, 128, 256), (48, 64, 256), (48, 32, 256))
 H100_SMS = 132
 # kernels whose first port has been redesigned for Hopper (PERF.md, section 6)
-REDESIGNED = frozenset(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K12a"))
+REDESIGNED = frozenset(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K12a",
+                        "K12b", "K12c"))
 # the e2e corpus (bench.py:126-130): 4 videos of 36 frames, 20 instances each
 E2E_VIDEOS, E2E_FRAMES, E2E_SIZES, E2E_INSTANCES = 4, 36, ((360, 640), (480, 320)), 20
 
@@ -952,11 +960,17 @@ def rows_phase(torch, dev, gen, results):
 
 def probe_phase(torch, dev, gen, results):
     """K12a, K12b and K12c (`devis_torch.ops.probes`, measurement only)
-    against their plain versions; K12a against K12b; their times. K12c at
-    the JAX probe's eight shapes with its cycles a dot and rate, beside
-    n_dots cuBLAS products of the same MACs (a rate yardstick)."""
+    against their plain versions; K12a against K12b; their times, K12b's
+    beside its method's floor. K12c in both forms (wgmma, the default, and
+    mma.sync) at the JAX probe's eight shapes with its cycles a dot and
+    rate, beside one cuBLAS product of the same MACs and n_dots products
+    (rate yardsticks); its streamed shapes also with clusters of 2 and 4
+    blocks sharing the tiles' TMA loads."""
     from devis_torch.ops import _build, probes
 
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
     for label, C, rows in BAND_SHAPES:
         N = rows * BAND_WP
         u = torch.rand(C, N + BAND_NCAND * BAND_WP, generator=gen, device=dev)
@@ -975,6 +989,10 @@ def probe_phase(torch, dev, gen, results):
         # count 4 multiply-adds; `method_flops` is what each method issues
         # (K12a's band: ncand² multiply-adds)
         flops = 8 * C * N * BAND_REPS
+        # K12b's method gathers 4 f32 corners a (c, n, rep): its floor at
+        # 128 bytes a clock an SM from shared memory, at the max SM clock
+        gathered = 16 * C * N * BAND_REPS
+        floor_b = gathered / (128 * H100_SMS * clock_mhz * 1e6) * 1e3
         for key, op, plain, err, method_flops in (
                 ("K12a", probes.tent_band, probes.tent_band_plain, err_a,
                  2 * C * N * BAND_REPS * BAND_NCAND ** 2),
@@ -986,9 +1004,14 @@ def probe_phase(torch, dev, gen, results):
             log(f"    {key} {op.__name__}: {ms:.4f} ms by device time, op {op_ms:.4f} ms, "
                 f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
                 f"{flops / 1e9:.2f} GFLOP; the method issues {method_flops / 1e9:.2f} GFLOP, "
-                f"{method_flops / F32_FLOPS * 1e3:.4f} ms at the f32 peak)")
+                f"{method_flops / F32_FLOPS * 1e3:.4f} ms at the f32 peak)"
+                + (f"; the method's floor {floor_b:.4f} ms ({gathered / 1e9:.2f} GB of "
+                   f"gathered reads at 128 B a clock an SM, {clock_mhz:.0f} MHz)"
+                   if key == "K12b" else ""))
             entry = dict(ms=ms, op_ms=op_ms, plain_ms=plain_ms, max_abs_err=err, bytes=nbytes,
                          flops=flops, method_flops=method_flops, C=C, N=N, bound_ms=bound)
+            if key == "K12b":
+                entry["method_floor_ms"] = floor_b
             if label == "script":
                 results[key + "_script"] = entry
             else:
@@ -998,64 +1021,94 @@ def probe_phase(torch, dev, gen, results):
                     flop_rate=F32_FLOPS, library_ms=None,
                     script_shape=results.pop(key + "_script"))
 
-    clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0])
-    log(f"K12c mma_probe, grid {probes.GRID}, D {probes.D}, bf16 (max SM clock {clock_mhz:.0f} MHz)")
+    forms = (probes.mma_probe, probes.mma_probe_sync)
+    log(f"K12c mma_probe (wgmma) and mma_probe_sync (mma.sync), grid {probes.GRID}, "
+        f"D {probes.D}, bf16 (max SM clock {clock_mhz:.0f} MHz)")
     # at 1-3 dots a dropped or extra product is a 33-100 % error, far above
     # the bf16 limit; at the timed shapes' 12-96 dots it would be 1-8 %
     for n_dots, K in ((1, 128), (2, 128), (3, 128), (1, 3072), (2, 3072), (3, 3072)):
         v = torch.randn(K, probes.D, generator=gen, device=dev).to(torch.bfloat16)
         w = torch.randn(K, 256, generator=gen, device=dev).to(torch.bfloat16)
-        compare(f"n_dots={n_dots} K={K} N=256 bf16", probes.mma_probe(v, w, n_dots),
-                probes.mma_probe_plain(v, w, n_dots), 2e-2)
-    shapes = []
+        for op in forms:
+            compare(f"{op.__name__} n_dots={n_dots} K={K} N=256 bf16", op(v, w, n_dots),
+                    probes.mma_probe_plain(v, w, n_dots), 2e-2)
+    shapes = {op.__name__: [] for op in forms}
     for n_dots, K, Nw in MMA_SHAPES:
         v = torch.randn(K, probes.D, generator=gen, device=dev).to(torch.bfloat16)
         w = torch.randn(K, Nw, generator=gen, device=dev).to(torch.bfloat16)
-        # bf16 operands, f32 accumulation in another order: one output rounding
-        err = compare(f"n_dots={n_dots} K={K} N={Nw} bf16", probes.mma_probe(v, w, n_dots),
-                      probes.mma_probe_plain(v, w, n_dots), 2e-2)
-        ms = cuda_time(lambda: probes.mma_probe(v, w, n_dots), 10)
+        want = probes.mma_probe_plain(v, w, n_dots)
         plain_ms = cuda_time(lambda: probes.mma_probe_plain(v, w, n_dots), 3, 1)
         a = v.t().contiguous().repeat(probes.GRID, 1)            # (GRID * D, K)
-        lib_ms = cuda_time(lambda: [torch.mm(a, w) for _ in range(n_dots)], 10)
+        lib48_ms = cuda_time(lambda: [torch.mm(a, w) for _ in range(n_dots)], 10)
+        a_all = a.repeat(n_dots, 1)                              # (GRID * D * n_dots, K)
+        lib_ms = cuda_time(lambda: torch.mm(a_all, w), 10)
+        del a, a_all
         flops = 2 * probes.GRID * n_dots * K * probes.D * Nw
-        cycles = ms * 1e-3 * clock_mhz * 1e6 * H100_SMS / (probes.GRID * n_dots)
-        tflops = flops / ms / 1e9
-        log(f"    {'resident' if probes.mma_probe_resident(K, Nw) else 'streamed'}: "
-            f"{ms:.4f} ms, {cycles:.0f} SM cycles a dot, {tflops:.1f} TFLOP/s "
-            f"({tflops / (BF16_TC_FLOPS / 1e12):.3f} of the bf16 peak); cuBLAS "
-            f"{n_dots} x mm ({probes.GRID * probes.D}x{K})x({K}x{Nw}) {lib_ms:.4f} ms; "
+        log(f"  n_dots={n_dots} K={K} N={Nw}: cuBLAS one mm ({probes.GRID * probes.D * n_dots}"
+            f"x{K})x({K}x{Nw}) {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), "
+            f"{n_dots} x mm ({probes.GRID * probes.D}x{K})x({K}x{Nw}) {lib48_ms:.4f} ms; "
             f"plain {plain_ms:.3f} ms")
-        shapes.append(dict(n_dots=n_dots, K=K, N=Nw, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, cycles_a_dot=cycles, tflops=tflops,
-                           max_abs_err=err, flops=flops,
-                           resident=probes.mma_probe_resident(K, Nw)))
-    by = {(r["n_dots"], r["K"], r["N"]): r for r in shapes}
-    if not by[(96, 128, 256)]["ms"] > 1.5 * by[(48, 128, 256)]["ms"]:
-        raise AssertionError("K12c: 96 dots did not take longer than 48: the products "
-                             "were folded or dropped")
+        for op in forms:
+            resident = (probes.mma_probe_resident if op is probes.mma_probe
+                        else probes.mma_sync_resident)(K, Nw)
+            # bf16 operands, f32 accumulation in another order: one output rounding
+            err = compare(f"{op.__name__} n_dots={n_dots} K={K} N={Nw} bf16", op(v, w, n_dots),
+                          want, 2e-2)
+            ms = cuda_time(lambda: op(v, w, n_dots), 10)
+            cycles = ms * 1e-3 * clock_mhz * 1e6 * H100_SMS / (probes.GRID * n_dots)
+            tflops = flops / ms / 1e9
+            row = dict(n_dots=n_dots, K=K, N=Nw, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       library_48_ms=lib48_ms, cycles_a_dot=cycles, tflops=tflops,
+                       max_abs_err=err, flops=flops, resident=resident)
+            extra = ""
+            if op is probes.mma_probe and not resident:
+                # the streamed tiles shared by clusters of 2 and 4 blocks
+                row["cluster_ms"] = {c: cuda_time(lambda: op(v, w, n_dots, cluster=c), 10)
+                                     for c in (2, 4)}
+                extra = "; clusters of 2 / 4 blocks " + " / ".join(
+                    f"{t:.4f}" for t in row["cluster_ms"].values()) + " ms"
+            log(f"    {op.__name__} {'resident' if resident else 'streamed'}: {ms:.4f} ms, "
+                f"{cycles:.0f} SM cycles a dot, {tflops:.1f} TFLOP/s "
+                f"({tflops / (BF16_TC_FLOPS / 1e12):.3f} of the bf16 peak){extra}")
+            shapes[op.__name__].append(row)
+    for name, rows in shapes.items():
+        by = {(r["n_dots"], r["K"], r["N"]): r for r in rows}
+        if not by[(96, 128, 256)]["ms"] > 1.5 * by[(48, 128, 256)]["ms"]:
+            raise AssertionError(f"K12c {name}: 96 dots did not take longer than 48: the "
+                                 "products were folded or dropped")
+    # the wgmma form compiles to HGMMA, the mma.sync form to HMMA: counted in
+    # each kernel's own SASS (cuobjdump)
     lib = os.path.join(_build.BUILD_DIR, "libprobes.so")
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True)
-    hmma = sum("HMMA" in line for line in sass.stdout.splitlines())
-    log(f"    HMMA instructions in libprobes.so's SASS (cuobjdump): {hmma}")
-    if hmma == 0:
-        raise AssertionError("K12c: no HMMA instruction in the compiled probe")
-    ref = by[MMA_SHAPES[0]]
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True).stdout
+    counts = {"mma_probe_wgmma_kernel": 0, "mma_probe_sync_kernel": 0}
+    kernel = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = next((k for k in counts if k in line), None)
+        elif kernel is not None:
+            counts[kernel] += ("HGMMA" if "wgmma" in kernel else "HMMA") in line
+    hgmma, hmma = counts["mma_probe_wgmma_kernel"], counts["mma_probe_sync_kernel"]
+    log(f"    libprobes.so's SASS (cuobjdump): HGMMA in the wgmma form {hgmma}, "
+        f"HMMA in the mma.sync form {hmma}")
+    if hgmma == 0 or hmma == 0:
+        raise AssertionError("K12c: the wgmma form holds no HGMMA or the mma.sync form no HMMA")
+    ref, ref_sync = shapes["mma_probe"][0], shapes["mma_probe_sync"][0]
     results["K12c"] = dict(
         name="mma_probe", route="cuda", source="devis_torch/csrc/probes.cu",
-        replaces="benchmarks/mxu_probe.py:37", max_abs_err=max(r["max_abs_err"] for r in shapes),
+        replaces="benchmarks/mxu_probe.py:37",
+        max_abs_err=max(r["max_abs_err"] for rows in shapes.values() for r in rows),
         ms=ref["ms"], plain_ms=ref["plain_ms"], library_ms=ref["library_ms"],
+        library_48_ms=ref["library_48_ms"],
         bytes=2 * (ref["K"] * (probes.D + ref["N"]) + probes.D * ref["N"]),
-        flops=ref["flops"], flop_rate=BF16_TC_FLOPS, shapes=shapes, hmma_in_sass=hmma,
-        max_sm_clock_mhz=clock_mhz)
+        flops=ref["flops"], flop_rate=BF16_TC_FLOPS, shapes=shapes["mma_probe"],
+        sync=dict(name="mma_probe_sync", ms=ref_sync["ms"], shapes=shapes["mma_probe_sync"]),
+        hgmma_in_sass=hgmma, hmma_in_sass=hmma, max_sm_clock_mhz=clock_mhz)
 
 
 def probe_ops():
     from devis_torch.ops import probes
-    return probes.tent_band, probes.corner_gather, probes.mma_probe
+    return probes.tent_band, probes.corner_gather, probes.mma_probe, probes.mma_probe_sync
 
 
 def check_probes_idle(after):
@@ -2372,6 +2425,7 @@ def main() -> int:
               "K9": coco_train_launches["msda_taps_bwd"], "K10": k10_launches,
               "K12a": probe_launches["tent_band"], "K12b": probe_launches["corner_gather"],
               "K12c": probe_launches["mma_probe"]}   # over every model path: 0
+    results["K12c"]["sync"]["launches"] = probe_launches["mma_probe_sync"]
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
                 "K12a", "K12b", "K12c"):
@@ -2393,6 +2447,7 @@ def main() -> int:
                                  "coco_shapes", "route_ms", "layers", "op_ms",
                                  "k2_ms", "windows", "lab", "random_refs", "path_inputs",
                                  "script_shape", "shapes", "hmma_in_sass", "max_sm_clock_mhz",
+                                 "hgmma_in_sass", "sync", "library_48_ms", "method_floor_ms",
                                  "method_flops", "grid", "raster_ms", "random_ms",
                                  "coco_f1", "breakdown")
                if k in r}})

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Device times of K2 (`msda_tap_window`), K3 (`msda_temporal`), K6
-(`msda_rows`), K8 (`msda_proj`), K9 (`msda_taps_bwd`) and K12a
-(`tent_band`) in several checkouts of the port, on one card and on the same
-inputs.
+(`msda_rows`), K8 (`msda_proj`), K9 (`msda_taps_bwd`) and the probes K12a
+(`tent_band`), K12b (`corner_gather`) and K12c (`mma_probe`, and
+`mma_probe_sync` where a checkout has it) in several checkouts of the port,
+on one card and on the same inputs.
 
     python3 kernel_ab.py DIR [DIR ...]
 
@@ -26,11 +27,13 @@ timing code are this checkout's (`chip_smoke.py` beside this file), bf16:
   (Q 300, 1 and 2 images, `chip_smoke.image_decoder_rows`);
 * K9 at the image train step's decoder layers (2 images, Q 300: the taps of
   `chip_smoke.image_decoder_rows`' locations, a N(0, 1) output gradient);
-* K12a at `chip_smoke.BAND_SHAPES` (the JAX script's C 16 and C 512, N 96
-  Wp), f32, as `chip_smoke.probe_phase` makes its inputs.
+* K12a and K12b at `chip_smoke.BAND_SHAPES` (the JAX script's C 16 and C
+  512, N 96 Wp), f32, as `chip_smoke.probe_phase` makes their inputs;
+* K12c at `chip_smoke.MMA_SHAPES` (`benchmarks/mxu_probe.py:79-86`'s eight
+  (n_dots, K, N), grid 912), bf16.
 
 K2 and K3's inputs are made once, in this process (they come from the clip
-model's path), and saved; K6, K8, K9 and K12a's are made in each DIR's
+model's path), and saved; K6, K8, K9 and the probes' are made in each DIR's
 process from seeded generators on the card, the same in every process. Then each DIR is
 timed in a process of its own, in the order given (parent, change, change,
 parent compares two commits): each kernel's device time by
@@ -39,7 +42,7 @@ events. K2 must equal its plain version, and K3, K6 and K8 agree with
 theirs to 2e-2 of max|plain| (K6 at the image mask head on its first
 `chip_smoke.COCO_MASK_CMP_B` masks where the f32 copy of U passes 1.5 GB),
 K9 to 1e-2 (value gradient) and 1e-4 (tap weights) of the plain version on
-the upcast inputs, and K12a to 1e-5, in each DIR. Prints one JSON line a
+the upcast inputs, K12a and K12b to 1e-5 and K12c to 2e-2, in each DIR. Prints one JSON line a
 DIR, the card's name and power limit, and last one JSON object of every
 run. Needs one CUDA card.
 """
@@ -139,11 +142,11 @@ def time_checkout(root, path):
 
 
 def taps_tent_times(torch, cs, K, dev):
-    """K9 and K12a of a checkout (its wrappers) on inputs made here from
-    seeded generators (see the module docstring)."""
+    """K9 and the probes of a checkout (its wrappers) on inputs made here
+    from seeded generators (see the module docstring)."""
     from devis_torch.ops import probes
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 20)
-    res = {"K9": {}, "K12a": {}}
+    res = {"K9": {}, "K12a": {}, "K12b": {}, "K12c": {}}
     B, Q = cs.COCO_BATCH, cs.COCO_NQ
     value, loc, att = cs.image_decoder_rows(torch, dev, gen, B)
     grad = torch.randn(B, Q, cs.M * cs.D, generator=gen, device=dev)
@@ -163,10 +166,22 @@ def taps_tent_times(torch, cs, K, dev):
         dy = torch.rand(N, generator=gen, device=dev) * 2 - 1
         dx = torch.rand(N, generator=gen, device=dev) * 2 - 1
         args = (u, dy, dx, cs.BAND_NCAND, cs.BAND_WP, cs.BAND_REPS)
-        op = lambda: probes.tent_band(*args)  # noqa: E731
-        err = cs.compare(f"K12a ({label})", op(), probes.tent_band_plain(*args), 1e-5)
-        res["K12a"][f"C={C} N={N}"] = dict(ms=cs.device_ms(op, "tent_band_kernel"),
-                                           op_ms=cs.cuda_time(op, 20), max_abs_err=err)
+        for key, name in (("K12a", "tent_band"), ("K12b", "corner_gather")):
+            op = lambda: getattr(probes, name)(*args)  # noqa: E731
+            err = cs.compare(f"{key} ({label})", op(),
+                             getattr(probes, name + "_plain")(*args), 1e-5)
+            res[key][f"C={C} N={N}"] = dict(ms=cs.device_ms(op, name + "_kernel"),
+                                            op_ms=cs.cuda_time(op, 20), max_abs_err=err)
+    forms = [f for f in ("mma_probe", "mma_probe_sync") if hasattr(probes, f)]
+    for n_dots, Kd, N in cs.MMA_SHAPES:
+        v = torch.randn(Kd, probes.D, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn(Kd, N, generator=gen, device=dev).to(torch.bfloat16)
+        want = probes.mma_probe_plain(v, w, n_dots)
+        for form in forms:
+            op = lambda: getattr(probes, form)(v, w, n_dots)  # noqa: E731
+            err = cs.compare(f"K12c {form} ({n_dots}, {Kd}, {N})", op(), want, 2e-2)
+            res["K12c"][f"{form} n_dots={n_dots} K={Kd} N={N}"] = dict(
+                ms=cs.device_ms(op, "mma_probe", iters=10), max_abs_err=err)
     return res
 
 

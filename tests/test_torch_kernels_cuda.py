@@ -766,3 +766,72 @@ def test_mma_probe_kernel(dev, n_dots, K, N, grid):
     want = probes.mma_probe_plain(v, w, n_dots)
     assert got.shape == (probes.D, N) and got.dtype == torch.bfloat16
     assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("ncand", [2, 3, 4, 5, 6])
+@pytest.mark.parametrize("spread", [5.0, 40.0])
+def test_corner_gather_kernel_outside_the_band(dev, ncand, spread):
+    """K12b on taps that leave the band (offsets up to ±5: corners read
+    from u past the staged rows) and past the array (±40: the clamp), ragged
+    C (40: past a channel tile) and N (301: a partial last row), Wp not a
+    multiple of the strip, 20 reps (past the rep table's 16): f32, 1e-5 of
+    max|plain|."""
+    from devis_torch.ops import probes
+    g = torch.Generator(device=dev).manual_seed(ncand)
+    C, Wp, N = 40, 43, 301
+    u = torch.rand(C, N + ncand * Wp, generator=g, device=dev)
+    dy = (torch.rand(N, generator=g, device=dev) * 2 - 1) * spread
+    dx = (torch.rand(N, generator=g, device=dev) * 2 - 1) * spread
+    args = (u, dy, dx, ncand, Wp, 20)
+    got = probes.corner_gather(*args)
+    torch.cuda.synchronize()
+    want = probes.corner_gather_plain(*args)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+MMA_CASES = [(4, 128, 128, 7), (3, 256, 256, 5), (2, 512, 256, 3), (1, 32, 64, 1),
+             (5, 128, 192, 2), (1, 3072, 256, 3), (3, 512, 256, 8)]
+
+
+def _mma(dev, K, N):
+    from devis_torch.ops import probes
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    v = torch.randn(K, probes.D, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(K, N, generator=g, device=dev).to(torch.bfloat16)
+    return probes, v, w
+
+
+@pytest.mark.parametrize("n_dots,K,N,grid", MMA_CASES)
+def test_mma_probe_sync_kernel(dev, n_dots, K, N, grid):
+    """K12c's mma.sync form at `test_mma_probe_kernel`'s cases and an odd
+    n_dots at a streamed K: bf16, 2e-2 of max|plain|, its own launch count."""
+    probes, v, w = _mma(dev, K, N)
+    before = (probes.mma_probe_sync.launches, probes.mma_probe.launches)
+    got = probes.mma_probe_sync(v, w, n_dots, grid)
+    torch.cuda.synchronize()
+    assert (probes.mma_probe_sync.launches, probes.mma_probe.launches) == \
+        (before[0] + 1, before[1])
+    want = probes.mma_probe_plain(v, w, n_dots)
+    assert got.shape == (probes.D, N) and got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("n_dots,K,N,grid,cluster", [
+    (3, 512, 256, 8, 1), (3, 512, 256, 8, 2), (3, 512, 256, 8, 4), (1, 3072, 256, 4, 4),
+    (5, 1024, 128, 6, 2), (2, 80, 128, 3, 1), (3, 48, 64, 2, 1), (1, 16, 256, 1, 1)])
+def test_mma_probe_kernel_clusters_and_ragged_tiles(dev, n_dots, K, N, grid, cluster):
+    """K12c's wgmma form on streamed K tiles shared by clusters of 1, 2 and
+    4 blocks (TMA multicast) with an odd n_dots (the zero tile), and on K
+    below a tile (16, 48) or past the last whole one (80: rows past K read as
+    zero): bf16, 2e-2 of max|plain|."""
+    probes, v, w = _mma(dev, K, N)
+    got = probes.mma_probe(v, w, n_dots, grid, cluster=cluster)
+    torch.cuda.synchronize()
+    want = probes.mma_probe_plain(v, w, n_dots)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
+
+
+def test_mma_probe_rejects_a_cluster_that_does_not_divide_the_grid(dev):
+    probes, v, w = _mma(dev, 512, 256)
+    with pytest.raises(ValueError, match="cluster"):
+        probes.mma_probe(v, w, 2, 6, cluster=4)
