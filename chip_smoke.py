@@ -106,16 +106,41 @@
    / (wait + stitch), as `inference_vis` computes it), the wait and stitch
    seconds, the host seconds of the full-resolution resize and RLE and of
    each pipeline stage, and profiles one tracked video.
-8. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
+8. The CLI from files (after the COCO paths): seeded PNG trees on disk
+   (`devis_torch.util.fixtures`: COCO, 9 + 4 images of 480x640 and 640x480
+   with polygon, RLE and crowd annotations; YouTube-VIS 2019, 2 + 2 videos
+   of 12 frames of 360x640 with RLE segmentations and null frames), then
+   `devis_torch.main.main` on configs/deformable_mask_head/
+   deformable_mask_head_R_50.yaml and configs/devis/YT-19/
+   devis_R_50_YT-19.yaml as the files give them (the port's own YAML
+   reader), bf16, seeded random weights, full width and depth. Each run has
+   its counts zeroed before and read after. COCO: --eval-only (an image
+   launches K8 7, K6 5, K4 6 times; finite bbox and segm stats); one epoch
+   of training at batch 2 (four steps, each K8 7, K6 5 + 12, K9 5, K7 7 + 12)
+   with the periodic evaluation (4 images) and checkpoints; --resume (the
+   next epoch, four steps; its first starts from the checkpoint's weights to the
+   bit). YT-19: 4 train steps (K1/K2/K3 6, K5 12, K6/K7 12 a step) with the
+   periodic evaluation, then --eval-only (K1-K4 six a clip, tracks at the
+   video's size, finite TrackMAP). Times the evaluation calls, the steps,
+   the epoch loop's waits for a batch and, apart, the host's decode +
+   transform + collate of a batch. After each run but the resumed one,
+   every kernel it launched is held against its plain version on the
+   inputs the run gave it first (layer 0 of the encoder's and decoder's
+   attention, decoder layer 1's q-major op, mask-head layer 0: K2 equal,
+   the forwards to 2e-2; after a train run the backwards on a seeded
+   gradient, the value's to 1e-2, loc's and att's to 1e-4 of max|plain|).
+9. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
    `redesigned`: whether its first port has been redesigned for Hopper; K5
    and K7 with `op_ms`, `global_adds`, `global_only_ms` and, per shape,
    window statistics; K6 and K8 with `op_ms` and their times per shape; K9
    with `op_ms` and its op's `breakdown`; K12a and K12b with `op_ms`, K12b
    with `method_floor_ms`; K12c with its shapes and, under `sync`, the
-   mma.sync form's), a
+   mma.sync form's; `cli_launches`: its launches over the CLI phase;
+   `cli_max_abs_err`: its largest error in the CLI phase's checks), a
    clip-latency line, a
    train-step line with peak memory, the image model's two lines, the e2e
-   line, the card line, and last {"ok": true, "device": {...}}.
+   line, the `cli` line, the card line, and last {"ok": true, "device":
+   {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 `devis_torch` package beside it. Imports nothing of JAX.
@@ -2042,8 +2067,8 @@ def dcn_route_loc(torch, dev, gen, B, h, w, px=2.0):
 def build_coco(torch, dev, enc_layers=6, dec_layers=6, mask_aux=(2,), box_noise=True):
     """(cfg, model): Deformable DETR R50 with the mask head at the settings
     of configs/deformable_mask_head/deformable_mask_head_R_50.yaml for
-    `coco` (entered by hand: reading the file needs PyYAML), bf16 compute,
-    seeded random weights, in eval mode."""
+    `coco` (entered by hand; the CLI phase reads the file itself), bf16
+    compute, seeded random weights, in eval mode."""
     from devis_torch.config import get_cfg_defaults
     from devis_torch.models import build_model
 
@@ -2351,6 +2376,451 @@ def coco_train_compare(torch, dev):
                          "msda_rows": "ms_deform_attn"})
 
 
+# ---------------------------------------------------------------------------
+# The CLI from files
+# ---------------------------------------------------------------------------
+
+CLI_COCO_CONFIG = "configs/deformable_mask_head/deformable_mask_head_R_50.yaml"
+CLI_VIS_CONFIG = "configs/devis/YT-19/devis_R_50_YT-19.yaml"
+VIS_CLI_STEPS = 4
+CLI_COCO_TRAIN = 9                    # train images: 8 with objects, 4 steps of 2 an epoch
+CLI_SITES = (("devis_torch.models.attention", "msda_temporal_proj"),
+             ("devis_torch.models.attention", "msda_temporal"),
+             ("devis_torch.models.attention", "msda_proj"),
+             ("devis_torch.models.attention", "msda_taps"),
+             ("devis_torch.ops.deform_conv", "msda_rows"),
+             ("devis_torch.models.segmentation", "modulated_deform_conv2d"))
+
+
+class _Timed:
+    """Wraps a callable: the host seconds of each call, synchronised with
+    the card, and an optional hook run before each call."""
+
+    def __init__(self, torch, fn, before=None):
+        self.torch, self.fn, self.before, self.secs = torch, fn, before, []
+
+    def __call__(self, *args, **kwargs):
+        if self.before is not None:
+            self.before(*args)
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        self.torch.cuda.synchronize()
+        self.secs.append(time.perf_counter() - t0)
+        return out
+
+
+class _FirstCalls:
+    """Keeps the arguments of the first call of each op where the models
+    call it (`CLI_SITES`: the name bound in the calling module, so the
+    wrappers and their launch counts stay as they are) and passes every
+    call through. In a CLI run the first calls are those of the first train
+    step (or evaluated image or clip): layer 0 of the encoder's and the
+    decoder's attention, decoder layer 1's q-major op, mask-head layer 0."""
+
+    def __init__(self, torch):
+        self.torch, self.args, self.saved = torch, {}, []
+
+    def __enter__(self):
+        import importlib
+        for mod_name, name in CLI_SITES:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self._grab(name, fn))
+        return self
+
+    def _grab(self, name, fn):
+        def grab(*args):
+            if name not in self.args:
+                self.args[name] = tuple(a.detach() if self.torch.is_tensor(a) else a
+                                        for a in args)
+            return fn(*args)
+        return grab
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _batch_cut(t, nbytes_per_item, limit=1.5e9):
+    """How many leading items of `t` the plain version takes: all where
+    their f32 copy stays under `limit` bytes."""
+    return max(1, min(t.shape[0], int(limit // nbytes_per_item)))
+
+
+def cli_kernel_checks(torch, dev, calls, train, where):
+    """Each kernel of a CLI run on the inputs the run gave it first (see
+    `_FirstCalls`), against its plain version: K2's windows equal and K1's
+    `count` mode reading no corner from global memory outside them; the
+    forwards (K1, K3, K6, K8, K4) in bf16 to 2e-2 of max|plain|; after a
+    train run the backwards (K5, K7, K9) on a seeded output gradient as
+    `bwd_compare` holds them. The mask head's K6/K7 and K4 are held at as
+    many masks as keep the plain version's f32 copy under 1.5 GB. Returns
+    {kernel: max_abs_err}."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.deform_conv import (modulated_deform_conv2d,
+                                             modulated_deform_conv2d_plain)
+    from devis_torch.ops.ms_deform_attn import ms_deform_attn
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    errs = {}
+
+    def keep(key, err):
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    def grad_for(out):
+        """A seeded output gradient shaped and typed as `out`."""
+        return torch.randn(out.shape, generator=gen, device=out.device).to(out.dtype)
+
+    log(f"{where}: the kernels on the run's first inputs against their plain versions")
+    with torch.no_grad():
+        if "msda_temporal_proj" in calls:             # encoder layer 0: K2, K1; K5
+            args = calls["msda_temporal_proj"]
+            value, shapes, ref, c_off, t_off, c_logit, t_logit, rule = args
+            Tn, Q, M, D = ref.shape[0], ref.shape[1], value.shape[2], value.shape[3]
+            L = len(shapes)
+            P = c_off.shape[-1] // (M * L * 2)
+            log(f"  encoder layer 0: T={Tn} Q={Q} levels {list(shapes)}")
+            win = K.msda_tap_window(shapes, ref, c_off, t_off, M)
+            if not torch.equal(win, K.msda_tap_window_plain(shapes, ref, c_off, t_off, M)):
+                raise AssertionError(f"{where}: K2 windows differ from the plain version")
+            keep("K2", 0.0)
+            plan = K.window_plan(shapes, value.dtype, D, P)
+            _, reads = K.launch_k1(*args, win, plan, "count")
+            log(f"  K2 windows equal; K1 corners read from global memory {reads.tolist()} "
+                f"(in fitted windows, over capacity)")
+            if reads[0].item() != 0:
+                raise AssertionError(f"{where}: a K2 window missed a tap of K1")
+            keep("K1", compare("  K1 bf16", K.msda_temporal_proj(*args),
+                               K.msda_temporal_proj_plain(*args), 2e-2))
+            if train:
+                loc = K.temporal_proj_locations(shapes, ref, c_off, t_off, M).contiguous()
+                att = K.temporal_proj_weights(c_logit, t_logit, M, L).contiguous()
+                g = grad_for(value.new_empty(Tn, Q, M * D))
+                keep("K5", bwd_compare(torch, "  K5 (encoder)", K.msda_temporal_bwd,
+                                       K.msda_temporal_bwd_plain, None,
+                                       (value, shapes, loc, att, g, rule)))
+                del loc, att, g
+            del args, value, ref, c_off, t_off, c_logit, t_logit, win
+            torch.cuda.empty_cache()
+        if "msda_temporal" in calls:                  # decoder layer 0: K3; K5
+            value, shapes, loc, att, rule = args = calls["msda_temporal"]
+            log(f"  decoder layer 0: T={loc.shape[0]} Q={loc.shape[1]}")
+            out = K.msda_temporal(*args)
+            keep("K3", compare("  K3 bf16", out, K.ms_deform_attn_temporal_plain(*args), 2e-2))
+            if train:
+                keep("K5", bwd_compare(torch, "  K5 (decoder)", K.msda_temporal_bwd,
+                                       K.msda_temporal_bwd_plain, None,
+                                       (value, shapes, loc, att, grad_for(out), rule)))
+            del args, value, loc, att, out
+        if "msda_proj" in calls:                      # encoder layer 0: K8; K7
+            value, shapes, ref, off, logit = args = calls["msda_proj"]
+            M, L = value.shape[2], len(shapes)
+            log(f"  encoder layer 0: B={ref.shape[0]} Q={ref.shape[1]} levels {list(shapes)}")
+            out = K.msda_proj(*args)
+            keep("K8", compare("  K8 bf16", out, K.msda_proj_plain(*args), 2e-2))
+            if train:
+                loc = K.proj_locations(shapes, ref, off, M).contiguous()
+                att = K.proj_weights(logit, M, L).contiguous()
+                keep("K7", bwd_compare(torch, "  K7 (K8's backward)", K.msda_rows_bwd,
+                                       K.msda_rows_bwd_plain, None,
+                                       (value, shapes, loc, att, grad_for(out))))
+                del loc, att
+            del args, value, ref, off, logit, out
+            torch.cuda.empty_cache()
+        if "msda_taps" in calls:                      # decoder layer 1: K6; K9
+            value, shapes, loc, att = args = calls["msda_taps"]
+            log(f"  decoder layer 1: B={loc.shape[0]} Q={loc.shape[1]}")
+            out = K.msda_taps(*args)
+            keep("K6", compare("  K6 bf16", out, ms_deform_attn(*args), 2e-2))
+            if train:
+                g = grad_for(out)
+                idx, wt = K.taps(shapes, loc, att)
+                got = K.msda_taps_bwd(value, shapes, idx, wt, g)
+                want = K.msda_taps_bwd_plain(value.float(), shapes, idx, wt, g.float())
+                keep("K9", compare("  K9 bf16 grad_value", got[0], want[0], 1e-2))
+                compare("  K9 bf16 grad_wt", got[1], want[1], 1e-4)
+                del g, idx, wt, got, want
+            del args, value, loc, att, out
+        if "msda_rows" in calls:                      # mask-head layer 0 (route): K6; K7
+            u, shapes, loc, att, grid = calls["msda_rows"]
+            nb = _batch_cut(u, u[0].numel() * 4)
+            cut = (u[:nb], shapes, loc[:nb], att[:nb])
+            log(f"  mask-head layer 0 (the route under a gradient): B={u.shape[0]} "
+                f"grid {tuple(grid)} D={u.shape[-1]}, held at {nb}")
+            out = K.msda_rows(u, shapes, loc, att, grid)
+            keep("K6", compare("  K6 bf16", out[:nb], ms_deform_attn(*cut), 2e-2))
+            if train:
+                keep("K7", bwd_compare(torch, "  K7 (route)",
+                                       lambda *a: K.msda_rows_bwd(*a, grid),
+                                       K.msda_rows_bwd_plain, None,
+                                       cut + (grad_for(out[:nb]),)))
+            del u, loc, att, cut, out
+            torch.cuda.empty_cache()
+        if "modulated_deform_conv2d" in calls:        # mask-head layer 0: K4
+            x, *rest = calls["modulated_deform_conv2d"]
+            nb = _batch_cut(x, x[0].numel() * 4 * 4)
+            log(f"  mask-head layer 0: K4 at B={x.shape[0]} {tuple(x.shape[1:])}, held at {nb}")
+            keep("K4", compare("  K4 bf16", modulated_deform_conv2d(x, *rest)[:nb],
+                               modulated_deform_conv2d_plain(x[:nb], *rest), 2e-2))
+            del x, rest
+    calls.clear()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def run_cli(torch, argv, ops, wants, first_step=None, **kwargs):
+    """`devis_torch.main.main(argv)` with the launch counts of `ops` zeroed
+    just before and read just after (each must equal its entry of `wants`,
+    no plain path); the CLI's evaluation calls and train steps are timed, and
+    so is each wait of the epoch loop for its next batch; the first call of
+    each op keeps its arguments (`_FirstCalls`). Returns main's `result`,
+    `launches` by op, `eval_s`, `step_s`, each step's `canvas` (h, w),
+    `waits` for a batch and the first `calls`."""
+    import types
+
+    import devis_torch.datasets as datasets
+    import devis_torch.engine as engine
+    import devis_torch.inference as inference
+    from devis_torch import main as cli
+
+    evals = {}
+    steps, canvases, waits = [], [], []
+    saved = (inference.evaluate_coco, inference.inference_vis, engine.make_train_step,
+             datasets.TrainLoader.__iter__)
+    inference.evaluate_coco = evals["coco"] = _Timed(torch, saved[0])
+    inference.inference_vis = evals["vis"] = _Timed(torch, saved[1])
+
+    def before_step(state, batch, gen=None):
+        canvases.append(tuple(batch["images"].shape[-3:-1]))
+        if first_step is not None:
+            first_step(state, batch, gen)
+
+    def make_train_step(model, cfg):
+        fn = _Timed(torch, saved[2](model, cfg), before=before_step)
+        steps.append(fn)
+        return fn
+
+    def timed_iter(loader):
+        it = saved[3](loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                if batch is None:
+                    return
+                waits.append(time.perf_counter() - t0)
+                yield batch
+        finally:
+            it.close()
+    engine.make_train_step = make_train_step
+    datasets.TrainLoader.__iter__ = timed_iter
+    zero_coco_counts(ops)
+    try:
+        with _FirstCalls(torch) as first:
+            result = cli.main(argv, **kwargs)
+    finally:
+        (inference.evaluate_coco, inference.inference_vis, engine.make_train_step,
+         datasets.TrainLoader.__iter__) = saved
+    launches = {fn.__name__: fn.launches for fn in ops}
+    log(f"  launches: {launches}")
+    check_coco_counts(ops, wants)
+    step_s = [t for fn in steps for t in fn.secs]
+    if step_s:
+        log(f"  steps {[round(v, 4) for v in step_s]} s on canvases {canvases}; waits for a "
+            f"batch {[round(v, 4) for v in waits]} s")
+    return types.SimpleNamespace(
+        result=result, launches=launches, eval_s=sum(evals["coco"].secs) + sum(evals["vis"].secs),
+        step_s=step_s, canvas=canvases, waits=waits, calls=first.args)
+
+
+def seen_canvas_steps(*runs):
+    """The step times of `runs`, in order, whose canvas an earlier step had.
+    The caching allocator and the launch plans' caches live as long as the
+    process, so only such a step meets no new shape."""
+    step_s = [t for run in runs for t in run.step_s]
+    canvas = [c for run in runs for c in run.canvas]
+    return [t for i, (t, c) in enumerate(zip(step_s, canvas)) if c in canvas[:i]]
+
+
+def check_finite(what, tree):
+    import numpy as np
+    flat = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (float, int)):
+            flat.append(float(x))
+    walk(tree)
+    if not flat or not np.isfinite(flat).all():
+        raise AssertionError(f"{what}: non-finite or empty stats {tree}")
+
+
+def data_pipeline_seconds(torch, argv, n_batches=3):
+    """Host seconds a training batch takes to decode, transform and collate
+    (`TrainLoader.make_batch`, no prefetch), the CLI's dataset and loader."""
+    from devis_torch.datasets import build_dataset
+    from devis_torch.main import build_train_loader, parse_args, setup_cfg
+    cfg = setup_cfg(parse_args(argv))
+    ds, _ = build_dataset("TRAIN", cfg)
+    loader = build_train_loader(cfg, ds)
+    secs = []
+    for idxs in loader.batch_indices()[:n_batches]:
+        t0 = time.perf_counter()
+        batch = loader.make_batch(idxs)
+        secs.append(time.perf_counter() - t0)
+    return secs, tuple(batch["images"].shape)
+
+
+def cli_phase(torch, dev, card):
+    """`python -m devis_torch.main` from seeded files on disk at full width
+    and depth (bf16, seeded random weights): the COCO mask-head model
+    (--eval-only; train with the periodic evaluation; --resume) and DeVIS
+    R50 YT-19 (train with the periodic evaluation; --eval-only), each run
+    with the launch counts zeroed before and read after."""
+    import tempfile
+
+    from devis_torch.util import checkpoint as ckpt
+    from devis_torch.util.fixtures import tree_summary, write_coco_tree, write_vis_tree
+
+    t_phase = time.perf_counter()
+    coco_ops_, vis_ops = coco_ops(), kernel_ops()
+    with tempfile.TemporaryDirectory(prefix="devis_cli_") as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        write_coco_tree(data, seed=SEED, n_train=CLI_COCO_TRAIN, n_val=4,
+                        sizes=((480, 640), (640, 480)))
+        write_vis_tree(data, seed=SEED, n_train=2, n_val=2, n_frames=12, size=VIDEO_HW)
+        log(f"CLI phase: fixture trees written in {time.perf_counter() - t0:.1f} s: "
+            f"{tree_summary(data)}")
+        base = ["TPU.COMPUTE_DTYPE", "bfloat16", "MODEL.WEIGHTS", "", "DATASETS.DATA_PATH", data]
+        n_enc = n_dec = 6
+        n_dcn, n_mask = 6, 2                  # mask-head DCNv2 layers; mask loss on 2 levels
+
+        # --- COCO -----------------------------------------------------------
+        coco_out = os.path.join(tmp, "coco")
+        coco_file = ["--config-file", os.path.join(HERE, CLI_COCO_CONFIG)]
+        coco = base + ["OUTPUT_DIR", coco_out, "SOLVER.BATCH_SIZE", "2",
+                       "TEST.EVAL_BATCH_SIZE", "1"]
+        img = (n_enc + 1, n_dec - 1, 0, 0, n_dcn, 0)                  # K8 K6 K9 K7 K4 K10
+        step = (n_enc + 1, n_dec - 1 + n_dcn * n_mask, n_dec - 1, n_enc + 1 + n_dcn * n_mask, 0, 0)
+        n_steps = (CLI_COCO_TRAIN - 1) // 2   # the last train image has no object
+        log("CLI COCO --eval-only: 4 images of 480x640 and 640x480")
+        run = run_cli(torch, coco_file + ["--eval-only"] + coco, coco_ops_, [4 * c for c in img])
+        checks = {"coco_eval": cli_kernel_checks(torch, dev, run.calls, False, "COCO --eval-only")}
+        res = run.result
+        check_finite("COCO eval", res["eval"])
+        if set(res["eval"]) != {"bbox", "segm"}:
+            raise AssertionError(f"COCO eval gave {sorted(res['eval'])}")
+        coco_images_per_s = 4 / run.eval_s
+        log(f"  bbox {res['eval']['bbox']}; {coco_images_per_s:.3f} images/s ({card})")
+        runs = [run]
+
+        log(f"CLI COCO train: 1 epoch ({n_steps} steps of 2), eval once, checkpoints")
+        coco_train = run_cli(
+            torch, coco_file + coco + ["SOLVER.EPOCHS", "1", "TEST.START_EVAL_EPOCH", "1"],
+            coco_ops_, [n_steps * a + 4 * b for a, b in zip(step, img)])
+        checks["coco_train"] = cli_kernel_checks(torch, dev, coco_train.calls, True, "COCO train")
+        ep = coco_train.result["epochs"][0]
+        check_finite("COCO train", ep["train"])
+        check_finite("COCO periodic eval", ep["eval"])
+        for d in ("checkpoint", "checkpoint_epoch_0", "checkpoint_best_coco_ap"):
+            if not os.path.exists(os.path.join(coco_out, d, ckpt.STATE_FILE)):
+                raise AssertionError(f"no {d}/ written")
+        with open(os.path.join(coco_out, "checkpoint", "meta.json")) as f:
+            meta = json.load(f)
+        if meta["epoch"] != 0 or "coco_ap" not in meta["best_stats"]:
+            raise AssertionError(f"meta.json: {meta}")
+
+        log("CLI COCO --resume: epoch 1 from checkpoint/, no eval")
+        saved = ckpt.load_checkpoint(os.path.join(coco_out, "checkpoint"))
+        seen = []
+
+        def first_step(state, batch, gen=None):
+            if seen:
+                return
+            seen.append(state.step)
+            for k, v in state.model.state_dict().items():
+                if not torch.equal(v.cpu(), saved["model"][k]):
+                    raise AssertionError(f"resumed model differs from the checkpoint at {k}")
+        coco_resume = run_cli(
+            torch, coco_file + ["--resume", os.path.join(coco_out, "checkpoint")] + coco
+            + ["SOLVER.EPOCHS", "2", "TEST.START_EVAL_EPOCH", "3"], coco_ops_,
+            [n_steps * a for a in step], first_step=first_step)
+        res = coco_resume.result
+        if (res["start_epoch"] != 1 or seen != [saved["step"]]
+                or res["epochs"][0]["step"] != 2 * n_steps):
+            raise AssertionError(f"resume: start {res['start_epoch']}, steps {seen}, "
+                                 f"{res['epochs'][0]['step']}")
+        check_finite("COCO resumed train", res["epochs"][0]["train"])
+        runs += [coco_train, coco_resume]
+
+        # --- VIS --------------------------------------------------------------
+        vis_out = os.path.join(tmp, "vis")
+        vis_file = ["--config-file", os.path.join(HERE, CLI_VIS_CONFIG)]
+        vis = base + ["OUTPUT_DIR", vis_out]
+        clips = 2 * 3                         # 2 videos of 12 frames: 3 clips of 6 at stride 4
+        vstep = (6, 6, 6, 12, 12, 12, 0)                  # K1 K2 K3 K5 K6 K7 K4
+        vclip = (6, 6, 6, 0, 0, 0, 6)
+        log(f"CLI VIS train: {VIS_CLI_STEPS} steps of epoch 0, then the periodic evaluation")
+        vis_train = run_cli(
+            torch, vis_file + vis + ["SOLVER.EPOCHS", "1", "TEST.START_EVAL_EPOCH", "1"], vis_ops,
+            [VIS_CLI_STEPS * a + clips * b for a, b in zip(vstep, vclip)],
+            max_steps=VIS_CLI_STEPS)
+        checks["vis_train"] = cli_kernel_checks(torch, dev, vis_train.calls, True, "VIS train")
+        ep = vis_train.result["epochs"][0]
+        check_finite("VIS train", ep["train"])
+        check_finite("VIS periodic eval", ep["eval"]["eval"])
+        if ep["step"] != VIS_CLI_STEPS or not os.path.exists(os.path.join(vis_out, "checkpoint_best_vis_ap")):
+            raise AssertionError(f"VIS train: {ep['step']} steps or no best checkpoint")
+
+        log("CLI VIS --eval-only: build_tracker + inference_vis over 2 videos")
+        vis_eval = run_cli(
+            torch, vis_file + ["--eval-only"] + vis
+            + ["MODEL.WEIGHTS", os.path.join(vis_out, "checkpoint")],
+            vis_ops, [clips * b for b in vclip])
+        checks["vis_eval"] = cli_kernel_checks(torch, dev, vis_eval.calls, False,
+                                               "VIS --eval-only")
+        res = vis_eval.result
+        check_finite("TrackMAP", res["eval"]["eval"])
+        with open(os.path.join(vis_out, "eval_results", "results.json")) as f:
+            tracks = json.load(f)
+        sizes = {tuple(s["size"]) for t in tracks for s in t["segmentations"] if s}
+        if not tracks or sizes != {VIDEO_HW}:
+            raise AssertionError(f"{len(tracks)} tracks; segmentation sizes {sizes}")
+        log(f"  {len(tracks)} tracks; TrackMAP {res['eval']['eval']}; "
+            f"{24 / vis_eval.eval_s:.3f} frames/s of the eval call ({card})")
+        runs += [vis_train, vis_eval]
+
+        coco_pipe, coco_shape = data_pipeline_seconds(torch, coco_file + coco)
+        vis_pipe, vis_shape = data_pipeline_seconds(torch, vis_file + vis)
+        log(f"  host data pipeline a batch (decode, transform, collate): COCO "
+            f"{[round(v, 4) for v in coco_pipe]} s {coco_shape}, VIS "
+            f"{[round(v, 4) for v in vis_pipe]} s {vis_shape}")
+
+    wall = time.perf_counter() - t_phase
+    cli = {
+        "coco_eval_images_per_s": coco_images_per_s,
+        "coco_train_step_s": coco_train.step_s + coco_resume.step_s,
+        "coco_step_canvas": coco_train.canvas + coco_resume.canvas,
+        "coco_seen_canvas_step_s": seen_canvas_steps(coco_train, coco_resume),
+        "vis_train_step_s": vis_train.step_s,
+        "coco_batch_wait_s": coco_train.waits + coco_resume.waits,
+        "vis_batch_wait_s": vis_train.waits,
+        "vis_eval_frames_per_s": 24 / vis_eval.eval_s,
+        "coco_data_s_per_batch": coco_pipe, "vis_data_s_per_batch": vis_pipe,
+        "coco_batch_shape": coco_shape, "vis_batch_shape": vis_shape,
+        "phase_s": wall, "card": card, "kernel_checks": checks}
+    log(f"CLI phase: {wall:.1f} s")
+    launches = {}
+    for run in runs:
+        for k, v in run.launches.items():
+            launches[k] = launches.get(k, 0) + v
+    return cli, launches, checks
+
+
 def main() -> int:
     try:
         import torch
@@ -2412,6 +2882,8 @@ def main() -> int:
     del coco_model
     torch.cuda.empty_cache()
     coco_train_compare(torch, dev)
+    torch.cuda.empty_cache()
+    cli, cli_launches, cli_checks = cli_phase(torch, dev, card)
     probe_launches = check_probes_idle("every model path")
 
     # K1-K4: launches of the clip inference path's 3 clips; K5-K7: of the clip
@@ -2443,6 +2915,9 @@ def main() -> int:
             "coco_image_launches": coco_launches.get(r["name"], 0),
             "coco_train_launches": coco_train_launches.get(r["name"], 0),
             "e2e_launches": e2e_launches.get(r["name"], 0),
+            "cli_launches": cli_launches.get(r["name"], 0),
+            "cli_max_abs_err": max((c[key] for c in cli_checks.values() if key in c),
+                                   default=None),
             **{k: r[k] for k in ("atomic_bytes", "global_adds", "global_only_ms",
                                  "coco_shapes", "route_ms", "layers", "op_ms",
                                  "k2_ms", "windows", "lab", "random_refs", "path_inputs",
@@ -2459,6 +2934,7 @@ def main() -> int:
     print(json.dumps({"coco_train_step_ms": coco_step_ms, "coco_train_peak_gib": coco_peak_gib,
                       "coco_batch": COCO_BATCH, "card": card}))
     print(json.dumps(e2e))
+    print(json.dumps({"cli": cli}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

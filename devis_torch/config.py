@@ -2,15 +2,21 @@
 
 The port's own copy of `devis_tpu/config.py`: a minimal YACS-compatible
 config node plus the default config tree, with the same key names, so the
-YAML files under `configs/` load verbatim. `yaml` is imported only where a
-file or string is parsed or dumped, so the defaults work on machines that
-lack it.
+YAML files under `configs/` load verbatim.
+
+The files are read and written by the port's own reader and writer of the
+YAML subset they use (`load_yaml`, `dump_yaml`), so no YAML library is
+needed: block mappings, comments, single- and double-quoted and bare
+scalars (int, float including `1e-4`, bool, null) and flow and block lists
+of scalars. Anything outside that subset raises `ValueError` naming the file
+and the line.
 """
 from __future__ import annotations
 
 import copy
-import io
-from typing import Any, Dict, List
+import math
+import re
+from typing import Any, Dict, List, Tuple
 
 
 class CfgNode(dict):
@@ -82,9 +88,8 @@ class CfgNode(dict):
                 self[k] = _coerce(v, self[k], full)
 
     def merge_from_file(self, filename: str) -> None:
-        import yaml
         with open(filename, "r") as f:
-            loaded = yaml.safe_load(f) or {}
+            loaded = load_yaml(f.read(), filename)
         self._merge_other(loaded)
 
     def merge_from_other_cfg(self, other: "CfgNode") -> None:
@@ -101,8 +106,7 @@ class CfgNode(dict):
             if leaf not in node:
                 raise KeyError(f"Unknown config key: {key}")
             if isinstance(value, str):
-                import yaml
-                value = yaml.safe_load(value)
+                value = parse_yaml_value(value, f"override {key}")
             node[leaf] = _coerce(value, node[leaf], key)
 
     # -- serialization ----------------------------------------------------
@@ -110,10 +114,259 @@ class CfgNode(dict):
         return {k: (v.to_dict() if isinstance(v, CfgNode) else v) for k, v in self.items()}
 
     def dump(self) -> str:
-        import yaml
-        buf = io.StringIO()
-        yaml.safe_dump(self.to_dict(), buf, default_flow_style=False)
-        return buf.getvalue()
+        return dump_yaml(self.to_dict())
+
+
+# ---------------------------------------------------------------------------
+# The YAML subset of the config files
+# ---------------------------------------------------------------------------
+
+_BOOLS = {v: True for v in ("true", "True", "TRUE", "yes", "Yes", "YES", "on", "On", "ON")}
+_BOOLS.update({v: False for v in ("false", "False", "FALSE", "no", "No", "NO",
+                                  "off", "Off", "OFF")})
+_NULLS = ("", "~", "null", "Null", "NULL")
+_INT = re.compile(r"[-+]?(0|[1-9][0-9]*)$")
+_FLOAT = re.compile(r"[-+]?([0-9]+\.[0-9]*|\.[0-9]+|[0-9]+)([eE][-+]?[0-9]+)?$")
+_SPECIAL_FLOATS = {".inf": math.inf, ".Inf": math.inf, ".INF": math.inf,
+                   "+.inf": math.inf, "-.inf": -math.inf, "-.Inf": -math.inf,
+                   ".nan": math.nan, ".NaN": math.nan, ".NAN": math.nan}
+_KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_.\-]*|'[^']*'|\"[^\"]*\")[ \t]*:(?:[ \t]|$)")
+
+
+class _Scanner:
+    """Reads one scalar or flow list from `text` at `pos` (one line)."""
+
+    def __init__(self, text: str, where: str):
+        self.text, self.pos, self.where = text, 0, where
+
+    def fail(self, what: str):
+        raise ValueError(f"{self.where}: {what} (column {self.pos + 1}) is outside the "
+                         "YAML subset of the config files")
+
+    def skip_space(self):
+        while self.pos < len(self.text) and self.text[self.pos] in " \t":
+            self.pos += 1
+
+    def value(self, in_flow: bool) -> Any:
+        self.skip_space()
+        if self.pos >= len(self.text):
+            return None
+        c = self.text[self.pos]
+        if c == "[":
+            return self.flow_list()
+        if c in "'\"":
+            return self.quoted(c)
+        if c in "{&*!|>%@`":
+            self.fail(f"{c!r}")
+        stop = ",]" if in_flow else ""
+        start = self.pos
+        while self.pos < len(self.text) and self.text[self.pos] not in stop:
+            if self.text.startswith(": ", self.pos) or self.text.endswith(":") and \
+                    self.pos == len(self.text) - 1:
+                self.fail("a mapping inside a value")
+            self.pos += 1
+        return _plain_scalar(self.text[start:self.pos].strip(), self)
+
+    def quoted(self, q: str) -> str:
+        self.pos += 1
+        out = []
+        while self.pos < len(self.text):
+            c = self.text[self.pos]
+            if q == "'" and c == "'":
+                if self.text.startswith("''", self.pos):
+                    out.append("'")
+                    self.pos += 2
+                    continue
+                self.pos += 1
+                return "".join(out)
+            if q == '"' and c == "\\":
+                esc = self.text[self.pos + 1:self.pos + 2]
+                if esc not in _ESCAPES:
+                    self.fail(f"the escape \\{esc}")
+                out.append(_ESCAPES[esc])
+                self.pos += 2
+                continue
+            if q == '"' and c == '"':
+                self.pos += 1
+                return "".join(out)
+            out.append(c)
+            self.pos += 1
+        self.fail("an unterminated quoted string")
+
+    def flow_list(self) -> List[Any]:
+        self.pos += 1
+        items: List[Any] = []
+        while True:
+            self.skip_space()
+            if self.pos >= len(self.text):
+                self.fail("a flow list that does not close on its line")
+            if self.text[self.pos] == "]":
+                self.pos += 1
+                return items
+            items.append(self.value(in_flow=True))
+            self.skip_space()
+            if self.pos < len(self.text) and self.text[self.pos] == ",":
+                self.pos += 1
+            elif self.pos >= len(self.text) or self.text[self.pos] != "]":
+                self.fail("a flow list item not followed by ',' or ']'")
+
+    def end(self):
+        self.skip_space()
+        if self.pos != len(self.text):
+            self.fail(f"text after the value: {self.text[self.pos:]!r}")
+
+
+_ESCAPES = {'"': '"', "\\": "\\", "/": "/", "n": "\n", "t": "\t", "r": "\r", "0": "\0"}
+
+
+def _plain_scalar(s: str, scanner: _Scanner) -> Any:
+    if s in _NULLS:
+        return None
+    if s in _BOOLS:
+        return _BOOLS[s]
+    if _INT.match(s):
+        return int(s)
+    if s in _SPECIAL_FLOATS:
+        return _SPECIAL_FLOATS[s]
+    if _FLOAT.match(s):
+        return float(s)
+    if s[0].isdigit() or s[0] in "+-." and s[1:2].isdigit():
+        scanner.fail(f"the number {s!r}")       # 0x1f, 0123, 1_000, 1:30
+    return s
+
+
+def _strip_comment(line: str) -> str:
+    """The line without a comment: '#' at its start or after a blank, outside
+    quotes."""
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "'\"":
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def parse_yaml_value(text: str, where: str = "<value>") -> Any:
+    """One scalar or flow list, as a command-line override gives it."""
+    sc = _Scanner(text.strip(), where)
+    value = sc.value(in_flow=False)
+    sc.end()
+    return value
+
+
+def load_yaml(text: str, filename: str = "<string>") -> Dict[str, Any]:
+    """The nested dict of a document in the config files' YAML subset (an
+    empty document gives {})."""
+    lines: List[Tuple[int, int, str]] = []            # (line number, indent, text)
+    for n, raw in enumerate(text.splitlines(), 1):
+        body = _strip_comment(raw)
+        if not body.strip() or (not lines and body.strip() == "---"):
+            continue
+        indent = len(body) - len(body.lstrip(" "))
+        if body[indent:indent + 1] == "\t":
+            raise ValueError(f"{filename}:{n}: a tab in the indentation is outside the "
+                             "YAML subset of the config files")
+        lines.append((n, indent, body[indent:]))
+    if not lines:
+        return {}
+    out, pos = _block(lines, 0, lines[0][1], filename)
+    if pos != len(lines):
+        n = lines[pos][0]
+        raise ValueError(f"{filename}:{n}: a line indented less than the document's "
+                         "first key")
+    if not isinstance(out, dict):
+        raise ValueError(f"{filename}: the document is not a mapping")
+    return out
+
+
+def _block(lines, pos: int, indent: int, filename: str):
+    """The block mapping or block list whose lines start at `pos` at
+    `indent`; returns it and the position after it."""
+    n, _, body = lines[pos]
+    if body == "-" or body.startswith("- "):
+        items = []
+        while pos < len(lines) and lines[pos][1] == indent and \
+                (lines[pos][2] == "-" or lines[pos][2].startswith("- ")):
+            n, _, body = lines[pos]
+            if _KEY.match(body[2:].lstrip()):
+                raise ValueError(f"{filename}:{n}: a mapping inside a list is outside "
+                                 "the YAML subset of the config files")
+            items.append(parse_yaml_value(body[1:], f"{filename}:{n}"))
+            pos += 1
+        return items, pos
+    mapping: Dict[str, Any] = {}
+    while pos < len(lines) and lines[pos][1] == indent:
+        n, _, body = lines[pos]
+        m = _KEY.match(body)
+        if m is None:
+            raise ValueError(f"{filename}:{n}: expected 'KEY: value', got {body!r} "
+                             "(outside the YAML subset of the config files)")
+        key = m.group(1)
+        if key[0] in "'\"":
+            key = key[1:-1]
+        if key in mapping:
+            raise ValueError(f"{filename}:{n}: the key {key!r} appears twice")
+        rest = body[m.end():].strip()
+        pos += 1
+        if rest:
+            mapping[key] = parse_yaml_value(rest, f"{filename}:{n}")
+        elif pos < len(lines) and (lines[pos][1] > indent or (
+                lines[pos][1] == indent and (lines[pos][2] == "-"
+                                             or lines[pos][2].startswith("- ")))):
+            mapping[key], pos = _block(lines, pos, lines[pos][1], filename)
+        else:
+            mapping[key] = None
+    if pos < len(lines) and lines[pos][1] > indent:
+        n = lines[pos][0]
+        raise ValueError(f"{filename}:{n}: unexpected indentation")
+    return mapping, pos
+
+
+def _dump_scalar(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        mant, _, exp = r.partition("e")
+        if "." not in mant:                 # 2e-05 -> 2.0e-05, as YAML 1.1 reads floats
+            mant += ".0"
+        return mant + ("e" + exp if exp else "")
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_scalar(x) for x in v) + "]"
+    if isinstance(v, str):
+        if "\n" in v:
+            raise ValueError(f"cannot write a string with a newline: {v!r}")
+        return "'" + v.replace("'", "''") + "'"
+    raise ValueError(f"cannot write {type(v).__name__} {v!r} in the config subset")
+
+
+def dump_yaml(tree: Dict[str, Any], indent: int = 0) -> str:
+    """Block mappings, scalars and flow lists: `load_yaml` reads it back to
+    an equal tree."""
+    lines: List[str] = []
+    for k, v in tree.items():
+        if not isinstance(k, str) or not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", k):
+            raise ValueError(f"cannot write the key {k!r}")
+        if isinstance(v, dict):
+            if not v:
+                raise ValueError(f"cannot write the empty mapping {k!r}")
+            lines.append(" " * indent + f"{k}:")
+            lines.append(dump_yaml(v, indent + 2).rstrip("\n"))
+        else:
+            lines.append(" " * indent + f"{k}: {_dump_scalar(v)}")
+    return "\n".join(lines) + "\n"
 
 
 def _coerce(value: Any, old: Any, key: str) -> Any:

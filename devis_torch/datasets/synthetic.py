@@ -1,9 +1,11 @@
-"""Synthetic validation videos with exact ground truth (port of the
-evaluation half of `devis_tpu/datasets/synthetic.py`): moving rectangles and
-ellipses of seeded colours, sizes and speeds, parsed into overlapping clips
-like a YouTube-VIS validation video, with an in-memory YouTube-VIS GT dict
-for TrackMAP. The tracker's tests and the e2e phase of `chip_smoke.py` run
-on them; nothing is downloaded.
+"""Synthetic datasets with exact ground truth (port of
+`devis_tpu/datasets/synthetic.py`): moving rectangles and ellipses of seeded
+colours, sizes and speeds. `SyntheticVISDataset` and `SyntheticCocoDataset`
+are training sets (clips and still images with their targets);
+`SyntheticVISValDataset` parses the videos into overlapping clips like a
+YouTube-VIS validation video, with an in-memory YouTube-VIS GT dict for
+TrackMAP. They back the `synthetic` splits of `build_vis` and `build_coco`;
+nothing is downloaded.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Dict, List
 import numpy as np
 
 from ..evaluation import rle as rle_lib
-from .transforms import ValTransform
+from .transforms import ValTransform, normalize_sample
 from .vis import VideoClips
 
 
@@ -119,6 +121,55 @@ class _SyntheticVideoClips(VideoClips):
             frames.append(self.transform(self.synthetic_video.frame(t)))
         return np.stack(frames)
 
+    def read_frame(self, t: int) -> np.ndarray:
+        """Frame `t` at its original size (float32 RGB, as drawn)."""
+        return self.synthetic_video.frame(t)
+
+
+class SyntheticVISDataset:
+    """Training clips over synthetic videos: every start frame of every
+    video, normalized frames, per-trajectory targets with boxes from the
+    masks (cxcywh normalized)."""
+
+    def __init__(self, num_frames: int = 6, n_videos: int = 4,
+                 video_len: int = 12, size=(180, 320), seed: int = 0):
+        self.num_frames = num_frames
+        self.videos = [SyntheticVideo(i + 1, video_len, size, seed=seed)
+                       for i in range(n_videos)]
+        self.samples = [(v, s) for v in range(n_videos)
+                        for s in range(video_len - num_frames + 1)]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx: int) -> Dict:
+        vi, start = self.samples[idx]
+        video = self.videos[vi]
+        T = self.num_frames
+        imgs, all_masks = [], []
+        for t in range(start, start + T):
+            img, masks = video.render(t)
+            imgs.append(normalize_sample({"image": img})["image"])
+            all_masks.append(masks)
+        N = len(video.insts)
+        h, w = video.size
+        masks = np.stack([np.stack([all_masks[t][n] for t in range(T)])
+                          for n in range(N)])                  # (N, T, H, W)
+        boxes = np.zeros((N, T, 4), np.float32)
+        for n in range(N):
+            for t in range(T):
+                ys, xs = np.nonzero(masks[n, t])
+                if len(ys):
+                    x0, x1 = xs.min(), xs.max() + 1
+                    y0, y1 = ys.min(), ys.max() + 1
+                    boxes[n, t] = [(x0 + x1) / 2 / w, (y0 + y1) / 2 / h,
+                                   (x1 - x0) / w, (y1 - y0) / h]
+        return {"images": np.stack(imgs),
+                "labels": np.asarray([i["cat"] - 1 for i in video.insts], np.int32),
+                "boxes": boxes, "masks": masks,
+                "valid": masks.reshape(N, T, -1).sum(-1) > 2,
+                "exists": np.ones(N, bool), "video_id": video.video_id}
+
 
 class SyntheticVISValDataset:
     """Val-style dataset with in-memory YouTube-VIS GT for TrackMAP."""
@@ -182,3 +233,58 @@ class SyntheticVISValDataset:
         categories = [{"id": i, "name": f"cat{i}"} for i in range(1, 6)]
         return {"videos": videos, "annotations": annotations,
                 "categories": categories}
+
+
+class SyntheticCocoDataset:
+    """Still synthetic scenes as a COCO-style image dataset, with its COCO
+    GT dict for the evaluator; images come at their final size."""
+
+    def __init__(self, train: bool = True, n_images: int = 8, size=(200, 280),
+                 seed: int = 0):
+        self.train = train
+        self.size = size
+        self.scenes = [SyntheticVideo(i + 1, 1, size, seed=seed) for i in range(n_images)]
+
+    def __len__(self):
+        return len(self.scenes)
+
+    def __getitem__(self, idx: int) -> Dict:
+        v = self.scenes[idx]
+        img, masks = v.render(0)
+        h, w = self.size
+        boxes = np.zeros((len(masks), 4), np.float32)
+        for n, m in enumerate(masks):
+            ys, xs = np.nonzero(m)
+            if len(ys):
+                boxes[n] = [(xs.min() + xs.max() + 1) / 2 / w,
+                            (ys.min() + ys.max() + 1) / 2 / h,
+                            (xs.max() + 1 - xs.min()) / w,
+                            (ys.max() + 1 - ys.min()) / h]
+        return {"image": normalize_sample({"image": img})["image"],
+                "labels": np.asarray([i["cat"] - 1 for i in v.insts], np.int32),
+                "boxes": boxes, "masks": np.stack(masks),
+                "valid": np.asarray([m.sum() > 2 for m in masks]),
+                "image_id": idx, "orig_size": self.size}
+
+    def eval_hw(self, idx: int):
+        return self.size
+
+    def gt_dict(self) -> Dict:
+        h, w = self.size
+        images, annotations = [], []
+        aid = 0
+        for idx, v in enumerate(self.scenes):
+            images.append({"id": idx, "height": h, "width": w})
+            for inst, m in zip(v.insts, v.render(0)[1]):
+                ys, xs = np.nonzero(m)
+                if not len(ys):
+                    continue
+                aid += 1
+                annotations.append({
+                    "id": aid, "image_id": idx, "category_id": inst["cat"],
+                    "bbox": [float(xs.min()), float(ys.min()),
+                             float(xs.max() + 1 - xs.min()), float(ys.max() + 1 - ys.min())],
+                    "area": int(m.sum()), "iscrowd": 0,
+                    "segmentation": rle_lib.encode(m > 0)})
+        return {"images": images, "annotations": annotations,
+                "categories": [{"id": c, "name": f"cat{c}"} for c in range(1, 6)]}

@@ -19,7 +19,7 @@ optimizer, the train step for clips and for images, and the host epoch loop.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -113,6 +113,7 @@ class TrainState:
     schedules: Dict[str, Callable[[int], float]]
     max_norm: float
     step: int = 0
+    rng_states: Dict = field(default_factory=dict)   # as restored from a checkpoint
 
     def apply_gradients(self) -> torch.Tensor:
         """Clip the gradients held by the model's parameters by their global
@@ -146,9 +147,18 @@ def clip_by_global_norm(params: Iterable[nn.Parameter], max_norm: float) -> torc
     return norm
 
 
-def create_train_state(cfg, model: nn.Module, steps_per_epoch: int) -> TrainState:
+def create_train_state(cfg, model: nn.Module, steps_per_epoch: int,
+                       restore_from: Optional[str] = None) -> TrainState:
+    """The optimizer and schedule over `model`; with `restore_from` (a
+    directory `util.checkpoint.save_checkpoint` wrote), the model, the AdamW
+    state and the step as saved there, and the saved RNG states in
+    `rng_states` for the caller to set."""
     optimizer, schedules, _ = build_optimizer(cfg, model, steps_per_epoch)
-    return TrainState(model, optimizer, schedules, cfg.SOLVER.GRAD_CLIP_MAX_NORM)
+    state = TrainState(model, optimizer, schedules, cfg.SOLVER.GRAD_CLIP_MAX_NORM)
+    if restore_from:
+        from .util.checkpoint import restore_checkpoint
+        state.rng_states = restore_checkpoint(restore_from, state)
+    return state
 
 
 def _to_device(tree, device):
@@ -238,12 +248,18 @@ def train_one_epoch(step_fn, state: TrainState, data_loader, generator=None,
                     debug: bool = False) -> Tuple[TrainState, Dict[str, float]]:
     """Host epoch loop: one step per batch, metrics logged; raises
     FloatingPointError on a non-finite loss (the step has skipped its
-    update). Returns the state and each metric's average over the epoch."""
+    update). Batches are `datasets.TrainLoader`'s, numpy, as they come.
+    Returns the state and each metric's average over the epoch."""
     logger = MetricLogger(print_freq=print_freq, debug=debug)
-    for batch in logger.log_every(data_loader, header=f"Epoch: [{epoch}]"):
-        state, metrics = step_fn(state, batch, generator)
-        host = {k: float(v) for k, v in metrics.items()}
-        if host["finite"] < 1.0 or not math.isfinite(host["loss"]):
-            raise FloatingPointError(f"Loss is not finite at epoch {epoch}: {host}")
-        logger.update(**host)
+    batches = logger.log_every(data_loader, header=f"Epoch: [{epoch}]")
+    try:
+        for batch in batches:
+            state, metrics = step_fn(state, batch, generator)
+            host = {k: float(v) for k, v in metrics.items()}
+            if host["finite"] < 1.0 or not math.isfinite(host["loss"]):
+                raise FloatingPointError(f"Loss is not finite at epoch {epoch}: {host}")
+            logger.update(**host)
+    finally:
+        batches.close()                   # stops the loader's thread
+    logger.synchronize_between_processes()
     return state, {k: m.global_avg for k, m in logger.meters.items()}

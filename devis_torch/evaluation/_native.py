@@ -1,11 +1,12 @@
 """ctypes bindings of the port's host C code: the RLE codec
-(`devis_torch/csrc/rle.c`) and OpenCV's float bilinear resize
-(`devis_torch/csrc/resize.c`).
+(`devis_torch/csrc/rle.c`), OpenCV's float bilinear resize
+(`devis_torch/csrc/resize.c`), OpenCV's polygon fill (`csrc/poly.c`) and
+PNG's scanline unfiltering (`csrc/png.c`).
 
-Both sources are built with ``cc -O2 -fPIC -shared`` into
+The sources are built with ``cc -O2 -fPIC -shared`` into
 `devis_torch/_build/libhost.so` at first use (and again when a source is
-newer). A failed build raises: the numpy functions in `rle.py` and
-`datasets/transforms.py` are the plain versions the tests hold this library
+newer). A failed build raises: the numpy functions in `rle.py`,
+`datasets/{transforms,coco,image_io}.py` are the plain versions the tests hold this library
 against, not a fallback. ctypes releases the GIL for each call.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 
 from ..ops import _build
 
-SOURCES = [os.path.join(_build.SRC_DIR, f) for f in ("rle.c", "resize.c")]
+SOURCES = [os.path.join(_build.SRC_DIR, f) for f in ("rle.c", "resize.c", "poly.c", "png.c")]
 LIB_PATH = os.path.join(_build.BUILD_DIR, "libhost.so")
 
 _lib = None
@@ -76,6 +77,12 @@ def lib() -> ctypes.CDLL:
                                                ctypes.c_long]
             L.resize_linear_f32.restype = ctypes.c_long
             L.resize_linear_f32.argtypes = [F32_P] + [ctypes.c_long] * 5 + [F32_P]
+            L.fill_poly.restype = ctypes.c_long
+            L.fill_poly.argtypes = [U8_P, ctypes.c_long, ctypes.c_long, _LONG_P, _LONG_P,
+                                    ctypes.c_long]
+            L.png_unfilter.restype = ctypes.c_long
+            L.png_unfilter.argtypes = [U8_P, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+                                       U8_P]
             _lib = L
     return _lib
 
@@ -161,3 +168,33 @@ def string_to_counts(s: str) -> np.ndarray:
         raise ValueError(f"malformed RLE string {s[:40]!r}")
     return out[:n]
 
+
+
+def fill_poly(mask: np.ndarray, polygons: Sequence[np.ndarray]) -> None:
+    """Fills int (n, 2) (x, y) polygons into the C-contiguous uint8 (h, w)
+    `mask` with 1, as cv2.fillPoly(mask, polygons, 1) does."""
+    if mask.dtype != np.uint8 or mask.ndim != 2 or not mask.flags.c_contiguous:
+        raise ValueError("fill_poly takes a C-contiguous uint8 (h, w) mask")
+    counts = np.asarray([len(p) for p in polygons], np.int64)
+    xy = (np.concatenate([np.asarray(p, np.int64).reshape(-1, 2) for p in polygons])
+          if len(polygons) else np.zeros((0, 2), np.int64))
+    xy = np.ascontiguousarray(xy)
+    if lib().fill_poly(_ptr_u8(mask), mask.shape[0], mask.shape[1], _ptr_long(xy),
+                       _ptr_long(counts), len(counts)) != 0:
+        raise MemoryError("fill_poly")
+
+
+def png_unfilter(raw: np.ndarray, height: int, row_bytes: int, bpp: int) -> np.ndarray:
+    """Undoes the PNG scanline filters of `raw` (height rows of a filter
+    byte and row_bytes bytes) into a (height, row_bytes) uint8 array; raises
+    ValueError, naming the row, on a filter type outside 0-4."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    if raw.size != height * (row_bytes + 1):
+        raise ValueError(f"PNG image data holds {raw.size} bytes, expected "
+                         f"{height * (row_bytes + 1)}")
+    out = np.empty((height, row_bytes), np.uint8)
+    bad = lib().png_unfilter(_ptr_u8(raw), height, row_bytes, bpp, _ptr_u8(out))
+    if bad:
+        raise ValueError(f"PNG row {bad - 1} has filter type "
+                         f"{raw.reshape(-1)[(bad - 1) * (row_bytes + 1)]}")
+    return out

@@ -1,7 +1,8 @@
 """Inference entry points (port of `devis_tpu/inference.py`): video in, tracks
 out (`build_tracker`, `inference_vis`), the device step of the clip-stitching
 tracker (`VISInferFn`, `make_eval_buckets`) and the COCO evaluation loop of
-the image model (`evaluate_coco`).
+the image model (`evaluate_coco`, into the port's `CocoEvaluator` unless
+the caller passes an evaluator, with the val losses on request).
 
 `VISInferFn` keeps the JAX package's three stages: `prepare` (host: load and
 pad one clip to a static canvas), `dispatch` (upload and enqueue the forward;
@@ -24,12 +25,13 @@ import os
 import time
 import zipfile
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .datasets.transforms import get_size_with_aspect_ratio
+from .datasets import pick_canvas, round_up
+from .datasets.transforms import get_size_with_aspect_ratio, resize_nearest_numpy
 from .evaluation.track_map import evaluate_vis
 from .models.detr import top_k_process
 from .ops.interpolate import resize_bilinear_hw
@@ -37,18 +39,6 @@ from .util.misc import resolve_device
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-
-
-def round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def pick_canvas(h: int, w: int, buckets: Sequence[Tuple[int, int]]) -> Tuple[int, int]:
-    """Smallest bucket that fits (h, w)."""
-    for bh, bw in buckets:
-        if h <= bh and w <= bw:
-            return bh, bw
-    return round_up(h, 64), round_up(w, 64)
 
 
 def make_eval_buckets(min_size: int, max_size: int,
@@ -258,23 +248,24 @@ def pack_mask_bits(logits: torch.Tensor, canvas: Tuple[int, int]) -> torch.Tenso
     return (bits * weights).sum(-1).to(torch.uint8).reshape(-1)
 
 
-def resize_nearest_numpy(mask: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """Nearest resize of an (h, w) array to `size` = (oh, ow) by the index
-    rule of OpenCV's INTER_NEAREST: source = min(floor(dst * (1 / (out / in))),
-    in - 1), the scale taken as the f64 reciprocal of out / in as OpenCV
-    takes it (`in / out` differs from it in the last bit at some sizes, and
-    then picks the neighbouring source row where dst * scale is near an
-    integer)."""
-    h, w = mask.shape
-    oh, ow = size
-    ys = np.minimum(np.floor(np.arange(oh) * (1.0 / (oh / h))).astype(np.int64), h - 1)
-    xs = np.minimum(np.floor(np.arange(ow) * (1.0 / (ow / w))).astype(np.int64), w - 1)
-    return mask[ys][:, xs]            # rows, then columns: two takes, no 2-d index
+def merge_rank_predictions(rank_lists: List[List[Dict]]) -> List[Dict]:
+    """Merges per-rank COCO prediction lists, keeping one copy of each
+    image's predictions: the first rank's that has it (a padded sampler
+    puts tail images on several ranks; the reference de-duplicates in
+    `accumulate_results`, misc.py:129-139)."""
+    merged: List[Dict] = []
+    seen: set = set()
+    for rank_preds in rank_lists:
+        keep = {p["image_id"] for p in rank_preds} - seen
+        merged.extend(p for p in rank_preds if p["image_id"] in keep)
+        seen |= keep
+    return merged
 
 
-def evaluate_coco(model, dataset, cfg, evaluator, device=None,
-                  verbose: bool = True):
-    """Evaluation loop of the image model over a COCO-style dataset.
+def evaluate_coco(model, dataset, cfg, evaluator=None, device=None,
+                  verbose: bool = True, log_losses: bool = False):
+    """Evaluation loop of the image model over a COCO-style dataset
+    (reference engine.py:98-203).
 
     `dataset[i]` gives {"image" (h, w, 3) f32, "image_id", "orig_size"};
     images are padded to static canvases (`make_eval_buckets`) and run
@@ -283,12 +274,26 @@ def evaluate_coco(model, dataset, cfg, evaluator, device=None,
     (+1, back to COCO ids), "boxes" absolute xyxy clipped to the original
     size, "masks" bool at the original size} goes to
     `evaluator.update({image_id: result})`; returns `evaluator.summarize()`.
-    Runs on the GPU unless ``device`` says otherwise."""
+    Without an evaluator the port's `CocoEvaluator` over `dataset.gt_dict()`
+    is used (bbox, and segm with MASK_ON). With `log_losses` the criterion
+    also runs on each val image's targets (a second forward, given the
+    targets) and the averaged losses are returned under "losses" (reference
+    engine.py:98-150). One process. Runs on the GPU unless ``device`` says
+    otherwise."""
     device = resolve_device(device)
     if next(model.parameters()).device.type != device.type:
         raise ValueError(f"model lies on {next(model.parameters()).device}, not {device}")
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError(
+            "evaluate_coco runs in one process; sharding images over ranks "
+            "comes with the port's DDP (ROADMAP.md queue A item 3)")
     buckets = make_eval_buckets(cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
     mask_on = bool(cfg.MODEL.MASK_ON)
+    if evaluator is None:
+        from .evaluation.coco_eval import CocoEvaluator
+        evaluator = CocoEvaluator(dataset.gt_dict(),
+                                  ("bbox", "segm") if mask_on else ("bbox",))
     model.eval()
 
     @torch.inference_mode()
@@ -305,6 +310,28 @@ def evaluate_coco(model, dataset, cfg, evaluator, device=None,
         scores, labels, boxes, _ = top_k_process(prob, out["pred_boxes"],
                                                  cfg.TEST.NUM_OUT)
         return {"scores": scores, "labels": labels, "boxes": boxes}
+
+    loss_sums: Dict[str, float] = {}
+    loss_count = 0
+
+    @torch.inference_mode()
+    def _losses(sample, canvas) -> None:
+        nonlocal loss_count
+        from .datasets import collate_images
+        from .models import matcher_cfg_from
+        from .models.criterion import image_criterion
+        # the slots cannot outnumber the queries
+        batch = collate_images([sample], canvas, max_instances=min(
+            cfg.TPU.MAX_INSTANCES, cfg.MODEL.NUM_QUERIES))
+        x = torch.from_numpy(batch["images"]).to(device)
+        pad = torch.from_numpy(batch["pad_mask"]).to(device)
+        targets = {k: torch.from_numpy(v).to(device) for k, v in batch["targets"].items()}
+        out = model(x, pad, targets=targets, train=False) if mask_on else model(x, pad)[0]
+        losses = image_criterion(out, targets, matcher_cfg_from(cfg, clip=False),
+                                 cfg.MODEL.LOSS.FOCAL_ALPHA, mask_on=mask_on)
+        for k, v in losses.items():
+            loss_sums[k] = loss_sums.get(k, 0.0) + float(v)
+        loss_count += 1
 
     indices = list(range(len(dataset)))
     B = max(1, int(cfg.TEST.EVAL_BATCH_SIZE))
@@ -372,6 +399,10 @@ def evaluate_coco(model, dataset, cfg, evaluator, device=None,
             samples, images, pad_mask, hws, canvas = preps.pop(j).result()
             ensure_prep(j + 2)
             out_dev = _fwd(images, pad_mask)
+            if log_losses:
+                for sample in samples:
+                    if len(sample.get("labels", ())):
+                        _losses(sample, canvas)
             if pending is not None:
                 _postprocess(*pending)
             pending = (samples, out_dev, hws, canvas)
@@ -382,4 +413,10 @@ def evaluate_coco(model, dataset, cfg, evaluator, device=None,
             _postprocess(*pending)
     finally:
         loader.shutdown(wait=True)
-    return evaluator.summarize()
+    summary = evaluator.summarize()
+    if log_losses and loss_sums:
+        summary["losses"] = {k: v / loss_count for k, v in loss_sums.items()}
+        if verbose:
+            print("val losses:", {k: round(v, 4) for k, v in sorted(summary["losses"].items())
+                                  if not k[-1].isdigit()})
+    return summary

@@ -58,9 +58,18 @@ class SmoothedValue:
     def global_avg(self):
         return self.total / max(self.count, 1)
 
+    @property
+    def max(self):
+        return max(self.deque) if self.deque else 0.0
+
+    @property
+    def value(self):
+        return self.deque[-1] if self.deque else 0.0
+
     def __str__(self):
         return self.fmt.format(median=self.median, avg=self.avg,
-                               global_avg=self.global_avg)
+                               global_avg=self.global_avg, max=self.max,
+                               value=self.value)
 
 
 class MetricLogger:
@@ -76,6 +85,21 @@ class MetricLogger:
     def update(self, **kwargs):
         for k, v in kwargs.items():
             self.meters[k].update(float(v))
+
+    def __getattr__(self, attr):
+        if attr in self.meters:
+            return self.meters[attr]
+        raise AttributeError(attr)
+
+    def synchronize_between_processes(self):
+        """Sums each meter's count and total over the ranks (reference
+        misc.py:199-210); the port trains in one process, where this does
+        nothing, and raises with more than one rank (ROADMAP.md queue A
+        item 3)."""
+        if torch.distributed.is_available() and torch.distributed.is_initialized() \
+                and torch.distributed.get_world_size() > 1:
+            raise NotImplementedError("metrics across ranks come with the port's DDP "
+                                      "(ROADMAP.md queue A item 3)")
 
     def __str__(self):
         return self.delimiter.join(f"{name}: {meter}"

@@ -26,20 +26,29 @@ PORT_MODULES = ("devis_torch", "devis_torch.config", "devis_torch.models",
                 "devis_torch.evaluation.track_map", "devis_torch.datasets.transforms",
                 "devis_torch.datasets.vis", "devis_torch.datasets.synthetic",
                 "devis_torch.tracking.track", "devis_torch.tracking.inference_matcher",
-                "devis_torch.tracking.pipeline", "devis_torch.tracking.tracker")
+                "devis_torch.tracking.pipeline", "devis_torch.tracking.tracker",
+                "devis_torch.main", "devis_torch.datasets", "devis_torch.datasets.coco",
+                "devis_torch.datasets.image_io", "devis_torch.evaluation.coco_eval",
+                "devis_torch.util.checkpoint", "devis_torch.util.logging_utils",
+                "devis_torch.util.fixtures")
 
 
 def test_import_leaves_jax_out_of_sys_modules():
-    """Importing the port, building its config and running its RLE codec
-    (built at first use) loads none of the forbidden modules."""
+    """Importing the port, reading and dumping a config file, running its
+    RLE codec (built at first use) and decoding a PNG loads none of the
+    forbidden modules, nor Pillow."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "from devis_torch.config import get_cfg_defaults\n"
-            "get_cfg_defaults()\n"
+            "cfg = get_cfg_defaults()\n"
+            "cfg.merge_from_file('configs/devis/YT-19/devis_R_50_YT-19.yaml')\n"
+            "cfg.dump()\n"
             "import numpy as np\n"
             "from devis_torch.evaluation import rle\n"
             "rle.decode(rle.encode(np.eye(3, dtype=bool)))\n"
-            f"print([m for m in {FORBIDDEN!r} if m in sys.modules])\n")
+            "from devis_torch.datasets import image_io\n"
+            "image_io.decode_png(image_io.encode_png(np.zeros((2, 3, 3), np.uint8)))\n"
+            f"print([m for m in {FORBIDDEN!r} + ('PIL',) if m in sys.modules])\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120, check=True)
@@ -47,8 +56,9 @@ def test_import_leaves_jax_out_of_sys_modules():
 
 
 def test_no_module_of_the_port_names_a_forbidden_import():
-    """Covers imports inside functions too (yaml only in the config's
-    file and dump helpers)."""
+    """Covers imports inside functions too. No exemption: the config files
+    are read by the port's own YAML reader. Pillow is imported only in
+    `datasets/image_io.py`, inside the function that decodes a JPEG."""
     offenders = []
     for dirpath, _, files in os.walk(os.path.join(ROOT, "devis_torch")):
         for f in files:
@@ -63,8 +73,10 @@ def test_no_module_of_the_port_names_a_forbidden_import():
                     names = [node.module]
                 for n in names:
                     top = n.split(".")[0]
-                    if top in FORBIDDEN and not (top == "yaml" and f == "config.py"):
+                    if top in FORBIDDEN:
                         offenders.append(f"{path}: {n}")
+                    elif top == "PIL" and not (f == "image_io.py" and node.col_offset > 0):
+                        offenders.append(f"{path}: {n} (PIL only lazily, in image_io.py)")
     assert offenders == []
 
 
