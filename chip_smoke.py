@@ -129,18 +129,40 @@
    attention, decoder layer 1's q-major op, mask-head layer 0: K2 equal,
    the forwards to 2e-2; after a train run the backwards on a seeded
    gradient, the value's to 1e-2, loc's and att's to 1e-4 of max|plain|).
-9. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
+9. The Swin-L configurations (after the CLI phase), each from its config
+   file as the port's YAML reader gives it, bf16, full width and depth,
+   seeded random weights with the noise of step 3: DeVIS Swin-L
+   (configs/devis/YT-19/devis_Swin_L_YT-19.yaml) through `VISInferFn` over
+   3 clips (K1-K4 six launches a clip, no plain path), the kernels on the
+   path's first inputs and one whole clip against the plain versions (the
+   clip path's gates), one clip profiled beside the Swin backbone alone on
+   its input (softmax, layer norm, GELU, roll, matmuls, other); its clip
+   train step at the train path's batch, dropout 0.1 and drop path to 0.3:
+   one step with both recomputation flags against one without from the
+   same weights, batch and generator seed (losses to 1e-2, each gradient
+   to 5e-2 of its norm + 1e-5 of the whole, the generator's state after
+   equal), then 1 + 3 steps with both flags off and 1 + 3 with both on
+   (K1-K3 6 a step, twice that with the flags, K5 12, K6/K7 12; step ms,
+   peak memory, one step profiled each), the kernels of the flagged run on
+   its first inputs against their plain versions; the COCO image model on
+   Swin-L (configs/deformable_mask_head/deformable_mask_head_SwinL.yaml,
+   'coco') through `evaluate_coco`, 1 + 3 images at 800x1216 (K8 7, K6 5,
+   K4 6 an image), its kernels on their first inputs and one image
+   against the plain versions (the image path's gates).
+10. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
    `redesigned`: whether its first port has been redesigned for Hopper; K5
    and K7 with `op_ms`, `global_adds`, `global_only_ms` and, per shape,
    window statistics; K6 and K8 with `op_ms` and their times per shape; K9
    with `op_ms` and its op's `breakdown`; K12a and K12b with `op_ms`, K12b
    with `method_floor_ms`; K12c with its shapes and, under `sync`, the
    mma.sync form's; `cli_launches`: its launches over the CLI phase;
-   `cli_max_abs_err`: its largest error in the CLI phase's checks), a
+   `cli_max_abs_err`: its largest error in the CLI phase's checks;
+   `swin_{clip,train,remat_train,image}_launches`: its launches on each
+   Swin-L path; `swin_max_abs_err`: its largest error in their checks), a
    clip-latency line, a
    train-step line with peak memory, the image model's two lines, the e2e
-   line, the `cli` line, the card line, and last {"ok": true, "device":
-   {...}}.
+   line, the `cli` line, the `swin` line, the card line, and last {"ok":
+   true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 `devis_torch` package beside it. Imports nothing of JAX.
@@ -1157,16 +1179,19 @@ KERNEL_GROUPS = {"K1 msda_temporal_proj": "msda_temporal_proj_win_kernel",
                  "K4 / K10 dcn_layer": "dcn_layer_"}   # dcn_layer_mma_kernel, _f32_kernel
 
 
-def profile_run(torch, what, fn):
-    """Device time of one call of `fn` by kernel group, from torch.profiler,
-    and the share of its wall time the device was busy."""
+def profile_run(torch, what, fn, groups=KERNEL_GROUPS):
+    """Device time of one call of `fn` by kernel group (`groups`: a group's
+    name → a substring of its kernels' lower-case names; the rest as cuDNN
+    convolutions, matmuls or other), from torch.profiler, and the share of
+    its wall time the device was busy. Returns (busy ms, wall ms, ms by
+    group)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    sums = dict.fromkeys(list(KERNEL_GROUPS) + ["convolutions (cuDNN)", "matmuls", "other"], 0.0)
+    sums = dict.fromkeys(list(groups) + ["convolutions (cuDNN)", "matmuls", "other"], 0.0)
     top = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -1180,7 +1205,7 @@ def profile_run(torch, what, fn):
         name = e.key
         top.append((us, e.count, name))
         low = name.lower()
-        group = next((g for g, k in KERNEL_GROUPS.items() if k in name), None)
+        group = next((g for g, k in groups.items() if k in low), None)
         if group is None:
             group = ("convolutions (cuDNN)"
                      if any(k in low for k in ("conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad"))
@@ -1195,6 +1220,7 @@ def profile_run(torch, what, fn):
             log(f"  {g}: {ms:.3f} ms")
     for us, n, name in sorted(top, reverse=True)[:10]:
         log(f"    {us / 1e3:8.3f} ms  x{n:<4d} {name[:90]}")
+    return busy, wall_ms, sums
 
 
 def check_counts(ops, wants):
@@ -1281,51 +1307,22 @@ def build(torch, dev, enc_layers=6, dec_layers=6, mask_aux=(2,), box_noise=True)
     return cfg, model
 
 
-def main_path(torch, dev, card, cfg, model, results):
+def check_clip_fetch(torch, outs):
+    """Each `VISInferFn` result of a 360x640 clip has the fetch's shapes and
+    dtypes, finite scores in [0, 1], ordered boxes and labels and gathers in
+    range."""
     import numpy as np
 
-    from devis_torch.inference import VISInferFn, make_eval_buckets
-    from devis_torch.models import attention as attn_mod
-    from devis_torch.models import segmentation as seg_mod
-    from devis_torch.models.segmentation import ModulatedDeformableConv
-    from devis_torch.ops import ms_deform_attn_cuda as K
-    from devis_torch.ops.deform_conv import (modulated_deform_conv2d,
-                                             modulated_deform_conv2d_plain)
+    from devis_torch.inference import make_eval_buckets
     from devis_torch.util.box_ops import box_cxcywh_to_xyxy
 
-    log("inference path: VISInferFn over 3 clips")
-    video = _Video(T + 3 * STRIDE, SEED)
-    infer = VISInferFn(model, T, make_eval_buckets(*VIDEO_HW))
-    infer(video, 0)                                      # warm-up (cuDNN plans)
-    torch.cuda.synchronize()
-
-    ops = (K.msda_temporal_proj, K.msda_tap_window, K.msda_temporal,
-           modulated_deform_conv2d)
-    for fn in ops:
-        fn.launches = fn.plain_calls = 0
-    lat = []
-    outs = []
-    for i in range(3):
-        t0 = time.perf_counter()
-        outs.append(infer(video, i))
-        lat.append((time.perf_counter() - t0) * 1e3)
-    launches = {fn.__name__: fn.launches for fn in ops}
-    plain = {fn.__name__: fn.plain_calls for fn in ops}
-    log(f"  launches over 3 clips: {launches}; plain calls: {plain}")
-    n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
-    # K1's op launches K2 before K1 in every encoder layer
-    check_counts(ops, (3 * cfg.MODEL.TRANSFORMER.ENCODER_LAYERS,
-                       3 * cfg.MODEL.TRANSFORMER.ENCODER_LAYERS,
-                       3 * cfg.MODEL.TRANSFORMER.DECODER_LAYERS, 3 * n_dcn))
-
     hv, wv = round(VIDEO_HW[0] / 4), round(VIDEO_HW[1] / 4)
+    canvas = make_eval_buckets(*VIDEO_HW)[0]
+    want = {"scores": (T, NUM_OUT), "labels": (NUM_OUT,), "boxes": (T, NUM_OUT, 4),
+            "center_points": (T, NUM_OUT, 2), "mask_gather": (NUM_OUT,)}
     for r in outs:
-        shapes = {k: tuple(np.shape(r[k])) for k in ("scores", "labels", "boxes",
-                                                      "center_points", "mask_gather")}
-        want = {"scores": (T, NUM_OUT), "labels": (NUM_OUT,), "boxes": (T, NUM_OUT, 4),
-                "center_points": (T, NUM_OUT, 2), "mask_gather": (NUM_OUT,)}
+        shapes = {k: tuple(np.shape(r[k])) for k in want}
         ml = r["mask_logits"]
-        canvas = make_eval_buckets(*VIDEO_HW)[0]
         if shapes != want or tuple(ml.shape) != (NQ // T, T, canvas[0] // 4, canvas[1] // 4) \
                 or ml.dtype != torch.float8_e4m3fn or r["valid_hw"] != (hv, wv):
             raise AssertionError(f"fetch shapes {shapes}, masks {tuple(ml.shape)} "
@@ -1335,15 +1332,19 @@ def main_path(torch, dev, card, cfg, model, results):
                 and torch.isfinite(ml.float()).all()
                 and ((r["scores"] >= 0) & (r["scores"] <= 1)).all()
                 and (xyxy[..., 2:] >= xyxy[..., :2]).all()
-                and ((r["labels"] >= 0) & (r["labels"] < 40)).all()
+                and ((r["labels"] >= 0) & (r["labels"] < NUM_CLASSES)).all()  # 41 logits
                 and ((r["mask_gather"] >= 0) & (r["mask_gather"] < NQ // T)).all()):
             raise AssertionError("non-finite or out-of-range outputs")
-    clip_ms = float(np.mean(lat))
-    log(f"  clip latency {[round(v, 3) for v in lat]} ms, mean {clip_ms:.3f} ms; "
-        f"FPS = stride {STRIDE} / latency = {STRIDE / clip_ms * 1e3:.3f} ({card})")
 
-    # One clip with the plain versions on the card, against the kernels.
-    x, pad = clip_input(torch, dev, infer, video)
+
+def clip_vs_plain(torch, model, x, pad):
+    """One clip through the kernels and through their plain versions on the
+    card, held to the clip path's gates. Returns the errors."""
+    from devis_torch.models import attention as attn_mod
+    from devis_torch.models import segmentation as seg_mod
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.deform_conv import modulated_deform_conv2d_plain
+
     with torch.inference_mode():
         out_k, res_k = model(x, pad)
         saved = (attn_mod.msda_temporal_proj, attn_mod.msda_temporal,
@@ -1373,11 +1374,60 @@ def main_path(torch, dev, card, cfg, model, results):
         f"(limit 2e-2)")
     if not all(v <= 5e-2 for v in errs.values()) or box_err > 2e-2:
         raise AssertionError("kernel path disagrees with the plain path")
+    return dict(errs, pred_boxes=box_err)
+
+
+def infer_clips(torch, card, cfg, model, what="inference path"):
+    """`VISInferFn` over 3 clips of the seeded 360x640 video after a warm-up,
+    the counts zeroed just before and read just after: K1, K2, K3 and K4
+    six times a clip each and no plain path; the fetches checked. Returns
+    (infer, video, launches, latencies in ms)."""
+    from devis_torch.inference import VISInferFn, make_eval_buckets
+    from devis_torch.models.segmentation import ModulatedDeformableConv
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.deform_conv import modulated_deform_conv2d
+
+    log(f"{what}: VISInferFn over 3 clips")
+    video = _Video(T + 3 * STRIDE, SEED)
+    infer = VISInferFn(model, T, make_eval_buckets(*VIDEO_HW))
+    infer(video, 0)                                      # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+
+    ops = (K.msda_temporal_proj, K.msda_tap_window, K.msda_temporal,
+           modulated_deform_conv2d)
+    for fn in ops:
+        fn.launches = fn.plain_calls = 0
+    lat = []
+    outs = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        outs.append(infer(video, i))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = {fn.__name__: fn.launches for fn in ops}
+    plain = {fn.__name__: fn.plain_calls for fn in ops}
+    log(f"  launches over 3 clips: {launches}; plain calls: {plain}")
+    n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
+    # K1's op launches K2 before K1 in every encoder layer
+    check_counts(ops, (3 * cfg.MODEL.TRANSFORMER.ENCODER_LAYERS,
+                       3 * cfg.MODEL.TRANSFORMER.ENCODER_LAYERS,
+                       3 * cfg.MODEL.TRANSFORMER.DECODER_LAYERS, 3 * n_dcn))
+    check_clip_fetch(torch, outs)
+    clip_ms = sum(lat) / len(lat)
+    log(f"  clip latency {[round(v, 3) for v in lat]} ms, mean {clip_ms:.3f} ms; "
+        f"FPS = stride {STRIDE} / latency = {STRIDE / clip_ms * 1e3:.3f} ({card})")
+    return infer, video, launches, lat
+
+
+def main_path(torch, dev, card, cfg, model, results):
+    infer, video, launches, lat = infer_clips(torch, card, cfg, model)
+    # One clip with the plain versions on the card, against the kernels.
+    x, pad = clip_input(torch, dev, infer, video)
+    clip_vs_plain(torch, model, x, pad)
     with torch.inference_mode():
         tap_window_phase(torch, model, x, pad, results)
         temporal_path_phase(torch, model, x, pad, results)
     profile_run(torch, "clip", lambda: infer(video, 0))
-    return launches, clip_ms
+    return launches, sum(lat) / len(lat)
 
 
 def e2e_phase(torch, dev, card, cfg, model):
@@ -1610,7 +1660,8 @@ def train_path(torch, dev, card, cfg, model):
     return launches, mean_ms, peak
 
 
-def report_step_difference(torch, out):
+def report_step_difference(torch, out, what="kernel-path train step disagrees with the "
+                                            "plain path"):
     """`out`: ((metrics, gradients) of the kernel step, of the plain step)."""
     (mk, gk), (mp, gp) = out
     # bf16 end to end: the two paths round at different places. Every loss
@@ -1644,7 +1695,7 @@ def report_step_difference(torch, out):
     for rel, diff, own, k in proj[:8]:
         log(f"    {rel:.3e}  |diff| {diff:.3e}  |grad| {own:.3e}  {k}")
     if worst[0] > 1e-2 or bad or mk["finite"] != 1.0:
-        raise AssertionError("kernel-path train step disagrees with the plain path: "
+        raise AssertionError(f"{what}: "
                              f"{[r[3] for r in bad]}")
 
 
@@ -2142,19 +2193,19 @@ class _Collect:
         return {"images": len(self.results)}
 
 
-def coco_infer_path(torch, dev, card, cfg, model, results):
+def eval_images(torch, card, cfg, model, what="COCO inference path"):
+    """`evaluate_coco` over 3 seeded 800x1216 images after a warm-up image,
+    the counts zeroed just before and read just after: an image launches K8
+    once an encoder layer and at decoder layer 0, K6 at the other decoder
+    layers, K4 once a mask-head layer, and no plain path; the results
+    checked. Returns (dataset, launches, image ms)."""
     import numpy as np
 
-    from devis_torch.inference import evaluate_coco, pack_mask_bits
-    from devis_torch.models import attention as attn_mod
-    from devis_torch.models import segmentation as seg_mod
+    from devis_torch.inference import evaluate_coco
     from devis_torch.models.segmentation import ModulatedDeformableConv
-    from devis_torch.ops import ms_deform_attn_cuda as K
-    from devis_torch.ops.deform_conv import deform_conv2d, modulated_deform_conv2d_plain
-    from devis_torch.ops.ms_deform_attn import ms_deform_attn
     from devis_torch.util.synthetic import SyntheticImageDataset
 
-    log("COCO inference path: evaluate_coco, 1 warm-up image, then 3 images")
+    log(f"{what}: evaluate_coco, 1 warm-up image, then 3 images")
     evaluate_coco(model, SyntheticImageDataset(SEED + 4, [COCO_HW]), cfg, _Collect(),
                   verbose=False)                          # warm-up (cuDNN plans)
     torch.cuda.synchronize()
@@ -2192,27 +2243,28 @@ def coco_infer_path(torch, dev, card, cfg, model, results):
         f"each later one overlaps the next image's), mean {image_ms:.3f} ms = "
         f"{1e3 / image_ms:.3f} images/s; mask pixels set: "
         f"{np.mean([m.mean() for r in collect.results.values() for m in r['masks']]):.3f} ({card})")
+    return dataset, launches, image_ms
 
-    # One image with the plain versions on the card, against the kernels.
-    sample = dataset[0]
+
+def coco_vs_plain(torch, dev, model, sample):
+    """One image (`sample` on its canvas) through the kernels and through
+    their plain versions on the card, held to the image path's gates.
+    Returns the errors."""
+    import numpy as np
+
+    from devis_torch.inference import pack_mask_bits
+    from devis_torch.models import attention as attn_mod
+    from devis_torch.models import segmentation as seg_mod
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.deform_conv import modulated_deform_conv2d_plain
+    from devis_torch.ops.ms_deform_attn import ms_deform_attn
+
     x = torch.zeros((1,) + COCO_CANVAS + (3,), device=dev)
     x[0, :COCO_HW[0], :COCO_HW[1]] = torch.from_numpy(sample["image"]).to(dev)
     pad = torch.ones((1,) + COCO_CANVAS, dtype=torch.bool, device=dev)
     pad[0, :COCO_HW[0], :COCO_HW[1]] = False
-    dcn_inputs = {}
-    hooks = [mod.register_forward_pre_hook(
-        lambda m, args, name=name: dcn_inputs.setdefault(name, args[0]))
-        for name, mod in model.mask_head.named_modules()
-        if isinstance(mod, ModulatedDeformableConv)]
-    enc0 = {}
-    hooks.append(model.def_detr.transformer.encoder.layers[0].self_attn
-                 .register_forward_pre_hook(lambda m, args: enc0.setdefault("a", args)))
     with torch.inference_mode():
-        try:
-            out_k = model(x, pad)
-        finally:
-            for h in hooks:
-                h.remove()
+        out_k = model(x, pad)
         saved = (attn_mod.msda_proj, attn_mod.msda_taps, seg_mod.modulated_deform_conv2d)
         attn_mod.msda_proj = K.msda_proj_plain
         attn_mod.msda_taps = ms_deform_attn
@@ -2259,6 +2311,33 @@ def coco_infer_path(torch, dev, card, cfg, model, results):
     if (not all(v <= 5e-2 for v in errs.values()) or box_err > 2e-2 or bit_share > 2e-2
             or len(both) < COCO_OUT - 5):
         raise AssertionError("kernel path disagrees with the plain path")
+    return dict(errs, pred_boxes=box_err, mask_bits=bit_share, pairs=len(both))
+
+
+def coco_infer_path(torch, dev, card, cfg, model, results):
+    from devis_torch.inference import evaluate_coco
+    from devis_torch.models.segmentation import ModulatedDeformableConv
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.deform_conv import deform_conv2d
+    from devis_torch.util.synthetic import SyntheticImageDataset
+
+    dataset, launches, image_ms = eval_images(torch, card, cfg, model)
+    n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
+    # One image with the plain versions on the card, against the kernels; the
+    # kernel forward's inputs of the mask-head layers and encoder layer 0 kept
+    dcn_inputs = {}
+    hooks = [mod.register_forward_pre_hook(
+        lambda m, args, name=name: dcn_inputs.setdefault(name, args[0]))
+        for name, mod in model.mask_head.named_modules()
+        if isinstance(mod, ModulatedDeformableConv)]
+    enc0 = {}
+    hooks.append(model.def_detr.transformer.encoder.layers[0].self_attn
+                 .register_forward_pre_hook(lambda m, args: enc0.setdefault("a", args)))
+    try:
+        coco_vs_plain(torch, dev, model, dataset[0])
+    finally:
+        for h in hooks:
+            h.remove()
 
     # K2 with an empty temporal part: the window the JAX `_fwd_call_proj`
     # computes for the encoder's first layer, on that layer's real inputs
@@ -2821,6 +2900,227 @@ def cli_phase(torch, dev, card):
     return cli, launches, checks
 
 
+# ---------------------------------------------------------------------------
+# The Swin-L configurations
+# ---------------------------------------------------------------------------
+
+SWIN_VIS_CONFIG = "configs/devis/YT-19/devis_Swin_L_YT-19.yaml"
+SWIN_COCO_CONFIG = "configs/deformable_mask_head/deformable_mask_head_SwinL.yaml"
+# the Swin backbone's own kernels, by a substring of their lower-case names
+# (cuBLAS names the f32 window-logit product `sm80_xmma_gemm_f32f32_...`,
+# which the fallback's "xmma" would count as a convolution)
+SWIN_GROUPS = {"f32 matmuls (window logits)": "gemm_f32f32", "softmax": "softmax",
+               "layer norm": "layer_norm", "gelu": "gelu", "roll": "roll",
+               "bias-table gather": "index"}
+
+
+def build_from_file(torch, dev, path, num_classes, opts=()):
+    """(cfg, model) of a config file of the repo as the port's YAML reader
+    gives it, with `opts` and bf16 compute, seeded random weights (the
+    noise of `move_taps_off_the_grid` on), in eval mode."""
+    from devis_torch.config import get_cfg_defaults
+    from devis_torch.models import build_model
+
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(os.path.join(HERE, path))
+    cfg.merge_from_list(list(opts) + ["TPU.COMPUTE_DTYPE", "bfloat16"])
+    cfg.freeze()
+    t0 = time.perf_counter()
+    model = build_model(num_classes, cfg, seed=SEED)
+    move_taps_off_the_grid(torch, model, dev, box_noise=True)
+    log(f"model: {path}, backbone {cfg.MODEL.BACKBONE}, "
+        f"{cfg.MODEL.TRANSFORMER.ENCODER_LAYERS}+{cfg.MODEL.TRANSFORMER.DECODER_LAYERS} layers, "
+        f"bf16, {sum(p.numel() for p in model.parameters())} parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model
+
+
+def set_remat(model, on: bool):
+    """TPU.SWIN_GRADIENT_CHECKPOINT and TPU.TRANSFORMER_GRADIENT_CHECKPOINT
+    of a built model."""
+    model.def_detr.backbone[0].body.use_checkpoint = on
+    model.def_detr.transformer.remat_layers = on
+
+
+def swin_clip_phase(torch, dev, card, rec):
+    """DeVIS Swin-L (`SWIN_VIS_CONFIG`): 3 clips through `VISInferFn`
+    (`infer_clips`), the kernels on the path's first inputs against their
+    plain versions (`cli_kernel_checks`), one clip through the kernels and
+    through the plain versions (`clip_vs_plain`), one clip profiled beside
+    the Swin backbone alone on that clip's input. Returns the launches."""
+    cfg, model = build_from_file(torch, dev, SWIN_VIS_CONFIG, NUM_CLASSES)
+    with _FirstCalls(torch) as first:
+        infer, video, launches, lat = infer_clips(torch, card, cfg, model,
+                                                  "Swin-L clip inference path")
+    rec["clip_kernel_errs"] = cli_kernel_checks(torch, dev, first.args, False,
+                                                "Swin-L clip inference path")
+    x, pad = clip_input(torch, dev, infer, video)
+    rec["clip_vs_plain"] = clip_vs_plain(torch, model, x, pad)
+    busy, wall, groups = profile_run(torch, "Swin-L clip", lambda: infer(video, 0),
+                                     {**KERNEL_GROUPS, **SWIN_GROUPS})
+    body = model.def_detr.backbone[0].body
+    with torch.inference_mode():
+        swin_busy, _, swin_groups = profile_run(
+            torch, "Swin-L backbone alone on the clip's input",
+            lambda: body(x.permute(0, 3, 1, 2)), SWIN_GROUPS)
+    log(f"  Swin-L clip: device busy {busy:.3f} ms of {wall:.3f} ms wall, of which the Swin "
+        f"backbone {swin_busy:.3f} ms (profiled alone) and the rest {busy - swin_busy:.3f} ms")
+    rec.update(clip_ms=lat, clip_busy_ms=busy, clip_wall_ms=wall,
+               clip_idle_share=max(0.0, 1 - busy / wall), clip_groups_ms=groups,
+               backbone_busy_ms=swin_busy, backbone_groups_ms=swin_groups)
+    del model, infer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def swin_step_compare(torch, dev, cfg, model, batch):
+    """A step with both recomputation flags and one without, from the same
+    weights, batch and dropout generator seed, dropout 0.1 and drop path up
+    to 0.3 on: losses to 1e-2 and each gradient to GRAD_TOL of its own norm
+    + GRAD_FLOOR of the whole (`report_step_difference`; K5's atomics order
+    the value gradient's sums anew in each step), the generator's state
+    after the step equal. Leaves the weights as they were."""
+    from devis_torch.engine import create_train_state, make_train_step
+
+    log("Swin-L clip train step with both recomputation flags against one without, "
+        "dropout and drop path on")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    out, gen_states = [], []
+    for on in (True, False):
+        model.load_state_dict(start)
+        set_remat(model, on)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        state = create_train_state(cfg, model, steps_per_epoch=100)
+        _, metrics = make_train_step(model, cfg)(state, batch, gen)
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    {k: p.grad.float().clone() for k, p in model.named_parameters()}))
+        gen_states.append(gen.get_state())
+    model.load_state_dict(start)
+    set_remat(model, False)
+    del start
+    report_step_difference(torch, out, "the step with recomputation disagrees with the "
+                                       "step without")
+    same_gen = bool(torch.equal(gen_states[0], gen_states[1]))
+    log(f"  dropout generator state after the step equal: {same_gen}")
+    if not same_gen:
+        raise AssertionError("recomputation moved the dropout generator")
+    (m_on, g_on), (m_off, g_off) = out
+    total = torch.sqrt(sum(g.double().square().sum() for g in g_off.values())).item()
+    diff = torch.sqrt(sum((g_on[k] - g_off[k]).double().square().sum()
+                          for k in g_off)).item()
+    return dict(loss_on=m_on["loss"], loss_off=m_off["loss"], grad_diff_share=diff / total,
+                generator_equal=same_gen)
+
+
+def swin_train_phase(torch, dev, card, rec):
+    """DeVIS Swin-L training at the train path's shapes (`train_batch`:
+    one 384x640 clip, 4 instances in 10 slots), dropout 0.1, drop path to
+    0.3: the flags compare (`swin_step_compare`), then 1 warm-up and 3 timed
+    steps with both flags off and with both on, the counts zeroed before
+    and read after the timed steps (a layer recomputed in the backward
+    launches its forward kernels again: K1, K2, K3 twice a layer with the
+    flags), every loss finite and every trained tensor moved, the peak
+    memory of each, one more step of each profiled; the kernels of the
+    flagged run on its first inputs against their plain versions. Returns
+    the launches of each run."""
+    import contextlib
+
+    from devis_torch.engine import create_train_state, make_train_step, param_labels
+    from devis_torch.models.segmentation import ModulatedDeformableConv
+
+    cfg, model = build_from_file(torch, dev, SWIN_VIS_CONFIG, NUM_CLASSES)
+    batch = train_batch(N_SLOTS)
+    rec["step_compare"] = swin_step_compare(torch, dev, cfg, model, batch)
+    torch.cuda.empty_cache()
+    labels = param_labels(model, cfg)
+    n_enc = cfg.MODEL.TRANSFORMER.ENCODER_LAYERS
+    n_dec = cfg.MODEL.TRANSFORMER.DECODER_LAYERS
+    n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
+    n_mask = 1 + len(cfg.MODEL.LOSS.MASK_AUX_LOSS)
+    n_steps = 3
+    runs = {}
+    for on in (False, True):
+        tag = "remat" if on else "plain"
+        log(f"Swin-L clip train path, recomputation {'on' if on else 'off'}: make_train_step, "
+            f"{N_INSTANCES} instances in {N_SLOTS} slots, dropout {cfg.MODEL.DROPOUT}")
+        set_remat(model, on)
+        state = create_train_state(cfg, model, steps_per_epoch=100)
+        step = make_train_step(model, cfg)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = step(state, batch, gen)                   # warm-up
+        torch.cuda.synchronize()
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        ops = kernel_ops()
+        for fn in ops:
+            fn.launches = fn.plain_calls = 0
+        with _FirstCalls(torch) if on else contextlib.nullcontext() as first:
+            state, step_ms = timed_steps(torch, step, state, batch, gen, n_steps)
+        launches = {fn.__name__: fn.launches for fn in ops}
+        log(f"  launches over {n_steps} steps: {launches}; plain calls: "
+            f"{ {fn.__name__: fn.plain_calls for fn in ops} }")
+        k = 2 if on else 1
+        check_counts(ops, [n_steps * c for c in (k * n_enc, k * n_enc, k * n_dec, n_enc + n_dec,
+                                                 n_dcn * n_mask, n_dcn * n_mask, 0)])
+        check_parameters_moved(torch, model, labels, before)
+        del before
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  Swin-L train step, recomputation {'on' if on else 'off'}: "
+            f"{[round(v, 3) for v in step_ms]} ms, mean {sum(step_ms) / n_steps:.3f} ms; "
+            f"peak memory {peak:.3f} GiB ({card})")
+        rec[f"train_{tag}_step_ms"] = step_ms
+        rec[f"train_{tag}_peak_gib"] = peak
+        busy, wall, _ = profile_run(torch, f"Swin-L train step, recomputation "
+                                           f"{'on' if on else 'off'}",
+                                    lambda: step(state, batch, gen),
+                                    {**KERNEL_GROUPS, **SWIN_GROUPS})
+        rec[f"train_{tag}_busy_ms"], rec[f"train_{tag}_wall_ms"] = busy, wall
+        runs[tag] = launches
+        if on:
+            rec["train_kernel_errs"] = cli_kernel_checks(
+                torch, dev, first.args, True, "Swin-L clip train step (both flags)")
+    set_remat(model, False)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return runs
+
+
+def swin_image_phase(torch, dev, card, rec):
+    """The COCO image model on Swin-L (`SWIN_COCO_CONFIG` for 'coco'): 3
+    images through `evaluate_coco` (`eval_images`), the kernels on the
+    path's first inputs against their plain versions, one image through the
+    kernels and through the plain versions (`coco_vs_plain`). Returns the
+    launches."""
+    cfg, model = build_from_file(torch, dev, SWIN_COCO_CONFIG, COCO_CLASSES,
+                                 ["DATASETS.TYPE", "coco", "TEST.EVAL_BATCH_SIZE", "1"])
+    with _FirstCalls(torch) as first:
+        dataset, launches, image_ms = eval_images(torch, card, cfg, model,
+                                                  "COCO Swin-L inference path")
+    rec["image_kernel_errs"] = cli_kernel_checks(torch, dev, first.args, False,
+                                                 "COCO Swin-L inference path")
+    rec["image_vs_plain"] = coco_vs_plain(torch, dev, model, dataset[0])
+    rec["image_ms"] = image_ms
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def swin_phase(torch, dev, card):
+    """The Swin-L configurations at full width and depth, bf16, seeded
+    random weights: DeVIS Swin-L clip inference, its clip train step with
+    and without recomputation, the COCO Swin-L image model. Returns (the
+    `swin` record, launches by path)."""
+    t0 = time.perf_counter()
+    rec = {"card": card}
+    launches = {"clip": swin_clip_phase(torch, dev, card, rec)}
+    train = swin_train_phase(torch, dev, card, rec)
+    launches["train"], launches["remat_train"] = train["plain"], train["remat"]
+    launches["image"] = swin_image_phase(torch, dev, card, rec)
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"Swin-L phase: {rec['phase_s']:.1f} s")
+    return rec, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2884,6 +3184,8 @@ def main() -> int:
     coco_train_compare(torch, dev)
     torch.cuda.empty_cache()
     cli, cli_launches, cli_checks = cli_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+    swin, swin_launches = swin_phase(torch, dev, card)
     probe_launches = check_probes_idle("every model path")
 
     # K1-K4: launches of the clip inference path's 3 clips; K5-K7: of the clip
@@ -2918,6 +3220,10 @@ def main() -> int:
             "cli_launches": cli_launches.get(r["name"], 0),
             "cli_max_abs_err": max((c[key] for c in cli_checks.values() if key in c),
                                    default=None),
+            **{f"swin_{path}_launches": n.get(r["name"], 0) for path, n in swin_launches.items()},
+            "swin_max_abs_err": max((swin[c][key] for c in ("clip_kernel_errs", "train_kernel_errs",
+                                                            "image_kernel_errs")
+                                     if key in swin[c]), default=None),
             **{k: r[k] for k in ("atomic_bytes", "global_adds", "global_only_ms",
                                  "coco_shapes", "route_ms", "layers", "op_ms",
                                  "k2_ms", "windows", "lab", "random_refs", "path_inputs",
@@ -2935,6 +3241,7 @@ def main() -> int:
                       "coco_batch": COCO_BATCH, "card": card}))
     print(json.dumps(e2e))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"swin": swin}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,12 @@ turns the dropout on):
   * DATASETS.TYPE == 'coco', MASK_ON=True   → DeformableDETRSegm
   * DATASETS.TYPE == 'coco', MASK_ON=False  → DeformableDETR
 
-With focal loss the model emits `num_classes - 1` logits.
+The backbone is the ResNet of MODEL.BACKBONE or, for a `swin_*` name, the
+Swin Transformer of `SWIN_CONFIGS`. TPU.SWIN_GRADIENT_CHECKPOINT and
+TPU.TRANSFORMER_GRADIENT_CHECKPOINT recompute each Swin block and each
+encoder and decoder layer in the backward pass. With focal loss the model
+emits `num_classes` logits (the reference passes `num_classes - 1` and adds
+one).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch.nn as nn
 from ..util.misc import resolve_device
 from .attention import MSDeformAttn, TemporalMSDeformAttnBase
 from .backbones.resnet import NUM_CHANNELS, FrozenBatchNorm2d, ResNet
+from .backbones.swin import SWIN_CONFIGS, SwinTransformer
 from .detr import DeformableDETR, bbox_bias_init, class_bias_init
 from .devis_model import DeVIS
 from .layers import GroupNorm
@@ -39,6 +45,18 @@ def matcher_cfg_from(cfg, clip: bool = True) -> dict:
     else:
         m["focal_loss"] = cfg.MODEL.LOSS.FOCAL_LOSS
     return m
+
+
+def build_backbone(cfg, dtype=torch.float32):
+    """(trunk, its four stages' channel counts) of MODEL.BACKBONE; an
+    unregistered Swin name raises KeyError."""
+    name = cfg.MODEL.BACKBONE
+    if "swin" in name:
+        return (SwinTransformer(**SWIN_CONFIGS[name],
+                                use_checkpoint=cfg.TPU.SWIN_GRADIENT_CHECKPOINT,
+                                dtype=dtype),
+                SWIN_CONFIGS[name]["num_channels"])
+    return ResNet(name, cfg.MODEL.BACKBONE_DILATION, dtype=dtype), NUM_CHANNELS
 
 
 @torch.no_grad()
@@ -90,9 +108,6 @@ def build_model(num_classes: int, cfg, device=None, seed: int = 0) -> nn.Module:
                                   "panoptic model is ROADMAP.md queue A item 5 "
                                   "of the port")
     is_vis = cfg.DATASETS.TYPE == "vis"
-    if "swin" in cfg.MODEL.BACKBONE:
-        raise NotImplementedError("the Swin backbone is ROADMAP.md queue A item 5 "
-                                  "of the port")
     da = cfg.MODEL.DEVIS.DEFORMABLE_ATTENTION
     if not cfg.MODEL.WITH_BBX_REFINE or cfg.MODEL.WITH_REF_POINT_REFINE \
             or not cfg.MODEL.MASK_HEAD.USE_MDC:
@@ -107,9 +122,6 @@ def build_model(num_classes: int, cfg, device=None, seed: int = 0) -> nn.Module:
                                   "connections, learned temporal embedding "
                                   "and no 3-d conv head; other variants are "
                                   "ROADMAP items")
-    if cfg.TPU.TRANSFORMER_GRADIENT_CHECKPOINT:
-        raise NotImplementedError("per-layer recomputation (remat_layers) is "
-                                  "a ROADMAP item of the port")
     dtype = torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32
     eff_num_classes = num_classes - 1 if cfg.MODEL.LOSS.FOCAL_LOSS else num_classes
     T = cfg.MODEL.DEVIS.NUM_FRAMES
@@ -121,6 +133,7 @@ def build_model(num_classes: int, cfg, device=None, seed: int = 0) -> nn.Module:
         dropout=cfg.MODEL.DROPOUT,
         enc_n_points=cfg.MODEL.TRANSFORMER.ENC_N_POINTS,
         dec_n_points=cfg.MODEL.TRANSFORMER.DEC_N_POINTS,
+        remat_layers=cfg.TPU.TRANSFORMER_GRADIENT_CHECKPOINT,
         variant="devis" if is_vis else "image")
     if is_vis:
         transformer_kwargs.update(
@@ -134,14 +147,14 @@ def build_model(num_classes: int, cfg, device=None, seed: int = 0) -> nn.Module:
             cfg.MODEL.HIDDEN_DIM, T)
     else:
         position_encoding = PositionEmbeddingSine(cfg.MODEL.HIDDEN_DIM // 2)
+    body, num_channels = build_backbone(cfg, dtype)
     detr = DeformableDETR(
-        ResNet(cfg.MODEL.BACKBONE, cfg.MODEL.BACKBONE_DILATION, dtype=dtype),
-        position_encoding,
+        body, position_encoding,
         num_classes=eff_num_classes, num_queries=cfg.MODEL.NUM_QUERIES,
         num_feature_levels=cfg.MODEL.NUM_FEATURE_LEVELS,
         hidden_dim=cfg.MODEL.HIDDEN_DIM, aux_loss=cfg.MODEL.LOSS.AUX_LOSS,
         with_gradient=cfg.MODEL.BBX_GRADIENT_PROP,
-        backbone_num_channels=NUM_CHANNELS,
+        backbone_num_channels=num_channels,
         transformer_kwargs=transformer_kwargs, dtype=dtype)
     head = dict(mask_head_used_features=cfg.MODEL.MASK_HEAD.USED_FEATURES,
                 att_maps_used_res=cfg.MODEL.MASK_HEAD.UPSAMPLING_RESOLUTIONS,

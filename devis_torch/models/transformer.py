@@ -3,7 +3,9 @@ its variants: ``"devis"``, temporal deformable attention in the encoder and
 the decoder over the T frames of one clip, and ``"image"``, single-frame
 attention over a batch of B images with batched queries and per-image valid
 ratios. Both refine the boxes iteratively and apply dropout where the JAX
-package does (after each attention, inside and after each FFN). In the image
+package does (after each attention, inside and after each FFN). With
+``remat_layers`` each encoder and decoder layer keeps only its inputs for the
+backward pass and runs again there (`layers.recompute`). In the image
 variant the reference points are 2-d up to the first refinement and 4-d after
 it, so decoder layer 0 and the encoder take the projection-fused attention
 and the later decoder layers the q-major one. ``"devis_ablation"`` raises."""
@@ -18,7 +20,7 @@ import torch.nn.functional as F
 from ..util.misc import inverse_sigmoid
 from .attention import (MSDeformAttn, MultiHeadAttention,
                         TemporalMSDeformAttnDecoder, TemporalMSDeformAttnEncoder)
-from .layers import Dropout, LayerNorm, Linear
+from .layers import Dropout, LayerNorm, Linear, recompute
 
 
 def get_valid_ratios(masks: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -117,7 +119,8 @@ class DeformableTransformer(nn.Module):
                  num_frames=6, enc_connect_all=True,
                  enc_temporal_window=2, enc_n_temporal_points=4,
                  dec_n_temporal_points=4, instance_aware=True,
-                 with_gradient=False, variant="devis", dtype=torch.float32):
+                 with_gradient=False, variant="devis", remat_layers=False,
+                 dtype=torch.float32):
         super().__init__()
         if variant not in ("devis", "image"):
             raise NotImplementedError(
@@ -126,6 +129,7 @@ class DeformableTransformer(nn.Module):
         self.variant = variant
         self.d_model = d_model
         self.with_gradient = with_gradient
+        self.remat_layers = remat_layers
         self.compute_dtype = dtype
         self.num_decoder_layers = num_decoder_layers
         self.level_embed = nn.Parameter(torch.zeros(num_feature_levels, d_model))
@@ -170,8 +174,9 @@ class DeformableTransformer(nn.Module):
 
         enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
         memory = src_flat.to(dt)
+        call = recompute if self.remat_layers else (lambda layer, *a: layer(*a))
         for layer in self.encoder.layers:
-            memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat)
+            memory = call(layer, memory, pos_flat, enc_ref, spatial_shapes, mask_flat)
 
         query_pos, tgt = torch.split(query_embed.to(dt), C, dim=1)
         if self.variant == "image":
@@ -191,8 +196,8 @@ class DeformableTransformer(nn.Module):
             if reference_points.shape[-1] == 4:
                 vr = torch.cat([vr, vr], dim=-1)
             ref_input = reference_points[:, :, None] * vr[:, None]
-            output = layer(output, query_pos, ref_input, memory, spatial_shapes,
-                           mask_flat)
+            output = call(layer, output, query_pos, ref_input, memory, spatial_shapes,
+                          mask_flat)
             reference_points = self._refine(bbox_embed[lid], output,
                                             reference_points)
             hs.append(output)

@@ -7,9 +7,13 @@ mapping serves reference checkpoints. One rule set covers the clip model
 (`DeVIS`) and the image models (`DeformableDETRSegm`, `DeformableDETR`):
 `detr` → `def_detr`, indexed layers and heads, the `MSDeformAttn` and
 temporal attention projections by their own names, the mask head's
-`regular_conv`. The layout changes are transposes, so
-the same function carries a JAX gradient tree (its leaves under `params/`)
-to the port's parameter names.
+`regular_conv`, the Swin backbone's reference names (`patch_embed.proj`,
+`layers.{i}.blocks.{j}`, `layers.{i}.downsample`, `mlp.fc1`). The layout
+changes are transposes, so the same function carries a JAX gradient tree (its
+leaves under `params/`) to the port's parameter names. Beside each Swin
+attention's bias table it emits the block's `relative_position_index`, a
+buffer the JAX package computes and the port keeps, so the result loads
+strictly.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+
+from ..models.backbones.swin import relative_position_index
 
 _IDX_SUFFIX = re.compile(r"^(.*)_(\d+)$")
 _IDX_MODULES = ("class_embed", "bbox_embed", "ref_point_embed", "layers",
@@ -32,6 +38,13 @@ def _map_component(p: str) -> str:
         return "backbone.0.body"
     if p == "position_encoding":
         return "backbone.1"
+    if p.startswith("patch_embed_"):
+        return "patch_embed." + p[len("patch_embed_"):]
+    m = re.match(r"layers_(\d+)_(blocks_(\d+)|downsample)$", p)
+    if m:
+        return f"layers.{m.group(1)}." + (f"blocks.{m.group(3)}" if m.group(3) else "downsample")
+    if p.startswith("mlp_fc"):
+        return f"mlp.{p.split('_', 1)[1]}"
     for prefix, torch_name in (("encoder_layers_", "encoder.layers"),
                                ("decoder_layers_", "decoder.layers"),
                                ("input_proj_", "input_proj")):
@@ -103,4 +116,8 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if set(slot) != set(_QKV):
             raise ValueError(f"{key}: needs q, k and v, got {sorted(slot)}")
         out[key] = np.concatenate([slot[p] for p in _QKV], axis=0)
+    for key in [k for k in out if k.endswith(".relative_position_bias_table")]:
+        window = (int(round(out[key].shape[0] ** 0.5)) + 1) // 2
+        out[key.replace("bias_table", "index")] = \
+            relative_position_index(window).astype(np.int64)
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}

@@ -185,3 +185,51 @@ def test_capped_epoch_draws_the_augmentation_for_its_batches_only(tmp_path):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g["images"], w["images"])
         np.testing.assert_array_equal(g["targets"]["masks"], w["targets"]["masks"])
+
+
+def test_swin_with_recomputation_resumes_to_the_bit(tmp_path):
+    """`MODEL.BACKBONE swin_t_p4w7` with both recomputation flags and the
+    dropout and drop path on, from the YT-19 Swin-L config file: one step, a
+    save, and `--resume` for a second end where two steps in one run without
+    the flags end (model, AdamW, step, dropout generator and data RNG, to
+    the bit): the recompute draws the forward's masks and leaves the saved
+    generator where the forward left it. The Swin-L config files resolve
+    through the port's YAML reader."""
+    from devis_torch.models.backbones.swin import SWIN_CONFIGS
+    swin_l = [os.path.join(ROOT, "configs", *p) for p in (
+        ("devis", "YT-19", "devis_Swin_L_YT-19.yaml"), ("devis", "YT-21", "devis_Swin_L_YT-21.yaml"),
+        ("devis", "OVIS", "devis_Swin_L_OVIS.yaml"),
+        ("deformable_mask_head", "deformable_mask_head_SwinL.yaml"))]
+    for path in swin_l:
+        cfg = setup_cfg(parse_args(["--config-file", path]))
+        assert cfg.MODEL.BACKBONE == "swin_l_p4w12" and cfg.MODEL.BACKBONE in SWIN_CONFIGS
+
+    data = write_vis_tree(str(tmp_path / "data"), seed=2, n_train=1, n_val=1, n_frames=6,
+                          size=(48, 64))
+    common = ["--config-file", swin_l[0]]
+    remat = ["TPU.SWIN_GRADIENT_CHECKPOINT", "True", "TPU.TRANSFORMER_GRADIENT_CHECKPOINT", "True"]
+    opts = NARROW + ["MODEL.BACKBONE", "swin_t_p4w7", "MODEL.WEIGHTS", "",
+                     "DATASETS.DATA_PATH", data, "MODEL.TRANSFORMER.ENCODER_LAYERS", "1",
+                     "MODEL.TRANSFORMER.DECODER_LAYERS", "2", "MODEL.LOSS.MASK_AUX_LOSS", "[0]",
+                     "INPUT.SCALE_FACTOR_TRAIN", "0.125", "TEST.START_EVAL_EPOCH", "9"]
+    straight, split = str(tmp_path / "straight"), str(tmp_path / "split")
+    run = main(common + opts + ["OUTPUT_DIR", straight, "SOLVER.EPOCHS", "2"], device="cpu",
+               max_steps=1)
+    assert [e["step"] for e in run["epochs"]] == [1, 2]
+    assert all(math.isfinite(e["train"]["loss"]) for e in run["epochs"])
+    main(common + opts + remat + ["OUTPUT_DIR", split, "SOLVER.EPOCHS", "1"], device="cpu",
+         max_steps=1)
+    run = main(common + ["--resume", os.path.join(split, "checkpoint")] + opts + remat
+               + ["OUTPUT_DIR", split, "SOLVER.EPOCHS", "2"], device="cpu", max_steps=1)
+    assert run["start_epoch"] == 1 and run["epochs"][0]["step"] == 2
+    a = ckpt.load_checkpoint(os.path.join(straight, "checkpoint"))
+    b = ckpt.load_checkpoint(os.path.join(split, "checkpoint"))
+    assert a["step"] == b["step"] == 2
+    assert any(k.startswith("def_detr.backbone.0.body.layers.") for k in a["model"])
+    for k, v in a["model"].items():
+        torch.testing.assert_close(b["model"][k], v, rtol=0, atol=0, msg=k)
+    for i, st in a["optimizer"]["state"].items():
+        for k, v in st.items():
+            torch.testing.assert_close(b["optimizer"]["state"][i][k], v, rtol=0, atol=0)
+    assert torch.equal(a["rng"]["dropout"], b["rng"]["dropout"])
+    assert a["rng"]["data"] == b["rng"]["data"]

@@ -135,10 +135,18 @@ def test_other_model_families_name_their_roadmap_item():
         setattr(cfg.MODEL, key, key == "WITH_REF_POINT_REFINE")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(91, cfg, device="cpu")
+    # the Swin backbones are ported: an unregistered name raises KeyError, as
+    # in the JAX package, and a registered one builds
     cfg = _small_cfg()
     cfg.MODEL.BACKBONE = "swin_t"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyError):
         build_model(41, cfg, device="cpu")
+    cfg = _small_cfg()
+    cfg.MODEL.BACKBONE = "swin_t_p4w7"
+    cfg.TPU.TRANSFORMER_GRADIENT_CHECKPOINT = True
+    model = build_model(41, cfg, device="cpu")
+    assert type(model.def_detr.backbone[0].body).__name__ == "SwinTransformer"
+    assert model.def_detr.transformer.remat_layers
 
 
 def test_tracker_entry_point_needs_an_explicit_cpu(monkeypatch):
