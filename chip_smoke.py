@@ -149,7 +149,28 @@
    'coco') through `evaluate_coco`, 1 + 3 images at 800x1216 (K8 7, K6 5,
    K4 6 an image), its kernels on their first inputs and one image
    against the plain versions (the image path's gates).
-10. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
+10. The paper's ablation configurations (after the Swin-L phase), each from
+   its file under configs/devis/ablations/, bf16, full width and depth,
+   seeded random weights with the noise of step 3. Ablation 0 (Deformable
+   VisTR: 36-frame clips, 360 queries, one /32 level, plain-conv + 3-d conv
+   head, not instance-aware) on a seeded 36-frame video at the config's
+   test size (300x533 on the 320x576 canvas): 2 clips through
+   `VISInferFn` (K1, K2, K3 six launches a clip, nothing else), the
+   clip's kernels on their first inputs and one clip against the plain
+   versions (the clip path's gates), K2 and K1 on encoder layer 0's inputs
+   and K3 on decoder layer 0's at W = 35, L = 1 in f32 and bf16 with the
+   windows' sizes per stage and their device times and bounds; one train
+   step of one such clip (4 instances in 10 slots; K5 12 launches, no
+   plain path, finite losses, step ms and peak memory), K5 on its encoder
+   layer 0's inputs with time and bound, and the step's kernels against
+   their plain versions. Ablation 1 (no temporal connections, 36 frames):
+   the same clips and step (K8 7 and K6 5 a clip; a step K8 7, K6 5, K7 7,
+   K9 5), then a 1 + 2-layer step at full width, kernels against plain
+   versions per gradient tensor. Ablations 2, 2-5, 3 and 4 (6 frames): 3
+   clips each with their launches and one against the plain versions.
+   Each config's clip is profiled; ablation 3's plain-conv mask head and
+   3-d head also alone on that clip's inputs.
+11. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
    `redesigned`: whether its first port has been redesigned for Hopper; K5
    and K7 with `op_ms`, `global_adds`, `global_only_ms` and, per shape,
    window statistics; K6 and K8 with `op_ms` and their times per shape; K9
@@ -158,10 +179,16 @@
    mma.sync form's; `cli_launches`: its launches over the CLI phase;
    `cli_max_abs_err`: its largest error in the CLI phase's checks;
    `swin_{clip,train,remat_train,image}_launches`: its launches on each
-   Swin-L path; `swin_max_abs_err`: its largest error in their checks), a
+   Swin-L path; `swin_max_abs_err`: its largest error in their checks;
+   `ablation{key}_{clip,train}_launches`: its launches on each ablation
+   path; `ablation_max_abs_err`: its largest error in their checks;
+   `ablation0_w35` for K1, K3, K5: ms, plain ms, bound and error at
+   ablation 0's W = 35, L = 1), a
    clip-latency line, a
    train-step line with peak memory, the image model's two lines, the e2e
-   line, the `cli` line, the `swin` line, the card line, and last {"ok":
+   line, the `cli` line, the `swin` line, the `ablations` line (each config's
+   clip latency, busy ms, idle share, step ms and peak GiB, with the card),
+   the card line, and last {"ok":
    true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -583,11 +610,12 @@ def msda_phases(torch, dev, gen, results):
 def clip_input(torch, dev, infer, video):
     """(x, pad): the model's normalized input for the first clip of `video`
     as `VISInferFn` prepares it."""
-    images, _, _ = infer.prepare(video, 0)
+    images, (h, w), _ = infer.prepare(video, 0)
     x = torch.from_numpy(images).to(dev)
     x = (x.float() / 255.0 - infer._mean) / infer._std
     pad = torch.zeros(x.shape[:3], dtype=torch.bool, device=dev)
-    pad[:, VIDEO_HW[0]:] = True
+    pad[:, h:] = True
+    pad[:, :, w:] = True
     return x, pad
 
 
@@ -1233,12 +1261,14 @@ def check_counts(ops, wants):
 
 class _Video:
     """Seeded synthetic uint8 video: a drifting colour gradient with moving
-    rectangles, `n` frames of 360x640."""
+    rectangles, `n` frames of `hw` (360x640), in clips of `clip` frames
+    `STRIDE` apart."""
 
-    def __init__(self, n: int, seed: int):
+    def __init__(self, n: int, seed: int, hw=VIDEO_HW, clip: int = T):
         import numpy as np
         rs = np.random.RandomState(seed)
-        h, w = VIDEO_HW
+        h, w = hw
+        self.clip = clip
         yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
         frames = []
         boxes = rs.randint(0, 300, size=(5, 4))
@@ -1254,7 +1284,7 @@ class _Video:
         self.real_video_length = None
 
     def load_clip(self, i: int):
-        return self.frames[i * STRIDE:i * STRIDE + T]
+        return self.frames[i * STRIDE:i * STRIDE + self.clip]
 
 
 def move_taps_off_the_grid(torch, model, dev, box_noise):
@@ -1307,24 +1337,27 @@ def build(torch, dev, enc_layers=6, dec_layers=6, mask_aux=(2,), box_noise=True)
     return cfg, model
 
 
-def check_clip_fetch(torch, outs):
-    """Each `VISInferFn` result of a 360x640 clip has the fetch's shapes and
-    dtypes, finite scores in [0, 1], ordered boxes and labels and gathers in
+def check_clip_fetch(torch, outs, cfg, hw, canvas):
+    """Each `VISInferFn` result of a clip of frames `hw` on `canvas` has the
+    fetch's shapes and dtypes at the config's frames, queries and NUM_OUT
+    (masks for every trajectory where they are no more than NUM_OUT),
+    finite scores in [0, 1], ordered boxes and labels and gathers in
     range."""
     import numpy as np
 
-    from devis_torch.inference import make_eval_buckets
     from devis_torch.util.box_ops import box_cxcywh_to_xyxy
 
-    hv, wv = round(VIDEO_HW[0] / 4), round(VIDEO_HW[1] / 4)
-    canvas = make_eval_buckets(*VIDEO_HW)[0]
-    want = {"scores": (T, NUM_OUT), "labels": (NUM_OUT,), "boxes": (T, NUM_OUT, 4),
-            "center_points": (T, NUM_OUT, 2), "mask_gather": (NUM_OUT,)}
+    Tn, k_out = cfg.MODEL.DEVIS.NUM_FRAMES, cfg.TEST.NUM_OUT
+    nq = cfg.MODEL.NUM_QUERIES // Tn
+    want = {"scores": (Tn, k_out), "labels": (k_out,), "boxes": (Tn, k_out, 4),
+            "center_points": (Tn, k_out, 2), "mask_gather": (k_out,)}
     for r in outs:
         shapes = {k: tuple(np.shape(r[k])) for k in want}
         ml = r["mask_logits"]
-        if shapes != want or tuple(ml.shape) != (NQ // T, T, canvas[0] // 4, canvas[1] // 4) \
-                or ml.dtype != torch.float8_e4m3fn or r["valid_hw"] != (hv, wv):
+        if shapes != want or tuple(ml.shape) != (min(nq, k_out), Tn, canvas[0] // 4,
+                                                 canvas[1] // 4) \
+                or ml.dtype != torch.float8_e4m3fn \
+                or r["valid_hw"] != (round(hw[0] / 4), round(hw[1] / 4)):
             raise AssertionError(f"fetch shapes {shapes}, masks {tuple(ml.shape)} "
                                  f"{ml.dtype}, valid_hw {r['valid_hw']}")
         xyxy = box_cxcywh_to_xyxy(torch.from_numpy(r["boxes"]))
@@ -1333,7 +1366,7 @@ def check_clip_fetch(torch, outs):
                 and ((r["scores"] >= 0) & (r["scores"] <= 1)).all()
                 and (xyxy[..., 2:] >= xyxy[..., :2]).all()
                 and ((r["labels"] >= 0) & (r["labels"] < NUM_CLASSES)).all()  # 41 logits
-                and ((r["mask_gather"] >= 0) & (r["mask_gather"] < NQ // T)).all()):
+                and ((r["mask_gather"] >= 0) & (r["mask_gather"] < nq)).all()):
             raise AssertionError("non-finite or out-of-range outputs")
 
 
@@ -1345,18 +1378,24 @@ def clip_vs_plain(torch, model, x, pad):
     from devis_torch.ops import ms_deform_attn_cuda as K
     from devis_torch.ops.deform_conv import modulated_deform_conv2d_plain
 
+    from devis_torch.ops.ms_deform_attn import ms_deform_attn
+
     with torch.inference_mode():
         out_k, res_k = model(x, pad)
-        saved = (attn_mod.msda_temporal_proj, attn_mod.msda_temporal,
-                 seg_mod.modulated_deform_conv2d)
+        saved = (attn_mod.msda_temporal_proj, attn_mod.msda_temporal, attn_mod.msda_proj,
+                 attn_mod.msda_taps, seg_mod.modulated_deform_conv2d)
+        # the clip without temporal connections (DeVIS ablations) takes the
+        # single-frame ops
         attn_mod.msda_temporal_proj = K.msda_temporal_proj_plain
         attn_mod.msda_temporal = K.ms_deform_attn_temporal_plain
+        attn_mod.msda_proj = K.msda_proj_plain
+        attn_mod.msda_taps = ms_deform_attn
         seg_mod.modulated_deform_conv2d = modulated_deform_conv2d_plain
         try:
             out_p, res_p = model(x, pad)
         finally:
-            (attn_mod.msda_temporal_proj, attn_mod.msda_temporal,
-             seg_mod.modulated_deform_conv2d) = saved
+            (attn_mod.msda_temporal_proj, attn_mod.msda_temporal, attn_mod.msda_proj,
+             attn_mod.msda_taps, seg_mod.modulated_deform_conv2d) = saved
     # bf16 end to end through 12 attention layers and 6 DCNv2 layers: the two
     # paths round at different places, so probabilities and mask logits agree
     # to 5e-2 of their largest magnitude (a seeded model's probabilities are
@@ -1377,41 +1416,68 @@ def clip_vs_plain(torch, model, x, pad):
     return dict(errs, pred_boxes=box_err)
 
 
-def infer_clips(torch, card, cfg, model, what="inference path"):
-    """`VISInferFn` over 3 clips of the seeded 360x640 video after a warm-up,
-    the counts zeroed just before and read just after: K1, K2, K3 and K4
-    six times a clip each and no plain path; the fetches checked. Returns
-    (infer, video, launches, latencies in ms)."""
-    from devis_torch.inference import VISInferFn, make_eval_buckets
-    from devis_torch.models.segmentation import ModulatedDeformableConv
+def clip_ops():
+    """The wrappers a clip model may launch: K1, K2, K3, K5 (temporal), K8,
+    K6, K9, K7 (single frame: the clip without temporal connections), K4."""
     from devis_torch.ops import ms_deform_attn_cuda as K
     from devis_torch.ops.deform_conv import modulated_deform_conv2d
+    return [K.msda_temporal_proj, K.msda_tap_window, K.msda_temporal, K.msda_temporal_bwd,
+            K.msda_proj, K.msda_rows, K.msda_taps_bwd, K.msda_rows_bwd,
+            modulated_deform_conv2d]
 
-    log(f"{what}: VISInferFn over 3 clips")
-    video = _Video(T + 3 * STRIDE, SEED)
-    infer = VISInferFn(model, T, make_eval_buckets(*VIDEO_HW))
+
+def clip_wants(cfg, model, train: bool = False):
+    """Launches of `clip_ops` a clip (with `train`, a train step of a model
+    without DCNv2 layers): with temporal connections K1, K2 once an encoder
+    layer and K3 once a decoder layer, K5 once each in the backward;
+    without them K8 once an encoder layer and at decoder layer 0 (2-d
+    references), K6 at the later decoder layers (4-d references after the
+    first box refinement), K9 and K7 their backwards; K4 once a DCNv2 layer
+    of the mask head."""
+    from devis_torch.models.segmentation import ModulatedDeformableConv
+    n_enc = cfg.MODEL.TRANSFORMER.ENCODER_LAYERS
+    n_dec = cfg.MODEL.TRANSFORMER.DECODER_LAYERS
+    n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
+    if train and n_dcn:
+        raise ValueError("clip_wants counts the train step of a plain-conv mask head only")
+    b = int(train)
+    if cfg.MODEL.DEVIS.DEFORMABLE_ATTENTION.DISABLE_TEMPORAL_CONNECTIONS:
+        return [0, 0, 0, 0, n_enc + 1, n_dec - 1, b * (n_dec - 1), b * (n_enc + 1), n_dcn]
+    return [n_enc, n_enc, n_dec, b * (n_enc + n_dec), 0, 0, 0, 0, n_dcn]
+
+
+def infer_clips(torch, card, cfg, model, what="inference path", n_clips=3):
+    """`VISInferFn` over `n_clips` clips of the seeded 360x640 video,
+    resized to the config's test size as `ValTransform` sizes it, on the
+    canvas of its eval buckets, after a warm-up, the counts zeroed just
+    before and read just after: `clip_wants` a clip and no plain path; the
+    fetches checked. Returns (infer, video, launches, latencies in ms)."""
+    from devis_torch.datasets.transforms import get_size_with_aspect_ratio
+    from devis_torch.inference import VISInferFn, make_eval_buckets
+
+    Tn = cfg.MODEL.DEVIS.NUM_FRAMES
+    hw = get_size_with_aspect_ratio(VIDEO_HW, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    buckets = make_eval_buckets(cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    log(f"{what}: VISInferFn over {n_clips} clips of {Tn} frames of {hw[0]}x{hw[1]} on the "
+        f"{buckets[0][0]}x{buckets[0][1]} canvas")
+    video = _Video(Tn + (n_clips - 1) * STRIDE, SEED, hw=hw, clip=Tn)
+    infer = VISInferFn(model, Tn, buckets)
     infer(video, 0)                                      # warm-up (cuDNN plans)
     torch.cuda.synchronize()
 
-    ops = (K.msda_temporal_proj, K.msda_tap_window, K.msda_temporal,
-           modulated_deform_conv2d)
-    for fn in ops:
-        fn.launches = fn.plain_calls = 0
+    ops = clip_ops()
+    zero_coco_counts(ops)
     lat = []
     outs = []
-    for i in range(3):
+    for i in range(n_clips):
         t0 = time.perf_counter()
         outs.append(infer(video, i))
         lat.append((time.perf_counter() - t0) * 1e3)
     launches = {fn.__name__: fn.launches for fn in ops}
     plain = {fn.__name__: fn.plain_calls for fn in ops}
-    log(f"  launches over 3 clips: {launches}; plain calls: {plain}")
-    n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
-    # K1's op launches K2 before K1 in every encoder layer
-    check_counts(ops, (3 * cfg.MODEL.TRANSFORMER.ENCODER_LAYERS,
-                       3 * cfg.MODEL.TRANSFORMER.ENCODER_LAYERS,
-                       3 * cfg.MODEL.TRANSFORMER.DECODER_LAYERS, 3 * n_dcn))
-    check_clip_fetch(torch, outs)
+    log(f"  launches over {n_clips} clips: {launches}; plain calls: {plain}")
+    check_coco_counts(ops, [n_clips * c for c in clip_wants(cfg, model)])
+    check_clip_fetch(torch, outs, cfg, hw, buckets[0])
     clip_ms = sum(lat) / len(lat)
     log(f"  clip latency {[round(v, 3) for v in lat]} ms, mean {clip_ms:.3f} ms; "
         f"FPS = stride {STRIDE} / latency = {STRIDE / clip_ms * 1e3:.3f} ({card})")
@@ -2914,10 +2980,10 @@ SWIN_GROUPS = {"f32 matmuls (window logits)": "gemm_f32f32", "softmax": "softmax
                "bias-table gather": "index"}
 
 
-def build_from_file(torch, dev, path, num_classes, opts=()):
+def build_from_file(torch, dev, path, num_classes, opts=(), box_noise=True):
     """(cfg, model) of a config file of the repo as the port's YAML reader
     gives it, with `opts` and bf16 compute, seeded random weights (the
-    noise of `move_taps_off_the_grid` on), in eval mode."""
+    noise of `move_taps_off_the_grid`), in eval mode."""
     from devis_torch.config import get_cfg_defaults
     from devis_torch.models import build_model
 
@@ -2927,7 +2993,7 @@ def build_from_file(torch, dev, path, num_classes, opts=()):
     cfg.freeze()
     t0 = time.perf_counter()
     model = build_model(num_classes, cfg, seed=SEED)
-    move_taps_off_the_grid(torch, model, dev, box_noise=True)
+    move_taps_off_the_grid(torch, model, dev, box_noise)
     log(f"model: {path}, backbone {cfg.MODEL.BACKBONE}, "
         f"{cfg.MODEL.TRANSFORMER.ENCODER_LAYERS}+{cfg.MODEL.TRANSFORMER.DECODER_LAYERS} layers, "
         f"bf16, {sum(p.numel() for p in model.parameters())} parameters, built in "
@@ -3121,6 +3187,271 @@ def swin_phase(torch, dev, card):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# The paper's ablation configurations
+# ---------------------------------------------------------------------------
+
+ABLATION_DIR = "configs/devis/ablations"
+ABLATION_CONFIGS = {"0": "devis_ablation0_deformable_vistr.yaml",
+                    "1": "devis_ablation1_deformable_vistr_wo_temp_conn.yaml",
+                    "2": "devis_ablation2_single-scale.yaml",
+                    "2-5": "devis_ablation2-5_single-scale_wo_temp_conn.yaml",
+                    "3": "devis_ablation3_increased-spatial-inputs.yaml",
+                    "4": "devis_ablation4_instance-aware.yaml"}
+
+
+def ablation_temporal_kernels(torch, model, x, pad):
+    """K2 and K1 on encoder layer 0's inputs and K3 on decoder layer 0's at
+    the ablation's geometry (W = T - 1 under the rule "all", L levels),
+    each against its plain version in f32 (TF32 off, 1e-4) and bf16 (2e-2);
+    the windows' sizes per stage and the corners K1 reads from global
+    memory; device times beside the bounds (section 6's rule). Returns the
+    record."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.ms_deform_attn import temporal_frame_table
+
+    enc, query, ref, src, shapes, padding, c_off, t_off = capture_encoder0(model, x, pad)
+    Tn, Q, L, _ = ref.shape
+    W = Tn - 1
+    value = enc._value(src, padding).contiguous()
+    Mh, Dh = value.shape[2], value.shape[3]
+    Pn = c_off.shape[-1] // (Mh * L * 2)
+    c_logit = enc.attention_weights(query).contiguous()
+    t_logit = enc.temporal_attention_weights(query).contiguous()
+    rule = ("all",)
+    log(f"K2 and K1 on encoder layer 0's inputs: T={Tn} Q={Q} levels {list(shapes)} "
+        f"W={W} Lf={(1 + W) * L} P={Pn}")
+    win = K.msda_tap_window(shapes, ref, c_off, t_off, Mh)
+    if not torch.equal(win, K.msda_tap_window_plain(shapes, ref, c_off, t_off, Mh)):
+        raise AssertionError("K2 windows differ from the plain version")
+    plan = K.window_plan(shapes, value.dtype, Dh, Pn)
+    stats = window_stats(torch, win, plan, L)
+    a16 = (value, shapes, ref, c_off, t_off, c_logit, t_logit, rule)
+    a32 = tuple(t.float() if torch.is_tensor(t) else t for t in a16)
+    compare("  K1 f32 ", K.msda_temporal_proj(*a32), K.msda_temporal_proj_plain(*a32), 1e-4)
+    k1_err = compare("  K1 bf16", K.msda_temporal_proj(*a16), K.msda_temporal_proj_plain(*a16),
+                     2e-2)
+    _, reads = K.launch_k1(*a16, win, plan, "count")
+    log(f"  corners read from global memory {reads.tolist()} (in fitted windows, in windows "
+        f"over capacity; plan {tuple(plan)})")
+    if reads[0].item() != 0:
+        raise AssertionError("a K2 window missed a tap of K1")
+    table = torch.as_tensor(temporal_frame_table(rule, Tn), device=x.device)
+    frames = torch.cat([torch.arange(Tn, device=x.device)[:, None], table], 1)
+    loc = K.temporal_proj_locations(shapes, ref, c_off, t_off, Mh)
+    k1_bytes = (sum(t.numel() * t.element_size() for t in a16[2:] if torch.is_tensor(t))
+                + Tn * Q * Mh * Dh * 2 + corner_stats(loc, shapes, frames)[2] * Dh * 2)
+    k1_flops = Tn * Q * Mh * (1 + W) * L * Pn * (8 * Dh + 40)
+    k1 = dict(ms=device_ms(lambda: K.launch_k1(*a16, win, plan), "msda_temporal_proj_win"),
+              op_ms=cuda_time(lambda: K.msda_temporal_proj(*a16), 20),
+              plain_ms=cuda_time(lambda: K.msda_temporal_proj_plain(*a16), 2, 1),
+              k2_ms=device_ms(lambda: K.msda_tap_window(shapes, ref, c_off, t_off, Mh),
+                              "msda_tap_window_kernel"),
+              max_abs_err=k1_err, reads=reads.tolist(), windows=stats, Q=Q, W=W, L=L,
+              bound_ms=max(k1_bytes / HBM_BYTES_PER_S, k1_flops / F32_FLOPS) * 1e3)
+    del a32, loc, win
+    dvalue, dshapes, dloc, datt, drule = capture_decoder0(model, x, pad)
+    Qd = dloc.shape[1]
+    log(f"K3 on decoder layer 0's inputs: T={Tn} Q={Qd} Lf={dloc.shape[3]} P={dloc.shape[4]}")
+    v32 = dvalue.float()
+    compare("  K3 f32 ", K.msda_temporal(v32, dshapes, dloc, datt, drule),
+            K.ms_deform_attn_temporal_plain(v32, dshapes, dloc, datt, drule), 1e-4)
+    k3_err = compare("  K3 bf16", K.msda_temporal(dvalue, dshapes, dloc, datt, drule),
+                     K.ms_deform_attn_temporal_plain(dvalue, dshapes, dloc, datt, drule), 2e-2)
+    k3_bytes = (corner_stats(dloc, dshapes, frames)[2] * Dh * 2 + dloc.numel() * 4
+                + datt.numel() * 4 + Tn * Qd * Mh * Dh * 2)
+    k3_flops = Tn * Qd * Mh * dloc.shape[3] * dloc.shape[4] * 8 * Dh
+    k3 = dict(ms=device_ms(lambda: K.msda_temporal(dvalue, dshapes, dloc, datt, drule),
+                           "msda_temporal_kernel"),
+              op_ms=cuda_time(lambda: K.msda_temporal(dvalue, dshapes, dloc, datt, drule), 50),
+              plain_ms=cuda_time(lambda: K.ms_deform_attn_temporal_plain(
+                  dvalue, dshapes, dloc, datt, drule), 3, 1),
+              max_abs_err=k3_err, Q=Qd, W=W, L=L, grid=k3_grid(torch, dloc),
+              bound_ms=max(k3_bytes / HBM_BYTES_PER_S, k3_flops / F32_FLOPS) * 1e3)
+    for name, r in (("K1", k1), ("K3", k3)):
+        log(f"  {name} at W={W} L={L}: {r['ms']:.4f} ms of device time (op {r['op_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.3f} ms), bound {r['bound_ms']:.5f} ms")
+    return dict(K1=k1, K3=k3)
+
+
+def ablation_k5(torch, calls):
+    """K5's device time and bound (section 6's rule) on the train step's
+    encoder-layer-0 inputs (kept by `_FirstCalls`) with a seeded output
+    gradient; `cli_kernel_checks` holds it against its plain version."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.ms_deform_attn import temporal_frame_table
+
+    value, shapes, ref, c_off, t_off, c_logit, t_logit, rule = calls["msda_temporal_proj"]
+    Tn, Q, L, _ = ref.shape
+    Mh, Dh = value.shape[2], value.shape[3]
+    gen = torch.Generator(device=value.device).manual_seed(SEED + 21)
+    with torch.no_grad():
+        loc = K.temporal_proj_locations(shapes, ref, c_off, t_off, Mh).contiguous()
+        att = K.temporal_proj_weights(c_logit, t_logit, Mh, L).contiguous()
+        g = torch.randn(Tn, Q, Mh * Dh, generator=gen, device=value.device).to(value.dtype)
+        args = (value, shapes, loc, att, g, rule)
+        table = torch.as_tensor(temporal_frame_table(rule, Tn), device=value.device)
+        frames = torch.cat([torch.arange(Tn, device=value.device)[:, None], table], 1)
+        nbytes, flops, corners = backward_cost(loc, att, value, shapes, frames, Dh)
+        ms = device_ms(lambda: K.msda_temporal_bwd(*args), "msda_temporal_bwd_win")
+        op_ms = cuda_time(lambda: K.msda_temporal_bwd(*args), 10)
+        plain_ms = cuda_time(lambda: K.msda_temporal_bwd_plain(*args), 1, 1)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    log(f"K5 on the train step's encoder layer 0 inputs, W={Tn - 1} L={L}: {ms:.4f} ms of "
+        f"device time (op {op_ms:.4f} ms, plain {plain_ms:.3f} ms), bound {bound:.5f} ms; "
+        f"{corners} live corners")
+    return dict(ms=ms, op_ms=op_ms, plain_ms=plain_ms, bound_ms=bound, Q=Q, W=Tn - 1, L=L)
+
+
+def ablation_train(torch, dev, card, cfg, model, key, hw, canvas, rec):
+    """One warm-up and one counted train step through `make_train_step` on
+    one seeded clip of the config's T frames at the test canvas, 4
+    instances in 10 slots, dropout as the config sets it: `clip_wants`
+    launches, no plain path, finite losses, the step's ms and peak memory.
+    Returns (launches, the step's first calls)."""
+    from devis_torch.engine import create_train_state, make_train_step
+    from devis_torch.util.synthetic import synthetic_clip_batch
+
+    Tn = cfg.MODEL.DEVIS.NUM_FRAMES
+    batch = synthetic_clip_batch(SEED + 22, Tn, canvas, hw, N_INSTANCES, N_SLOTS,
+                                 NUM_CLASSES - 1)
+    log(f"ablation {key} train step: make_train_step, one clip of {Tn} frames on the "
+        f"{canvas[0]}x{canvas[1]} canvas, {N_INSTANCES} instances in {N_SLOTS} slots")
+    state = create_train_state(cfg, model, steps_per_epoch=100)
+    step = make_train_step(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    state, _ = step(state, batch, gen)                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops = clip_ops()
+    zero_coco_counts(ops)
+    with _FirstCalls(torch) as first:
+        state, step_ms = timed_steps(torch, step, state, batch, gen, 1)
+    launches = {fn.__name__: fn.launches for fn in ops}
+    log(f"  launches: {launches}")
+    check_coco_counts(ops, clip_wants(cfg, model, train=True))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  ablation {key} train step {step_ms[0]:.3f} ms, peak memory {peak:.3f} GiB ({card})")
+    rec.update(step_ms=step_ms[0], peak_gib=peak)
+    model.eval()
+    del state, step
+    return launches, first.args
+
+
+def ablation_config(torch, dev, card, key, n_clips, rec, train=False, kernels=False,
+                    heads_profile=False):
+    """One ablation config file at full width and depth, bf16, seeded random
+    weights: `n_clips` clips through `VISInferFn` with their launches, one
+    clip through the plain versions held to the clip path's gates, one clip
+    profiled (and with `heads_profile` the plain-conv and 3-d heads alone
+    on that clip's inputs); with `kernels` the temporal kernels on the path's
+    inputs (`ablation_temporal_kernels`); with `train` one train step
+    (`ablation_train`), then its kernels on their first inputs against
+    their plain versions (`cli_kernel_checks`; K5 also timed with
+    `kernels`, `ablation_k5`). Returns the launches by path."""
+    cfg, model = build_from_file(torch, dev, os.path.join(ABLATION_DIR, ABLATION_CONFIGS[key]),
+                                 NUM_CLASSES)
+    with _FirstCalls(torch) as first:
+        infer, video, launches, lat = infer_clips(torch, card, cfg, model, f"ablation {key}",
+                                                  n_clips)
+    rec["clip_kernel_errs"] = cli_kernel_checks(torch, dev, first.args, False,
+                                                f"ablation {key} clip")
+    x, pad = clip_input(torch, dev, infer, video)
+    rec["clip_vs_plain"] = clip_vs_plain(torch, model, x, pad)
+    if kernels:
+        with torch.inference_mode():
+            rec["kernels_w"] = ablation_temporal_kernels(torch, model, x, pad)
+    busy, wall, by_group = profile_run(torch, f"ablation {key} clip", lambda: infer(video, 0))
+    rec.update(clip_ms=lat, clip_busy_ms=busy, clip_wall_ms=wall,
+               clip_idle_share=max(0.0, 1 - busy / wall), clip_groups_ms=by_group)
+    if heads_profile:
+        held = {}
+        hooks = [mod.register_forward_pre_hook(
+            lambda m, args, kwargs, name=name: held.setdefault(name, (args, kwargs)),
+            with_kwargs=True)
+            for name, mod in (("mask", model.mask_head), ("3d", model.conv_head_3d))]
+        with torch.inference_mode():
+            model(x, pad)
+        for h in hooks:
+            h.remove()
+        with torch.inference_mode():
+            mask_ms, _, _ = profile_run(torch, f"ablation {key} plain-conv mask head alone",
+                                        lambda: model.mask_head(*held["mask"][0],
+                                                                **held["mask"][1]))
+            head3d_ms, _, _ = profile_run(torch, f"ablation {key} 3-d conv head alone",
+                                          lambda: model.conv_head_3d(*held["3d"][0]))
+        del held
+        log(f"  ablation {key} clip: device busy {busy:.3f} ms, of which the plain-conv mask "
+            f"head {mask_ms:.3f} ms and the 3-d head {head3d_ms:.3f} ms (profiled alone)")
+        rec.update(mask_head_busy_ms=mask_ms, conv3d_head_busy_ms=head3d_ms)
+    out = {"clip": launches}
+    if train:
+        from devis_torch.datasets.transforms import get_size_with_aspect_ratio
+        from devis_torch.inference import make_eval_buckets
+        del infer
+        hw = get_size_with_aspect_ratio(VIDEO_HW, cfg.INPUT.MIN_SIZE_TEST,
+                                        cfg.INPUT.MAX_SIZE_TEST)
+        canvas = make_eval_buckets(cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)[0]
+        out["train"], calls = ablation_train(torch, dev, card, cfg, model, key, hw, canvas, rec)
+        k5 = ablation_k5(torch, calls) if kernels else None
+        rec["train_kernel_errs"] = cli_kernel_checks(torch, dev, calls, True,
+                                                     f"ablation {key} train step")
+        if k5 is not None:
+            rec["kernels_w"]["K5"] = dict(k5, max_abs_err=rec["train_kernel_errs"]["K5"])
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def ablation_step_compare(torch, dev):
+    """Ablation 1 (no temporal connections, 36 frames): one train step with
+    1 encoder and 2 decoder layers at full width, the kernels (K8, K6, K7,
+    K9) against the plain versions on the card, dropout off, as
+    `train_compare` holds it."""
+    from devis_torch.datasets.transforms import get_size_with_aspect_ratio
+    from devis_torch.inference import make_eval_buckets
+    from devis_torch.util.synthetic import synthetic_clip_batch
+
+    log("ablation 1: kernel path against plain path, one train step, 1+2 layers at full "
+        "width, 36 frames")
+    cfg, model = build_from_file(
+        torch, dev, os.path.join(ABLATION_DIR, ABLATION_CONFIGS["1"]), NUM_CLASSES,
+        ["MODEL.TRANSFORMER.ENCODER_LAYERS", "1", "MODEL.TRANSFORMER.DECODER_LAYERS", "2"],
+        box_noise=False)
+    hw = get_size_with_aspect_ratio(VIDEO_HW, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    canvas = make_eval_buckets(cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)[0]
+    batch = synthetic_clip_batch(SEED + 22, cfg.MODEL.DEVIS.NUM_FRAMES, canvas, hw,
+                                 N_INSTANCES, N_SLOTS, NUM_CLASSES - 1)
+    compare_train_paths(torch, cfg, model, batch, clip_ops(),
+                        {"msda_proj": "msda_proj_plain", "msda_taps": "ms_deform_attn"})
+    del model
+    torch.cuda.empty_cache()
+
+
+def ablation_phase(torch, dev, card):
+    """The paper's ablation configurations at full width and depth, bf16,
+    seeded random weights, each from its config file: ablation 0 (36-frame
+    clips, temporal attention over 35 frames at one level) and ablation 1
+    (36 frames, no temporal connections) with 2 clips, the path's kernels
+    and a train step each, ablation 1's kernel-path against plain-path
+    step; ablations 2, 2-5, 3 and 4 (6 frames) with 3 clips each, ablation
+    3's heads profiled. Returns (the `ablations` record, launches by path)."""
+    t0 = time.perf_counter()
+    rec, launches = {"card": card}, {}
+    for key, kw in (("0", dict(n_clips=2, train=True, kernels=True)),
+                    ("1", dict(n_clips=2, train=True)),
+                    ("2", dict(n_clips=3)), ("2-5", dict(n_clips=3)),
+                    ("3", dict(n_clips=3, heads_profile=True)), ("4", dict(n_clips=3))):
+        rec[key] = {}
+        for path, n in ablation_config(torch, dev, card, key, rec=rec[key], **kw).items():
+            launches[f"ablation{key}_{path}"] = n
+        if key == "1":
+            ablation_step_compare(torch, dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"ablation phase: {rec['phase_s']:.1f} s")
+    return rec, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3186,6 +3517,8 @@ def main() -> int:
     cli, cli_launches, cli_checks = cli_phase(torch, dev, card)
     torch.cuda.empty_cache()
     swin, swin_launches = swin_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+    ablations, ablation_launches = ablation_phase(torch, dev, card)
     probe_launches = check_probes_idle("every model path")
 
     # K1-K4: launches of the clip inference path's 3 clips; K5-K7: of the clip
@@ -3224,6 +3557,13 @@ def main() -> int:
             "swin_max_abs_err": max((swin[c][key] for c in ("clip_kernel_errs", "train_kernel_errs",
                                                             "image_kernel_errs")
                                      if key in swin[c]), default=None),
+            **{f"{path}_launches": n.get(r["name"], 0) for path, n in ablation_launches.items()},
+            "ablation_max_abs_err": max(
+                (ablations[k][c][key] for k in ABLATION_CONFIGS
+                 for c in ("clip_kernel_errs", "train_kernel_errs") if key in ablations[k].get(c, {})),
+                default=None),
+            **({"ablation0_w35": ablations["0"]["kernels_w"][key]}
+               if key in ablations["0"]["kernels_w"] else {}),
             **{k: r[k] for k in ("atomic_bytes", "global_adds", "global_only_ms",
                                  "coco_shapes", "route_ms", "layers", "op_ms",
                                  "k2_ms", "windows", "lab", "random_refs", "path_inputs",
@@ -3242,6 +3582,7 @@ def main() -> int:
     print(json.dumps(e2e))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"swin": swin}))
+    print(json.dumps({"ablations": ablations}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,6 +67,8 @@
 
 #include "msda_common.cuh"
 
+// The offsets a window rule may hold. The `all` rule reads no offsets and
+// takes any number of other frames (W = T - 1: 35 in a 36-frame clip).
 #define MAX_WINDOW 16
 
 struct FrameRule {
@@ -74,6 +76,12 @@ struct FrameRule {
   int W;
   int off[MAX_WINDOW];
 };
+
+// A rule the kernels can take: W >= 0, and at most MAX_WINDOW offsets where
+// they are read.
+static inline bool rule_ok(int rule_all, int W) {
+  return W >= 0 && (rule_all || W <= MAX_WINDOW);
+}
 
 // Absolute source frame of temporal slot j of frame t.
 __device__ __forceinline__ int source_frame(const FrameRule& r, int j, int t, int T) {
@@ -122,6 +130,8 @@ enum { K1_FULL = 0, K1_NOSTAGE, K1_NOLOC, K1_NOGATHER, K1_NOACC, K1_COUNT, K1_MO
 // corner reads are latency-bound, and 8 warps a block were 1.2-1.4x slower
 #define K1_THREADS 512
 #define K1_TPQ (K1_THREADS / K1_QB)  // threads per query in the softmax
+// K1's stages (1 + W) * L, whatever the split between W and L: the header
+// holds three ints a stage (272 stages: 36 frames at one level, 6 at four)
 #define K1_MAX_LF ((1 + MAX_WINDOW) * MAX_LEVELS)
 // softmax max and reciprocal sum per query; (first, staged rows, length) per stage
 #define K1_HEAD_BYTES (2 * K1_QB * 4 + 3 * K1_MAX_LF * 4)
@@ -825,6 +835,7 @@ static int launch_temporal_proj(void* value, void* ref, void* c_off, void* t_off
              make_pyramid(levels, L), make_rule(rule_all, offsets, W), StagePlan{}, 0,
              (cudaStream_t)stream};
   const int Lf = (1 + W) * L;
+  if (!rule_ok(rule_all, W) || Lf > K1_MAX_LF) return (int)cudaErrorInvalidValue;
   a.plan.rows[0] = a.plan.rows[1] = 0;
   for (int l = 0; l < MAX_LEVELS; ++l) a.plan.cap[l] = l < L ? max(caps[l], 0) : 0;
   for (int s = 0; s < Lf; ++s) a.plan.rows[s & 1] = max(a.plan.rows[s & 1], a.plan.cap[s % L]);
@@ -848,7 +859,8 @@ static int launch_tap_window(void* ref, void* c_off, void* t_off, void* out, int
                              int L, int W, void* stream) {
   constexpr int VP16 = Vec16<scalar_t>::N / 2;
   if (G < 1 || M % G || threads < 32 || threads > K2_MAX_THREADS || threads % 32 ||
-      q_block < 1 || (vp != 1 && (vp != VP16 || P % vp)))
+      q_block < 1 || (vp != 1 && (vp != VP16 || P % vp)) || W < 0 ||
+      (1 + W) * L > K1_MAX_LF)  // the windows of K1's stages
     return (int)cudaErrorInvalidValue;
   if (vp > 1 && ((uintptr_t)c_off % 16 || (W > 0 && (uintptr_t)t_off % 16)))
     return (int)cudaErrorInvalidValue;
@@ -873,7 +885,7 @@ static int launch_temporal(void* value, void* loc, void* att, void* out, int T, 
                            int M, int D, int P, const int* levels, int L, int rule_all,
                            const int* offsets, int W, void* stream) {
   constexpr int VN = Vec16<scalar_t>::N;
-  if (D < 1 || D > 32) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > 32 || !rule_ok(rule_all, W)) return (int)cudaErrorInvalidValue;
   int lpt = 1;  // lanes a tap
   while (lpt * VN < D) lpt <<= 1;
   const bool aligned = (D * (int)sizeof(scalar_t)) % 16 == 0 && (uintptr_t)value % 16 == 0;
@@ -920,7 +932,7 @@ static int launch_temporal_bwd(void* value, void* loc, void* att, void* grad_out
   const int err = bwd_setup(Q, D, P, Vec16<scalar_t>::N, pyr, qb, 0, 0, 0, 0, cap, slice,
                             pitch, lanes, t, plan, smem);
   if (err) return err;
-  if (W > MAX_WINDOW || groups < 1) return (int)cudaErrorInvalidValue;
+  if (!rule_ok(rule_all, W) || groups < 1) return (int)cudaErrorInvalidValue;
 #define K5_LAUNCH(N)                                                                         \
   return launch_temporal_bwd_win<scalar_t, N>(value, loc, att, grad_out, grad_value,         \
                                               grad_loc, grad_att, adds, T, Q, S, M, D, P, pyr, \

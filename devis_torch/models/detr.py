@@ -1,8 +1,14 @@
-"""Deformable DETR with box refinement (port of `devis_tpu/models/detr.py`):
-backbone, per-level input projections plus the extra stride-2 /64 level, the
-deformable transformer and the per-layer class and box heads, for the T frames
-of one clip (DeVIS) or a batch of B images (`transformer_kwargs` carries the
-transformer's ``variant``), and the image model's top-k postprocessing."""
+"""Deformable DETR (port of `devis_tpu/models/detr.py`): backbone, per-level
+input projections plus the extra stride-2 /64 level, the deformable
+transformer and the class and box heads of each decoder layer, for the T
+frames of one clip (DeVIS) or a batch of B images (`transformer_kwargs`
+carries the transformer's ``variant``), and the image model's top-k
+postprocessing. With box refinement each layer has its own heads, which
+refine the next layer's references; without it one class head and one box
+head serve every layer (the same module at every index, so a reference
+`state_dict` holds `class_embed.0` ... `class_embed.5`, one tensor under six
+names), and `with_ref_point_refine` adds per-layer heads that move the 2-d
+references instead."""
 from __future__ import annotations
 
 import math
@@ -63,13 +69,15 @@ class DeformableDETR(nn.Module):
     def __init__(self, body: nn.Module, position_encoding: nn.Module,
                  num_classes: int, num_queries: int = 300,
                  num_feature_levels: int = 4, hidden_dim: int = 256,
-                 aux_loss: bool = True, with_gradient: bool = False,
+                 aux_loss: bool = True, with_box_refine: bool = True,
+                 with_ref_point_refine: bool = False, with_gradient: bool = False,
                  backbone_num_channels: Sequence[int] = (256, 512, 1024, 2048),
                  transformer_kwargs: dict = None, dtype=torch.float32):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_feature_levels = num_feature_levels
         self.aux_loss = aux_loss
+        self.with_box_refine = with_box_refine
         self.with_gradient = with_gradient
         self.backbone_num_channels = tuple(backbone_num_channels)
         self.backbone = nn.ModuleList([Backbone(body), position_encoding])
@@ -91,11 +99,15 @@ class DeformableDETR(nn.Module):
                           GroupNorm(32, hidden_dim, dtype=dtype))
             for c, k, s in projs)
         self.query_embed = nn.Embedding(num_queries, hidden_dim * 2)
-        self.class_embed = nn.ModuleList(
-            Linear(hidden_dim, num_classes + 1, dtype=dtype)
-            for _ in range(num_pred))
-        self.bbox_embed = nn.ModuleList(
-            MLP(hidden_dim, hidden_dim, 4, 3, dtype=dtype) for _ in range(num_pred))
+        n_heads = num_pred if with_box_refine else 1
+        class_embed = [Linear(hidden_dim, num_classes + 1, dtype=dtype)
+                       for _ in range(n_heads)]
+        bbox_embed = [MLP(hidden_dim, hidden_dim, 4, 3, dtype=dtype) for _ in range(n_heads)]
+        self.class_embed = nn.ModuleList(class_embed * (num_pred // n_heads))
+        self.bbox_embed = nn.ModuleList(bbox_embed * (num_pred // n_heads))
+        self.ref_point_embed = nn.ModuleList(
+            MLP(hidden_dim, hidden_dim, 2, 3, dtype=dtype) for _ in range(num_pred)
+        ) if with_ref_point_refine else None
 
     def forward(self, images: torch.Tensor, pad_mask: torch.Tensor):
         """images (T, H, W, 3) NHWC, the frames of a clip or a batch of
@@ -120,7 +132,8 @@ class DeformableDETR(nn.Module):
             pos_embeds.append(self.backbone[1](mask).to(src.dtype))
 
         t = self.transformer(srcs, masks, pos_embeds, self.query_embed.weight,
-                             self.bbox_embed)
+                             self.bbox_embed if self.with_box_refine else None,
+                             self.ref_point_embed)
         hs = t["hs"]
         classes, coords = [], []
         for lvl in range(hs.shape[0]):

@@ -6,7 +6,9 @@ top-num_out set with duplicates. In training (``targets`` given and
 ``train=True``): the final level and each level of `mask_aux_loss` are
 matched to the targets on detached costs, and masks are computed for the
 matched trajectories only; the criterion reads `indices` and `pred_masks`
-from those levels.
+from those levels. With `add_3d_conv_head` (the paper's ablations) the mask
+head ends without its output layer and `Conv3DHead` turns each trajectory's
+T feature maps into its T mask logits.
 """
 from __future__ import annotations
 
@@ -17,8 +19,30 @@ import torch.nn as nn
 
 from . import matcher as matcher_lib
 from .detr import DeformableDETR
+from .layers import Conv3d, GroupNorm
 from .segmentation import (MaskHeadConv, MultiScaleMHAttentionMap,
                            attention_and_head_features, mask_head_feat_dims)
+
+
+class Conv3DHead(nn.Module):
+    """VisTR's 3-d conv mask head: three times a 3x3x3 conv to 12 channels
+    (padding 2, dilation 2), GroupNorm(4) and ReLU, then a 1x1x1 conv to one
+    channel, over (N, C, T, h, w): it convolves across the T frames of each
+    trajectory too."""
+
+    def __init__(self, in_channels: int, dtype=torch.float32):
+        super().__init__()
+        for i in range(3):
+            self.add_module(f"conv{i}", Conv3d(in_channels if i == 0 else 12, 12, 3,
+                                               padding=2, dilation=2, dtype=dtype))
+            self.add_module(f"gn{i}", GroupNorm(4, 12, dtype=dtype))
+        self.out = Conv3d(12, 1, 1, dtype=dtype)
+
+    def forward(self, x):
+        """x (N, C, T, h, w) → (N, T, h, w)."""
+        for i in range(3):
+            x = torch.relu(getattr(self, f"gn{i}")(getattr(self, f"conv{i}")(x)))
+        return self.out(x)[:, 0]
 
 
 class DeVIS(nn.Module):
@@ -31,7 +55,8 @@ class DeVIS(nn.Module):
                  att_maps_used_res: Sequence[str] = ("/32", "/16", "/8"),
                  mask_aux_loss: Sequence[int] = (2,),
                  matcher_cfg: Optional[dict] = None,
-                 num_out: int = 20, dtype=torch.float32):
+                 num_out: int = 20, use_deformable_conv: bool = True,
+                 add_3d_conv_head: bool = False, dtype=torch.float32):
         super().__init__()
         self.def_detr = detr
         self.num_frames = num_frames
@@ -47,7 +72,11 @@ class DeVIS(nn.Module):
         fpn_dims = mask_head_feat_dims(self.mask_head_used_features,
                                        detr.backbone_num_channels, hidden)
         self.mask_head = MaskHeadConv(hidden, fpn_dims, nheads,
-                                      len(self.att_maps_used_res), dtype=dtype)
+                                      len(self.att_maps_used_res), dtype=dtype,
+                                      use_deformable_conv=use_deformable_conv,
+                                      out_layer=not add_3d_conv_head)
+        self.conv_head_3d = (Conv3DHead(hidden // 2 ** (len(fpn_dims) + 1), dtype=dtype)
+                             if add_3d_conv_head else None)
 
     def _masks_for_trajectories(self, traj_embeddings, mem_att, mask_att, feats):
         """traj_embeddings (T, N, C) → (N, T, h, w) mask logits."""
@@ -55,7 +84,9 @@ class DeVIS(nn.Module):
         bbox_masks = self.bbox_attention(traj_embeddings, mem_att, mask_att)
         bbox_masks = [b.transpose(0, 1).reshape((N * T,) + b.shape[2:])
                       for b in bbox_masks]
-        m = self.mask_head(feats, bbox_masks, expand=N)   # (N*T, 1, h, w)
+        m = self.mask_head(feats, bbox_masks, expand=N)   # (N*T, 1|C, h, w)
+        if self.conv_head_3d is not None:
+            return self.conv_head_3d(m.reshape((N, T) + m.shape[1:]).transpose(1, 2))
         return m[:, 0].reshape(N, T, m.shape[2], m.shape[3])
 
     def forward(self, images: torch.Tensor, pad_mask: torch.Tensor,

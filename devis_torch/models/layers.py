@@ -46,6 +46,21 @@ class Conv2d(nn.Conv2d):
                         self.padding, self.dilation)
 
 
+class Conv3d(nn.Conv3d):
+    """NCDHW convolution computed in ``dtype``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 padding: int = 0, dilation: int = 1, dtype=torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, padding=padding,
+                         dilation=dilation)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv3d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride,
+                        self.padding, self.dilation)
+
+
 class LayerNorm(nn.LayerNorm):
     """Statistics in f32; the result in f32, or in ``out_dtype`` where given
     (a flax LayerNorm built with a ``dtype``)."""

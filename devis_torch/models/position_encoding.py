@@ -61,3 +61,38 @@ class PositionEmbeddingSineWithLearnableTemporal(nn.Module):
             raise ValueError(f"expected {self.num_frames} frames, got {mask.shape[0]}")
         pos = sine_position_encoding(mask, self.hidden_dim // 2)
         return pos + self.temporal_embed[:, None, None, :]
+
+
+class PositionEmbeddingSpatialTemporalSine(nn.Module):
+    """VisTR's (t, y, x) sine encoding over the T frames of a clip (the batch
+    axis), `num_pos_feats` channels each, zero-padded by 4 channels: 256 at
+    the 84 a hidden width of 252 gives."""
+
+    def __init__(self, num_pos_feats: int = 84, num_frames: int = 6,
+                 temperature: float = 10000.0):
+        super().__init__()
+        self.num_pos_feats = num_pos_feats
+        self.num_frames = num_frames
+        self.temperature = temperature
+
+    def forward(self, mask: torch.Tensor) -> torch.Tensor:
+        """mask (T, H, W) True on padding → (T, H, W, 3 * num_pos_feats + 4)."""
+        scale = 2 * math.pi
+        not_mask = (~mask).float()[None]                  # (1, T, H, W)
+        eps = 1e-6
+        embeds = []
+        for axis in (1, 2, 3):
+            e = not_mask.cumsum(axis)
+            last = e.narrow(axis, e.shape[axis] - 1, 1)
+            embeds.append(e / (last + eps) * scale)
+        dim_t = torch.arange(self.num_pos_feats, dtype=torch.float32, device=mask.device)
+        dim_t = self.temperature ** (2 * torch.div(dim_t, 2, rounding_mode="floor")
+                                     / self.num_pos_feats)
+
+        def enc(e):
+            p = e[..., None] / dim_t
+            return torch.stack([p[..., 0::2].sin(), p[..., 1::2].cos()], -1).flatten(-2)
+
+        pos = torch.cat([enc(e) for e in embeds], dim=-1)
+        pad = torch.zeros(pos.shape[:-1] + (4,), dtype=pos.dtype, device=pos.device)
+        return torch.cat([pos, pad], dim=-1)[0]

@@ -2,6 +2,8 @@
 channel-first path of `devis_tpu/models/segmentation.py`).
 
   * `ModulatedDeformableConv`: a DCNv2 layer run as one K4 launch.
+  * `plain_conv`: the 3x3 convolution that takes its place where the config
+    turns the deformable convs off (`USE_MDC: False`); cuDNN runs it.
   * `MultiScaleMHAttentionMap`: per-level attention maps between query
     embeddings and encoder memories, softmaxed jointly over heads x space.
   * `MaskHeadConv`: the FPN-style spine, channel-first; the features are
@@ -59,6 +61,13 @@ class ModulatedDeformableConv(nn.Module):
             _hwio(self.modulator_conv.weight, dt), self.modulator_conv.bias.to(dt),
             _hwio(self.regular_conv.weight, x.dtype),
             self.regular_conv.bias.to(x.dtype), self.padding)
+
+
+def plain_conv(in_channels: int, out_channels: int, dtype=torch.float32) -> Conv2d:
+    """The mask head's 3x3 conv without deformation (padding 1); its weight
+    and bias keep the layer's own names (`lay1.weight`, as the reference's
+    plain `nn.Conv2d`)."""
+    return Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype)
 
 
 class MultiScaleMHAttentionMap(nn.Module):
@@ -143,27 +152,31 @@ def attention_and_head_features(inter, att_maps_used_res, mask_head_used_feature
 
 
 class MaskHeadConv(nn.Module):
-    """FPN-style mask head with DCNv2 convs, channel-first. `features[0]` is
-    the coarsest map; attention maps join at the first `num_att_levels`
-    scales. Features are expanded to (expand*B, ...): ``"tile"`` repeats the
-    batch as a whole (sample n*B + b), ``"repeat"`` each image in turn
-    (sample b*expand + n)."""
+    """FPN-style mask head, channel-first, with DCNv2 convs or, where
+    `use_deformable_conv` is off, plain 3x3 convs. `features[0]` is the
+    coarsest map; attention maps join at the first `num_att_levels` scales.
+    Features are expanded to (expand*B, ...): ``"tile"`` repeats the batch
+    as a whole (sample n*B + b), ``"repeat"`` each image in turn (sample
+    b*expand + n). Without `out_layer` the head returns its last feature
+    map (the 3-d conv head of the DeVIS ablations takes it)."""
 
     def __init__(self, dim: int, fpn_dims: Sequence[int], nheads: int,
                  num_att_levels: int, dtype=torch.float32,
-                 expand_mode: str = "tile"):
+                 expand_mode: str = "tile", use_deformable_conv: bool = True,
+                 out_layer: bool = True):
         super().__init__()
         if expand_mode not in ("tile", "repeat"):
             raise ValueError(f"unknown expand_mode {expand_mode!r}")
         self.expand_mode = expand_mode
         self.num_att_levels = num_att_levels
         self.compute_dtype = dtype
+        conv = ModulatedDeformableConv if use_deformable_conv else plain_conv
         n_fpn = len(fpn_dims)
         out_dims = [dim // (2 ** e) for e in range(n_fpn + 3)]
         c0 = dim + nheads
-        self.lay1 = ModulatedDeformableConv(c0, c0, dtype=dtype)
+        self.lay1 = conv(c0, c0, dtype=dtype)
         self.gn1 = GroupNorm(8, c0, dtype=dtype)
-        self.lay2 = ModulatedDeformableConv(c0, out_dims[1], dtype=dtype)
+        self.lay2 = conv(c0, out_dims[1], dtype=dtype)
         self.gn2 = GroupNorm(8, out_dims[1], dtype=dtype)
         for lvl, fdim in enumerate(fpn_dims):
             c_in = out_dims[lvl + 1]
@@ -171,12 +184,10 @@ class MaskHeadConv(nn.Module):
                             Conv2d(fdim, c_in, 1, dtype=dtype))
             if num_att_levels > 1 and lvl + 1 < num_att_levels:
                 c_in += nheads
-            self.add_module(f"lay{lvl + 3}", ModulatedDeformableConv(
-                c_in, out_dims[lvl + 2], dtype=dtype))
+            self.add_module(f"lay{lvl + 3}", conv(c_in, out_dims[lvl + 2], dtype=dtype))
             self.add_module(f"gn{lvl + 3}", GroupNorm(8, out_dims[lvl + 2],
                                                       dtype=dtype))
-        self.out_lay = ModulatedDeformableConv(out_dims[n_fpn + 1], 1,
-                                               dtype=dtype)
+        self.out_lay = conv(out_dims[n_fpn + 1], 1, dtype=dtype) if out_layer else None
 
     def forward(self, features: List[torch.Tensor],
                 bbox_masks: List[torch.Tensor], expand: int) -> torch.Tensor:
@@ -199,7 +210,7 @@ class MaskHeadConv(nn.Module):
                 x = torch.cat([x, bbox_masks[lvl + 1].to(dt)], dim=1)
             x = getattr(self, f"lay{lvl + 3}")(x)
             x = F.relu(getattr(self, f"gn{lvl + 3}")(x))
-        return self.out_lay(x)
+        return x if self.out_lay is None else self.out_lay(x)
 
 
 class DeformableDETRSegm(nn.Module):
@@ -212,7 +223,8 @@ class DeformableDETRSegm(nn.Module):
                  att_maps_used_res: Sequence[str] = ("/32", "/16", "/8"),
                  mask_aux_loss: Sequence[int] = (2,),
                  matcher_cfg: Optional[dict] = None, num_out: int = 100,
-                 focal_loss: bool = True, dtype=torch.float32):
+                 focal_loss: bool = True, use_deformable_conv: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         self.def_detr = detr
         self.mask_head_used_features = tuple(map(tuple, mask_head_used_features))
@@ -229,7 +241,8 @@ class DeformableDETRSegm(nn.Module):
                                        detr.backbone_num_channels, hidden)
         self.mask_head = MaskHeadConv(hidden, fpn_dims, nheads,
                                       len(self.att_maps_used_res), dtype=dtype,
-                                      expand_mode="repeat")
+                                      expand_mode="repeat",
+                                      use_deformable_conv=use_deformable_conv)
 
     def _masks_for_embeddings(self, embeddings, mem_att, mask_att, feats):
         """embeddings (B, N, C) → (B, N, h, w) mask logits."""

@@ -1,14 +1,19 @@
-"""Deformable transformer (port of `devis_tpu/models/transformer.py`), two of
-its variants: ``"devis"``, temporal deformable attention in the encoder and
-the decoder over the T frames of one clip, and ``"image"``, single-frame
-attention over a batch of B images with batched queries and per-image valid
-ratios. Both refine the boxes iteratively and apply dropout where the JAX
-package does (after each attention, inside and after each FFN). With
-``remat_layers`` each encoder and decoder layer keeps only its inputs for the
-backward pass and runs again there (`layers.recompute`). In the image
-variant the reference points are 2-d up to the first refinement and 4-d after
-it, so decoder layer 0 and the encoder take the projection-fused attention
-and the later decoder layers the q-major one. ``"devis_ablation"`` raises."""
+"""Deformable transformer (port of `devis_tpu/models/transformer.py`), its
+three variants: ``"devis"``, temporal deformable attention in the encoder and
+the decoder over the T frames of one clip; ``"devis_ablation"``, the same
+clip without temporal connections: the encoder attends frame by frame (the
+T frames as a batch) and the decoder's queries of frame t attend frame t's
+memory alone; and ``"image"``, single-frame attention over a batch of B
+images with batched queries and per-image valid ratios. The reference
+points are refined layer by layer by the DETR's box heads
+(`WITH_BBX_REFINE`), by its reference-point heads
+(`WITH_REF_POINT_REFINE`), or not at all. Dropout sits where the JAX package
+puts it (after each attention, inside and after each FFN). With
+``remat_layers`` each encoder and decoder layer keeps only its inputs for
+the backward pass and runs again there (`layers.recompute`). Outside
+``"devis"`` the reference points are 2-d up to the first box refinement and
+4-d after it, so decoder layer 0 and the encoder take the projection-fused
+attention and the later decoder layers the q-major one."""
 from __future__ import annotations
 
 from typing import List, Sequence
@@ -80,6 +85,7 @@ class DecoderLayer(nn.Module):
                  instance_aware, n_points, n_temporal_points, dtype,
                  variant="devis"):
         super().__init__()
+        self.per_frame = variant == "devis_ablation"
         self.dropout = Dropout(dropout)
         self.self_attn = MultiHeadAttention(d_model, n_heads, dropout, dtype=dtype)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
@@ -100,8 +106,15 @@ class DecoderLayer(nn.Module):
         drop = self.dropout
         q = tgt + query_pos
         tgt = self.norm2(tgt + drop(self.self_attn(q, q, tgt)))
-        tgt = self.norm1(tgt + drop(self.cross_attn(
-            tgt + query_pos, reference_points, src, spatial_shapes, padding_mask)))
+        query = tgt + query_pos
+        if self.per_frame:
+            # the queries of frame t, (1, T*Lq, C) → (T, Lq, C), attend frame t
+            T = src.shape[0]
+            query = query.reshape(T, -1, query.shape[-1])
+            reference_points = reference_points.reshape(
+                (T, query.shape[1]) + reference_points.shape[-2:])
+        tgt2 = self.cross_attn(query, reference_points, src, spatial_shapes, padding_mask)
+        tgt = self.norm1(tgt + drop(tgt2.reshape(tgt.shape)))
         y = self.linear2(drop(F.relu(self.linear1(tgt))))
         return self.norm3(tgt + drop(y))
 
@@ -122,10 +135,8 @@ class DeformableTransformer(nn.Module):
                  with_gradient=False, variant="devis", remat_layers=False,
                  dtype=torch.float32):
         super().__init__()
-        if variant not in ("devis", "image"):
-            raise NotImplementedError(
-                f"transformer variant {variant!r}: the per-frame ablation "
-                "without temporal connections is a ROADMAP item of the port")
+        if variant not in ("devis", "devis_ablation", "image"):
+            raise ValueError(f"unknown transformer variant {variant!r}")
         self.variant = variant
         self.d_model = d_model
         self.with_gradient = with_gradient
@@ -146,22 +157,31 @@ class DeformableTransformer(nn.Module):
                          dec_n_temporal_points, dtype, variant)
             for _ in range(num_decoder_layers)])
 
-    def _refine(self, bbox_embed, output, reference_points):
-        """The refined boxes; gradients pass through them only with
-        `with_gradient`."""
-        tmp = bbox_embed(output)
-        if reference_points.shape[-1] == 4:
-            new_ref = torch.sigmoid(tmp + inverse_sigmoid(reference_points))
-        else:
-            xy = tmp[..., :2] + inverse_sigmoid(reference_points)
-            new_ref = torch.sigmoid(torch.cat([xy, tmp[..., 2:]], dim=-1))
-        return new_ref if self.with_gradient else new_ref.detach()
+    def _refine(self, lid, output, reference_points, bbox_embed, ref_point_embed):
+        """Layer `lid`'s refined references: by its box head (gradients pass
+        through the boxes only with `with_gradient`), then by its
+        reference-point head; unchanged where neither is given."""
+        if bbox_embed is not None:
+            tmp = bbox_embed[lid](output)
+            if reference_points.shape[-1] == 4:
+                new_ref = torch.sigmoid(tmp + inverse_sigmoid(reference_points))
+            else:
+                xy = tmp[..., :2] + inverse_sigmoid(reference_points)
+                new_ref = torch.sigmoid(torch.cat([xy, tmp[..., 2:]], dim=-1))
+            reference_points = new_ref if self.with_gradient else new_ref.detach()
+        if ref_point_embed is not None:
+            tmp = ref_point_embed[lid](output)
+            reference_points = torch.sigmoid(tmp + inverse_sigmoid(reference_points))
+        return reference_points
 
-    def forward(self, srcs, masks, pos_embeds, query_embed, bbox_embed):
+    def forward(self, srcs, masks, pos_embeds, query_embed, bbox_embed=None,
+                ref_point_embed=None):
         """srcs: NCHW per level; masks (T, h, w) bool; pos_embeds
-        (T, h, w, C); query_embed (num_queries, 2C); bbox_embed: the DETR's
-        per-layer box heads. The leading axis is the T frames of one clip
-        (``"devis"``) or B images (``"image"``)."""
+        (T, h, w, C); query_embed (num_queries, 2C); bbox_embed and
+        ref_point_embed: the DETR's per-layer box and reference-point heads
+        that refine the references, or None. The leading axis is the T
+        frames of one clip (``"devis"``, ``"devis_ablation"``) or B images
+        (``"image"``)."""
         spatial_shapes = tuple((int(s.shape[2]), int(s.shape[3])) for s in srcs)
         dt = self.compute_dtype
         T = srcs[0].shape[0]
@@ -198,8 +218,8 @@ class DeformableTransformer(nn.Module):
             ref_input = reference_points[:, :, None] * vr[:, None]
             output = call(layer, output, query_pos, ref_input, memory, spatial_shapes,
                           mask_flat)
-            reference_points = self._refine(bbox_embed[lid], output,
-                                            reference_points)
+            reference_points = self._refine(lid, output, reference_points,
+                                            bbox_embed, ref_point_embed)
             hs.append(output)
             refs.append(reference_points)
 

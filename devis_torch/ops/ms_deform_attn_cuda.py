@@ -80,11 +80,12 @@ from .ms_deform_attn import (Shapes, level_start_index, ms_deform_attn,
 Q_BLOCK = 128
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MAX_LEVELS = 16
-_MAX_WINDOW = 16
+_MAX_WINDOW = 16              # offsets of a window rule (csrc `FrameRule.off`)
+K1_MAX_STAGES = (1 + _MAX_WINDOW) * _MAX_LEVELS   # csrc `K1_MAX_LF`: (1 + W) * L
 # K1's shared memory (csrc/ms_deform_attn.cu): a head of softmax statistics
-# and window bounds, 32 bytes of tap (rows and weights) per (query, point),
-# and two stage buffers of value rows padded to 16 bytes
-K1_HEAD_BYTES = 2 * Q_BLOCK * 4 + 3 * (1 + _MAX_WINDOW) * _MAX_LEVELS * 4
+# and window bounds (three ints a stage), 32 bytes of tap (rows and weights)
+# per (query, point), and two stage buffers of value rows padded to 16 bytes
+K1_HEAD_BYTES = 2 * Q_BLOCK * 4 + 3 * K1_MAX_STAGES * 4
 K1_TAP_BYTES = 32
 SMEM_PER_SM = 233472          # 228 KB on an H100 SM
 SMEM_PER_BLOCK = 232448       # 227 KB, the most one block may take
@@ -561,14 +562,23 @@ def _check_cuda(name, device, tensors, dtype):
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
 
 
-def _check_geometry(name, spatial_shapes, D, W):
-    """Limits of the temporal kernels (one lane per channel)."""
-    if len(spatial_shapes) > _MAX_LEVELS:
+def _check_geometry(name, spatial_shapes, D, W, rule=("all",), stages=False):
+    """Limits of the temporal kernels, as their C launchers hold them: at
+    most `_MAX_LEVELS` levels and one lane per channel (D <= 32); a window
+    rule of at most `_MAX_WINDOW` offsets, the `all` rule (which reads no
+    offsets) at any W; with `stages` (K1, and K2 which makes K1's windows)
+    at most `K1_MAX_STAGES` stages (1 + W) * L, K1's header."""
+    L = len(spatial_shapes)
+    if L > _MAX_LEVELS:
         raise ValueError(f"{name}: at most {_MAX_LEVELS} levels")
     if D > 32:
         raise ValueError(f"{name}: head dim {D} > 32 is not supported")
-    if W > _MAX_WINDOW:
-        raise ValueError(f"{name}: at most {_MAX_WINDOW} temporal frames")
+    if rule[0] != "all" and W > _MAX_WINDOW:
+        raise ValueError(f"{name}: a window rule takes at most {_MAX_WINDOW} offsets, "
+                         f"got {W}")
+    if stages and (1 + W) * L > K1_MAX_STAGES:
+        raise ValueError(f"{name}: (1 + W) * L = {(1 + W) * L} stages, at most "
+                         f"{K1_MAX_STAGES}")
 
 
 def _rule_args(rule):
@@ -620,7 +630,7 @@ def launch_k1(value, spatial_shapes, ref, c_off, t_off, c_logit, t_logit, rule,
     _, Q, L, _ = ref.shape
     P = c_logit.shape[-1] // (M * L)
     W = rule_window(rule, T)
-    _check_geometry("msda_temporal_proj", spatial_shapes, D, W)
+    _check_geometry("msda_temporal_proj", spatial_shapes, D, W, rule, stages=True)
     _check_cuda("msda_temporal_proj", value.device,
                 (value, c_off, t_off, c_logit, t_logit), value.dtype)
     _check_cuda("msda_temporal_proj", value.device, (ref,), torch.float32)
@@ -727,7 +737,7 @@ def msda_tap_window(spatial_shapes, ref, c_off, t_off, n_heads: int):
     M = n_heads
     P = c_off.shape[-1] // (M * L * 2)
     W = t_off.shape[-1] // (M * L * P * 2)
-    _check_geometry("msda_tap_window", spatial_shapes, 0, W)
+    _check_geometry("msda_tap_window", spatial_shapes, 0, W, stages=True)
     _check_cuda("msda_tap_window", ref.device, (ref,), torch.float32)
     _check_cuda("msda_tap_window", ref.device, (c_off, t_off), c_off.dtype)
     if c_off.dtype not in _DTYPES:
@@ -772,7 +782,7 @@ def _check_rows(name, value, spatial_shapes, loc, att, n_levels):
 def _launch_temporal(value, spatial_shapes, loc, att, rule):
     L = len(spatial_shapes)
     W = rule_window(rule, value.shape[0])
-    _check_geometry("msda_temporal", spatial_shapes, value.shape[3], W)
+    _check_geometry("msda_temporal", spatial_shapes, value.shape[3], W, rule)
     T, Q, S, M, D, P = _check_rows("msda_temporal", value, spatial_shapes, loc,
                                    att, (1 + W) * L)
     out = torch.empty((T, Q, M * D), dtype=value.dtype, device=value.device)
@@ -852,7 +862,7 @@ def launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule, out, pl
     capacity). Counts no launch."""
     L = len(spatial_shapes)
     W = rule_window(rule, value.shape[0])
-    _check_geometry("msda_temporal_bwd", spatial_shapes, value.shape[3], W)
+    _check_geometry("msda_temporal_bwd", spatial_shapes, value.shape[3], W, rule)
     T, Q, S, M, D, P = _check_rows("msda_temporal_bwd", value, spatial_shapes,
                                    loc, att, (1 + W) * L)
     _check_cuda("msda_temporal_bwd", value.device, (grad_out,), value.dtype)

@@ -7,13 +7,18 @@ mapping serves reference checkpoints. One rule set covers the clip model
 (`DeVIS`) and the image models (`DeformableDETRSegm`, `DeformableDETR`):
 `detr` → `def_detr`, indexed layers and heads, the `MSDeformAttn` and
 temporal attention projections by their own names, the mask head's
-`regular_conv`, the Swin backbone's reference names (`patch_embed.proj`,
-`layers.{i}.blocks.{j}`, `layers.{i}.downsample`, `mlp.fc1`). The layout
-changes are transposes, so the same function carries a JAX gradient tree (its
-leaves under `params/`) to the port's parameter names. Beside each Swin
-attention's bias table it emits the block's `relative_position_index`, a
-buffer the JAX package computes and the port keeps, so the result loads
-strictly.
+`regular_conv` (DCNv2) or, for the plain-conv head, the `Conv2d` itself
+(the JAX `PlainConv` wrapper's `conv` is dropped), the 3-d conv head
+(`conv_head_3d.conv{i}`, `gn{i}`, `out`), the Swin backbone's reference
+names (`patch_embed.proj`, `layers.{i}.blocks.{j}`, `layers.{i}.downsample`,
+`mlp.fc1`). The layout changes are transposes, so the same function carries
+a JAX gradient tree (its leaves under `params/`) to the port's parameter
+names. Beside each Swin attention's bias table it emits the block's
+`relative_position_index`, a buffer the JAX package computes and the port
+keeps; where the JAX model shares one class and one box head over the
+decoder layers (`class_embed_0` only, no box refinement) it repeats them
+under every layer's index, as the reference `state_dict` names them. So the
+result loads strictly.
 """
 from __future__ import annotations
 
@@ -63,6 +68,10 @@ def torch_key(module_parts: List[str], leaf: str, collection: str) -> str:
     if parts and any(p.startswith("input_proj_") for p in parts) \
             and parts[-1] in ("conv", "norm"):
         parts, member = parts[:-1], "0" if parts[-1] == "conv" else "1"
+    plain_conv = len(parts) >= 2 and parts[-1] == "conv" \
+        and re.match(r"(lay\d+|out_lay)$", parts[-2]) is not None
+    if plain_conv:
+        parts = parts[:-1]
     base = ".".join(_map_component(p) for p in parts)
     if member is not None:
         base = f"{base}.{member}"
@@ -74,7 +83,8 @@ def torch_key(module_parts: List[str], leaf: str, collection: str) -> str:
     if leaf in ("level_embed", "temporal_embed"):
         return join(base, leaf)
     name = "weight" if leaf in ("kernel", "scale", "weight") else leaf
-    if leaf in ("weight", "bias") and parts and re.match(r"(lay\d+|out_lay)$", parts[-1]):
+    if not plain_conv and leaf in ("weight", "bias") and parts \
+            and re.match(r"(lay\d+|out_lay)$", parts[-1]):
         return join(base, f"regular_conv.{name}")
     return join(base, name)
 
@@ -85,7 +95,23 @@ def _to_torch_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
             return arr.T                                  # (in, out) → (out, in)
         if arr.ndim == 4:
             return arr.transpose(3, 2, 0, 1)              # HWIO → OIHW
+        if arr.ndim == 5:
+            return arr.transpose(4, 3, 0, 1, 2)           # DHWIO → OIDHW
     return arr
+
+
+def _share_heads(flat: Dict[str, np.ndarray], out: Dict[str, np.ndarray]) -> None:
+    """Shared heads (a JAX tree with `class_embed_0` and no `class_embed_1`)
+    under the index of every decoder layer: `class_embed.{i}` and
+    `bbox_embed.{i}` for each of the tree's `decoder_layers_{i}`."""
+    n_dec = len({m.group(1) for p in flat for m in [re.search(r"decoder_layers_(\d+)/", p)]
+                 if m})
+    if not any("class_embed_0/" in p for p in flat) \
+            or any("class_embed_1/" in p for p in flat):
+        return
+    for key in [k for k in out if re.search(r"(class|bbox)_embed\.0\.", k)]:
+        for i in range(1, n_dec):
+            out[re.sub(r"_embed\.0\.", f"_embed.{i}.", key, count=1)] = out[key]
 
 
 def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -116,6 +142,7 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if set(slot) != set(_QKV):
             raise ValueError(f"{key}: needs q, k and v, got {sorted(slot)}")
         out[key] = np.concatenate([slot[p] for p in _QKV], axis=0)
+    _share_heads(flat, out)
     for key in [k for k in out if k.endswith(".relative_position_bias_table")]:
         window = (int(round(out[key].shape[0] ** 0.5)) + 1) // 2
         out[key.replace("bias_table", "index")] = \

@@ -1,0 +1,29 @@
+"""Tiny DeVIS models of the paper's single-scale ablations (6-frame clips,
+one /32 level) against the JAX package's `impl='xla'` twin on the CPU, f32,
+each from its config file cut to a tiny size
+(`test_torch_ablations.ablation_cfg`): ablation 2 with temporal connections,
+2-5 without them; both with the plain-conv mask head and the 3-d conv head,
+not instance-aware. Eval outputs to 1e-3 of max|ref|; one train step's
+losses to 1e-3 and each gradient to 1e-2 of its norm. The four-level
+ablations 3 and 4 are in `test_torch_ablation_four_levels.py`."""
+import pytest
+
+from .test_torch_ablations import ablation_pair, check_eval, check_train_step
+
+T = 6
+KEYS = ["2", "2-5"]
+
+
+@pytest.mark.parametrize("key,check", [(k, c) for k in KEYS for c in ("eval", "step")])
+def test_ablation_matches_jax(key, check):
+    pair = ablation_pair(key, T)
+    if check == "step":
+        check_train_step(pair, key, T)
+        return
+    model = pair[2]
+    t = model.def_detr.transformer
+    assert t.variant == ("devis_ablation" if key == "2-5" else "devis")
+    assert len(model.def_detr.input_proj) == 1
+    if t.variant == "devis":
+        assert not t.decoder.layers[0].cross_attn.instance_aware
+    check_eval(pair)

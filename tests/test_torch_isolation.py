@@ -129,12 +129,21 @@ def test_other_model_families_name_their_roadmap_item():
     cfg.DATASETS.TYPE = "coco_panoptic"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(91, cfg, device="cpu")
-    for key in ("WITH_BBX_REFINE", "WITH_REF_POINT_REFINE"):
+    # shared heads and reference-point refinement are ported: both build,
+    # and reference-point refinement asks for shared heads, as the config's
+    # sanity check does
+    for ref_point in (False, True):
         cfg = _small_cfg()
         cfg.DATASETS.TYPE = "coco"
-        setattr(cfg.MODEL, key, key == "WITH_REF_POINT_REFINE")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(91, cfg, device="cpu")
+        cfg.MODEL.WITH_BBX_REFINE = False
+        cfg.MODEL.WITH_REF_POINT_REFINE = ref_point
+        model = build_model(91, cfg, device="cpu")
+        detr = getattr(model, "def_detr", model)
+        assert detr.class_embed[0] is detr.class_embed[-1]
+        assert (detr.ref_point_embed is not None) == ref_point
+    cfg.MODEL.WITH_BBX_REFINE = True
+    with pytest.raises(ValueError, match="WITH_BBX_REFINE=False"):
+        build_model(91, cfg, device="cpu")
     # the Swin backbones are ported: an unregistered name raises KeyError, as
     # in the JAX package, and a registered one builds
     cfg = _small_cfg()

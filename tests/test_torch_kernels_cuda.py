@@ -271,6 +271,35 @@ def test_dcn_kernel(dev, dtype, cin, cout, h, w):
     _close(modulated_deform_conv2d(*a), modulated_deform_conv2d_plain(*a), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_temporal_kernels_at_36_frames_on_one_level(dev, dtype):
+    """K1 (on K2's windows), K3 and K5 at ablation 0's geometry: 36 frames
+    under the rule "all" (W = 35, past the 16 offsets a window rule may
+    hold), one level (the /32 map of the 320x576 canvas), M 8, D 32, P 4:
+    36 stages a query, 144 taps."""
+    shapes, rule, T, M, D, P = ((10, 18),), ("all",), 36, 8, 32, 4
+    Q, W, Sx = 180, 35, 180
+    g = torch.Generator(device=dev).manual_seed(11)
+    r = lambda *s, k=1.0: (torch.randn(*s, generator=g, device=dev) * k).to(dtype)  # noqa: E731
+    args = (r(T, Sx, M, D), shapes, torch.rand(T, Q, 1, 2, generator=g, device=dev),
+            r(T, Q, M * P * 2, k=2.0), r(T, Q, M * W * P * 2, k=2.0), r(T, Q, M * P),
+            r(T, Q, M * W * P), rule)
+    win = K.msda_tap_window(shapes, *args[2:5], M)
+    assert win.shape == (T, M, 2, 36, 2)
+    assert torch.equal(win, K.msda_tap_window_plain(shapes, *args[2:5], M))
+    _close(K.msda_temporal_proj(*args), K.msda_temporal_proj_plain(*args), dtype)
+    value, loc, att, grad = _rows_inputs(dev, dtype, T, 10, M, D, P, 36)
+    value = r(T, Sx, M, D)
+    _close(K.msda_temporal(value, shapes, loc, att, rule),
+           ms_deform_attn_temporal_plain(value, shapes, loc, att, rule), dtype)
+    got = K.msda_temporal_bwd(value, shapes, loc, att, grad, rule)
+    want = K.msda_temporal_bwd_plain(value.float(), shapes, loc, att, grad.float(), rule)
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+    with pytest.raises(ValueError, match="at most 16 offsets"):
+        K.msda_temporal(value, shapes, loc, att, ("window", tuple(range(1, 36))))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     a = _proj(dev, ("all",), D=48)
     with pytest.raises(ValueError, match="head dim"):
