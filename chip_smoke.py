@@ -170,7 +170,29 @@
    clips each with their launches and one against the plain versions.
    Each config's clip is profiled; ablation 3's plain-conv mask head and
    3-d head also alone on that clip's inputs.
-11. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
+11. Training over many steps: `devis_torch.overfit_synthetic` with the MDC
+   head (the JAX `benchmarks/overfit_synthetic.py`'s DeVIS: T = 4 at
+   128x192, 2 + 2 layers, f32, LR 4e-4, 2 synthetic videos) for
+   OVERFIT_STEPS steps, the counts zeroed before and read after (a step:
+   K1, K2 and K3 2 each, K5 4, K6 and K7 12 each, K4 0), then
+   `build_tracker` + `inference_vis` over its videos (a clip: K1, K2 and
+   K3 2 each, K4 6); the loss
+   must halve and the predicted tracks must not collapse into one; the loss
+   curve, TrackMAP AP / AP50 / AP75, the pred-vs-pred IoUs and seconds a
+   step are printed. Before the steps, one step of a copy of the model on
+   the first clip through the kernels and through the plain versions, held
+   at the train path's gates, and the kernels on that step's first inputs
+   against their plain versions; after tracking, the kernels on the
+   tracker's first inputs the same way.
+12. DDP: NCCL at world size 1 in this process (`devis_torch.parallel`), the
+   train path's full-width clip step unwrapped and in
+   `DistributedDataParallel`, from the same weights and dropout seed: the
+   first steps held to each other at the train path's gates, 3 timed steps
+   of each (the wrapped ones' launches counted: those of step 4), and the
+   all-reduce calls of one profiled step of each (DDP's buckets on top of
+   the normaliser's and the metrics'). A failure to set up NCCL fails the
+   run.
+13. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
    `redesigned`: whether its first port has been redesigned for Hopper; K5
    and K7 with `op_ms`, `global_adds`, `global_only_ms` and, per shape,
    window statistics; K6 and K8 with `op_ms` and their times per shape; K9
@@ -183,12 +205,15 @@
    `ablation{key}_{clip,train}_launches`: its launches on each ablation
    path; `ablation_max_abs_err`: its largest error in their checks;
    `ablation0_w35` for K1, K3, K5: ms, plain ms, bound and error at
-   ablation 0's W = 35, L = 1), a
+   ablation 0's W = 35, L = 1; `overfit_{train,eval}_launches` and
+   `ddp_launches`: its launches in the overfit phase's steps and tracking
+   and in the 3 DDP steps; `overfit_max_abs_err`: its largest error in the
+   overfit phase's checks), a
    clip-latency line, a
    train-step line with peak memory, the image model's two lines, the e2e
    line, the `cli` line, the `swin` line, the `ablations` line (each config's
    clip latency, busy ms, idle share, step ms and peak GiB, with the card),
-   the card line, and last {"ok":
+   the `overfit` line and the `ddp` line, the card line, and last {"ok":
    true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -1728,7 +1753,9 @@ def train_path(torch, dev, card, cfg, model):
 
 def report_step_difference(torch, out, what="kernel-path train step disagrees with the "
                                             "plain path"):
-    """`out`: ((metrics, gradients) of the kernel step, of the plain step)."""
+    """`out`: ((metrics, gradients) of the kernel step, of the plain step).
+    Returns the largest differences: of a metric and of a tensor, each to
+    its own value, and of the whole gradient to its norm."""
     (mk, gk), (mp, gp) = out
     # bf16 end to end: the two paths round at different places. Every loss
     # and the gradient norm to 1e-2 of its value (or 1e-3 absolute). Each
@@ -1763,6 +1790,7 @@ def report_step_difference(torch, out, what="kernel-path train step disagrees wi
     if worst[0] > 1e-2 or bad or mk["finite"] != 1.0:
         raise AssertionError(f"{what}: "
                              f"{[r[3] for r in bad]}")
+    return {"metric_rel": worst[0], "tensor_rel": rows[0][0], "grad_rel": diff_all / total}
 
 
 def compare_train_paths(torch, cfg, model_k, batch, ops, plain_names):
@@ -1770,7 +1798,8 @@ def compare_train_paths(torch, cfg, model_k, batch, ops, plain_names):
     the plain versions on the card (dropout off): `plain_names` maps a
     kernel wrapper's name in `models.attention` or `ops.deform_conv` to its
     plain version in `ops.ms_deform_attn_cuda`. Reports every loss and every
-    parameter's gradient against that tensor's own norm."""
+    parameter's gradient against that tensor's own norm, and returns
+    `report_step_difference`'s largest differences."""
     import copy
 
     from devis_torch.engine import create_train_state, make_train_step
@@ -1810,7 +1839,7 @@ def compare_train_paths(torch, cfg, model_k, batch, ops, plain_names):
         out.append(({k: float(v) for k, v in metrics.items()},
                     {k: p.grad.float() for k, p in model.named_parameters()}))
         torch.cuda.empty_cache()
-    report_step_difference(torch, out)
+    return report_step_difference(torch, out)
 
 
 def train_compare(torch, dev):
@@ -3452,6 +3481,195 @@ def ablation_phase(torch, dev, card):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# training over many steps, and across processes
+# ---------------------------------------------------------------------------
+
+OVERFIT_STEPS = 1000
+
+
+def overfit_phase(torch, dev, card):
+    """`devis_torch.overfit_synthetic` with the MDC head (T = 4 at 128x192,
+    2 + 2 layers, 24 queries, f32): OVERFIT_STEPS train steps, the counts
+    zeroed just before and read just after (a step: K1 and K2 once an
+    encoder layer, K3 once a decoder layer, K5 once a layer, K6 and K7 once
+    a DCNv2 layer a mask level, K4 never); then `build_tracker` +
+    `inference_vis` over its two synthetic videos, counted the same way (a
+    clip: K1-K3 as above, K4 once a DCNv2 layer, no backward). The loss
+    must halve and the tracks must not collapse. Before the steps, one
+    step of a copy of the model on the first clip, kernel path against
+    plain path at the train path's gates (`compare_train_paths`), and the
+    kernels on that step's first inputs against their plain versions; after
+    tracking, the kernels on the tracker's first inputs the same way
+    (`cli_kernel_checks`). Returns (record, launches by path)."""
+    import copy
+
+    from devis_torch import overfit_synthetic as ov
+    from devis_torch.models.segmentation import ModulatedDeformableConv
+
+    t0 = time.perf_counter()
+    cfg, model, clips = ov.build(mdc=True, device=dev)
+    log("overfit phase: kernel path against plain path, one train step on the first clip")
+    ops = kernel_ops()
+    with _FirstCalls(torch) as first:
+        step_diff = compare_train_paths(
+            torch, cfg, copy.deepcopy(model), ov.clip_batch(clips[0]), ops,
+            {"msda_temporal_proj": "msda_temporal_proj_plain",
+             "msda_temporal": "ms_deform_attn_temporal_plain", "msda_rows": "ms_deform_attn"})
+    train_errs = cli_kernel_checks(torch, dev, first.args, True, "overfit train step")
+    n_enc = cfg.MODEL.TRANSFORMER.ENCODER_LAYERS
+    n_dec = cfg.MODEL.TRANSFORMER.DECODER_LAYERS
+    n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model.modules())
+    n_mask = 1 + len(cfg.MODEL.LOSS.MASK_AUX_LOSS)
+    log(f"overfit phase: devis_torch.overfit_synthetic, MDC head, {OVERFIT_STEPS} steps over "
+        f"{len(clips)} clips, then tracking and TrackMAP")
+    for fn in ops:
+        fn.launches = fn.plain_calls = 0
+    losses, sec_per_step, final = ov.train(cfg, model, clips, OVERFIT_STEPS,
+                                           log=lambda msg, **_: log("  " + msg))
+    train_launches = {fn.__name__: fn.launches for fn in ops}
+    log(f"  launches over {OVERFIT_STEPS} steps: {train_launches}")
+    check_counts(ops, [OVERFIT_STEPS * c for c in (n_enc, n_enc, n_dec, n_enc + n_dec,
+                                                   n_dcn * n_mask, n_dcn * n_mask, 0)])
+    for fn in ops:
+        fn.launches = fn.plain_calls = 0
+    t1 = time.perf_counter()
+    with _FirstCalls(torch) as first:
+        out = ov.evaluate(cfg, model, verbose=False)
+        torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t1
+    eval_launches = {fn.__name__: fn.launches for fn in ops}
+    n_clips = sum(len(v) for v in ov.val_dataset(cfg).videos)
+    log(f"  launches over the tracker's {n_clips} clips: {eval_launches}")
+    check_counts(ops, [n_clips * c for c in (n_enc, n_enc, n_dec, 0, 0, 0, n_dcn)])
+    eval_errs = cli_kernel_checks(torch, dev, first.args, False, "overfit tracking")
+    result = ov.report(cfg, model, clips, losses, sec_per_step, out,
+                       log=lambda msg, **_: log("  " + msg), final=final)
+    ov.check(result)
+    record = {"steps": OVERFIT_STEPS, "sec_per_step": sec_per_step, "eval_s": eval_s,
+              "loss_curve": losses, "final_losses": final,
+              **{k: result["eval"][k] for k in ("AP", "AP50", "AP75")},
+              "pred_pred_iou": result["diagnostics"]["pred_pred_iou"],
+              "best_gt_iou": result["diagnostics"]["best_gt_iou"],
+              "train_mask_iou": result["diagnostics"]["train_mask_iou"],
+              "collapsed": result["diagnostics"]["collapsed"],
+              "step_vs_plain": step_diff, "train_kernel_errs": train_errs,
+              "eval_kernel_errs": eval_errs,
+              "max_abs_err": max(list(train_errs.values()) + list(eval_errs.values())),
+              "phase_s": time.perf_counter() - t0, "card": card}
+    log(f"  overfit phase: {record['phase_s']:.1f} s, {sec_per_step * 1e3:.3f} ms a step "
+        f"({card})")
+    del model
+    torch.cuda.empty_cache()
+    return record, {"overfit_train": train_launches, "overfit_eval": eval_launches}
+
+
+def allreduce_calls(torch, fn):
+    """Calls of the process group's all-reduce (the profiler's
+    `nccl:all_reduce` host events) in one call of `fn`."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if "all_reduce" in e.key.lower()
+               and getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU)
+
+
+def ddp_phase(torch, dev, card):
+    """DDP over NCCL at world size 1, in this process (the card has one GPU;
+    more ranks are tested on the CPU with gloo): `init_process_group` from a
+    torchrun-like environment, then the train path's full-width DeVIS R50
+    clip step on the train path's batch, unwrapped and wrapped in
+    `DistributedDataParallel` (`parallel.data_parallel`), each from the same
+    weights and dropout seed. The first steps are held to each other at the
+    train path's gates (every loss to 1e-2, each gradient to 5e-2 of its
+    norm + 1e-5 of the whole: K5 and K7 sum with atomics, so bits differ);
+    then 3 timed steps of each, the wrapped ones with the counts zeroed just
+    before and read just after, and one profiled step of each, where the
+    wrapped step must call the all-reduce more often (DDP's buckets) than
+    the unwrapped one (the normaliser and the metrics). Returns (record,
+    launches)."""
+    import copy
+    import socket
+
+    import numpy as np
+
+    from devis_torch.engine import create_train_state, make_train_step
+    from devis_torch.parallel import data_parallel, destroy_process_group, init_process_group
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        got = init_process_group(dev)
+        if got is None or torch.distributed.get_backend() != "nccl":
+            raise AssertionError(f"no NCCL process group ({got})")
+        log(f"DDP phase: NCCL process group, world size {torch.distributed.get_world_size()}, "
+            f"device {got}")
+        cfg, model0 = build(torch, dev)
+        weights = copy.deepcopy(model0.state_dict())
+        batch = train_batch(N_SLOTS)
+        ops = kernel_ops()
+        firsts, times, calls, record = [], {}, {}, {}
+        launches = {}
+        for tag in ("unwrapped", "ddp"):
+            model = model0 if tag == "unwrapped" else copy.deepcopy(model0)
+            model.load_state_dict(weights)
+            state = create_train_state(cfg, model, steps_per_epoch=100)
+            wrapped = data_parallel(model, got) if tag == "ddp" else model
+            if tag == "ddp" and not isinstance(wrapped,
+                                               torch.nn.parallel.DistributedDataParallel):
+                raise AssertionError("data_parallel did not wrap the model")
+            step = make_train_step(wrapped, cfg)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+            state, metrics = step(state, batch, gen)
+            firsts.append(({k: float(v) for k, v in metrics.items()},
+                           {k: p.grad.float().clone() for k, p in model.named_parameters()}))
+            for fn in ops:
+                fn.launches = fn.plain_calls = 0
+            state, step_ms = timed_steps(torch, step, state, batch, gen, 3)
+            launches[tag] = {fn.__name__: fn.launches for fn in ops}
+            times[tag] = float(np.mean(step_ms))
+            calls[tag] = allreduce_calls(torch, lambda: step(state, batch, gen))
+            log(f"  {tag} step {[round(v, 3) for v in step_ms]} ms, mean {times[tag]:.3f} ms; "
+                f"{calls[tag]} all-reduce calls a step; launches over 3 steps {launches[tag]}")
+            del state, step, wrapped
+            torch.cuda.empty_cache()
+        n_enc = cfg.MODEL.TRANSFORMER.ENCODER_LAYERS
+        n_dec = cfg.MODEL.TRANSFORMER.DECODER_LAYERS
+        from devis_torch.models.segmentation import ModulatedDeformableConv
+        n_dcn = sum(isinstance(m, ModulatedDeformableConv) for m in model0.modules())
+        n_mask = 1 + len(cfg.MODEL.LOSS.MASK_AUX_LOSS)
+        for fn, want in zip(ops, (n_enc, n_enc, n_dec, n_enc + n_dec, n_dcn * n_mask,
+                                  n_dcn * n_mask, 0)):
+            if launches["ddp"][fn.__name__] != 3 * want:
+                raise AssertionError(f"DDP steps: {fn.__name__} launched "
+                                     f"{launches['ddp'][fn.__name__]} times, want {3 * want}")
+        diff = report_step_difference(torch, firsts,
+                                      what="DDP step disagrees with the unwrapped step")
+        if not calls["ddp"] > calls["unwrapped"] >= 1:
+            raise AssertionError(f"all-reduce calls: {calls} (DDP's buckets missing)")
+        record = {"world_size": torch.distributed.get_world_size(), "backend": "nccl",
+                  "ddp_step_ms": times["ddp"], "step_ms": times["unwrapped"],
+                  "allreduce_calls": calls, "vs_unwrapped": diff, "card": card}
+        log(f"  DDP step {times['ddp']:.3f} ms against the unwrapped step "
+            f"{times['unwrapped']:.3f} ms ({card})")
+        del model0, model, firsts
+        torch.cuda.empty_cache()
+        return record, launches["ddp"]
+    finally:
+        destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def main() -> int:
     try:
         import torch
@@ -3519,6 +3737,10 @@ def main() -> int:
     swin, swin_launches = swin_phase(torch, dev, card)
     torch.cuda.empty_cache()
     ablations, ablation_launches = ablation_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+    overfit, overfit_launches = overfit_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+    ddp, ddp_launches = ddp_phase(torch, dev, card)
     probe_launches = check_probes_idle("every model path")
 
     # K1-K4: launches of the clip inference path's 3 clips; K5-K7: of the clip
@@ -3562,6 +3784,11 @@ def main() -> int:
                 (ablations[k][c][key] for k in ABLATION_CONFIGS
                  for c in ("clip_kernel_errs", "train_kernel_errs") if key in ablations[k].get(c, {})),
                 default=None),
+            **{f"{path}_launches": n.get(r["name"], 0) for path, n in overfit_launches.items()},
+            "overfit_max_abs_err": max((overfit[c][key] for c in ("train_kernel_errs",
+                                                                  "eval_kernel_errs")
+                                        if key in overfit[c]), default=None),
+            "ddp_launches": ddp_launches.get(r["name"], 0),
             **({"ablation0_w35": ablations["0"]["kernels_w"][key]}
                if key in ablations["0"]["kernels_w"] else {}),
             **{k: r[k] for k in ("atomic_bytes", "global_adds", "global_only_ms",
@@ -3583,6 +3810,8 @@ def main() -> int:
     print(json.dumps({"cli": cli}))
     print(json.dumps({"swin": swin}))
     print(json.dumps({"ablations": ablations}))
+    print(json.dumps({"overfit": overfit}))
+    print(json.dumps({"ddp": ddp}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..parallel.mesh import local_batch_size, shard_items
 from .transforms import resize_nearest_numpy
 
 
@@ -126,12 +127,16 @@ class TrainLoader:
     the consumer. Clip batches (`vis`) stack `collate_clip` of each sample.
     `max_batches` cuts every epoch to its first batches (smoke runs): the
     batches after them are never built, so a dataset's augmentation draws
-    for exactly the batches that were taken."""
+    for exactly the batches that were taken. With `world` > 1 the batch is
+    global: every rank draws all of its samples, in the same order from the
+    same seed, picks the canvas over all of them, and collates its share,
+    items rank, rank + world, ... (`parallel.shard_items`)."""
 
     def __init__(self, dataset, batch_size: int, vis: bool,
                  buckets: Sequence[Tuple[int, int]], max_instances: int = 25,
                  shuffle: bool = True, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 2, max_batches: Optional[int] = None):
+                 prefetch: int = 2, max_batches: Optional[int] = None,
+                 rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.vis = vis
@@ -142,6 +147,8 @@ class TrainLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.max_batches = max_batches
+        self.rank, self.world = rank, world
+        local_batch_size(batch_size, world)           # the world divides the batch
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -168,6 +175,7 @@ class TrainLoader:
         key = "images" if self.vis else "image"
         hw = [s[key].shape[-3:-1] for s in samples]
         canvas = pick_canvas(max(h for h, _ in hw), max(w for _, w in hw), self.buckets)
+        samples = shard_items(samples, self.rank, self.world)
         if self.vis:
             return _stack([collate_clip(s, canvas, self.max_instances) for s in samples])
         return collate_images(samples, canvas, self.max_instances)

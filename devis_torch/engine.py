@@ -13,8 +13,14 @@ optimizer, the train step for clips and for images, and the host epoch loop.
   * A clip batch is B clips on one device: the step loops over them, shares
     one `num_boxes` normaliser (their mean target count) and averages their
     losses, as the JAX package's vmap over its clip axis does. An image batch
-    is B images in one batched forward and one criterion. Several devices
-    (DDP) come later.
+    is B images in one batched forward and one criterion.
+  * Several processes (`DistributedDataParallel`, `devis_torch.parallel`):
+    each rank steps on its share of the global batch; `num_boxes` is
+    all-reduced (the sum of the counts over the sum of the items), DDP's
+    bucketed all-reduce averages each clip's gradients over the ranks in its
+    backward, so the update sees the global batch's gradient; the metrics
+    are averaged over the ranks and a non-finite loss on any rank skips the
+    update on all.
 """
 from __future__ import annotations
 
@@ -24,12 +30,14 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.nn.parallel import DistributedDataParallel
 
 from .models import matcher_cfg_from
 from .models.criterion import (build_weight_dict, clip_criterion,
                                image_criterion, reduce_num_boxes,
                                weighted_total)
 from .models.layers import set_dropout_generator
+from .parallel.mesh import comm_device, is_distributed, world_size
 from .util.misc import MetricLogger
 
 PARAM_GROUPS = ("base", "backbone", "linear_proj", "mask_head",
@@ -177,7 +185,10 @@ def make_train_step(model: nn.Module, cfg) -> Callable:
     (B, N, h, w)}; numpy arrays or tensors, moved to the model's device.
     `generator` (on that device) feeds the dropout masks. The model is left
     in training mode. metrics: 0-d tensors `loss`, `grad_norm`, `finite` and
-    every loss of the criterion."""
+    every loss of the criterion. `model` may be a `DistributedDataParallel`
+    wrapper (the state holds the module it wraps); the batch is then the
+    rank's share and the metrics are the global batch's."""
+    module = model.module if isinstance(model, DistributedDataParallel) else model
     is_vis = cfg.DATASETS.TYPE == "vis"
     if not is_vis and cfg.DATASETS.TYPE != "coco":
         raise NotImplementedError(f"no train step for {cfg.DATASETS.TYPE!r}: "
@@ -190,18 +201,30 @@ def make_train_step(model: nn.Module, cfg) -> Callable:
 
     def finish(state, total, losses):
         ok = torch.isfinite(total)
+        if is_distributed():
+            # the ranks' losses averaged and their flags agreed, in one
+            # all-reduce: no rank steps alone
+            keys = list(losses)
+            both = torch.stack([ok.float(), total] + [losses[k] for k in keys])
+            both = both.to(comm_device())
+            torch.distributed.all_reduce(both)
+            both = both.to(total.device)
+            n = world_size()
+            ok = both[0] == n
+            total = both[1] / n
+            losses = {k: both[2 + i] / n for i, k in enumerate(keys)}
         if bool(ok):                      # waits for the device
             grad_norm = state.apply_gradients()
         else:
-            grad_norm = global_norm(model.parameters())
+            grad_norm = global_norm(module.parameters())
         return state, {"loss": total, "grad_norm": grad_norm,
                        "finite": ok.float(), **losses}
 
     def prepare(batch, generator):
-        batch = _to_device(batch, next(model.parameters()).device)
-        model.train()
-        set_dropout_generator(model, generator)
-        model.zero_grad(set_to_none=True)
+        batch = _to_device(batch, next(module.parameters()).device)
+        module.train()
+        set_dropout_generator(module, generator)
+        module.zero_grad(set_to_none=True)
         return batch
 
     def image_step(state: TrainState, batch,
@@ -213,7 +236,9 @@ def make_train_step(model: nn.Module, cfg) -> Callable:
                         train=True)
         else:                             # the detector alone is matched by the criterion
             out, _ = model(batch["images"], batch["pad_mask"])
-        losses = image_criterion(out, targets, mcfg, focal_alpha, mask_on=mask_on)
+        num_boxes = reduce_num_boxes([targets["valid"].sum()], across_ranks=True)
+        losses = image_criterion(out, targets, mcfg, focal_alpha, mask_on=mask_on,
+                                 num_boxes=num_boxes)
         total = weighted_total(losses, weight_dict)
         total.backward()
         return finish(state, total.detach(),
@@ -224,7 +249,8 @@ def make_train_step(model: nn.Module, cfg) -> Callable:
         batch = prepare(batch, generator)
         targets = batch["targets"]
         B = batch["images"].shape[0]
-        num_boxes = reduce_num_boxes([targets["exists"][b].sum() * T for b in range(B)])
+        num_boxes = reduce_num_boxes([targets["exists"][b].sum() * T for b in range(B)],
+                                     across_ranks=True)
         losses: Dict[str, torch.Tensor] = {}
         total = 0.0
         for b in range(B):                # one clip's graph at a time

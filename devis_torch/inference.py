@@ -167,16 +167,16 @@ def inference_vis(tracker, dataset, output_dir: Optional[str] = None,
     results.zip to `output_dir` when given.
 
     Videos run grouped by their evaluation canvas, through one pipeline that
-    spans the pass (`ClipPipeline`). One process: with `torch.distributed`
-    initialised over more than one rank this raises; the cross-rank gather
-    of results comes with the port's DDP (ROADMAP.md queue A item 3)."""
+    spans the pass (`ClipPipeline`). In a process group each rank tracks
+    videos rank, rank + world, ... (padded, so a rank may repeat a video) and
+    the records are gathered, each video's from the first rank that has it
+    (`devis_tpu/inference.py:231-232,293-294`); every rank returns them all
+    and rank 0 writes the files. `fps` is then the frames of the dataset over
+    the slowest rank's seconds."""
+    from .parallel import (accumulate_results, all_gather_objects, is_distributed,
+                           is_main_process, padded_shard)
     from .tracking.pipeline import ClipPipeline
 
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "inference_vis runs in one process; gathering results across ranks "
-            "comes with the port's DDP (ROADMAP.md queue A item 3)")
     buckets = getattr(tracker.infer_fn, "buckets", None)
 
     def canvas_of(video):
@@ -188,7 +188,7 @@ def inference_vis(tracker, dataset, output_dir: Optional[str] = None,
                            buckets)
 
     # same-canvas videos back to back (the order changes no video's tracks)
-    videos = sorted((dataset[i] for i in range(len(dataset))), key=canvas_of)
+    videos = sorted((dataset[i] for i in padded_shard(len(dataset))), key=canvas_of)
     if selected_videos:
         videos = [v for v in videos if getattr(v, "video_name", None) in selected_videos]
 
@@ -208,7 +208,11 @@ def inference_vis(tracker, dataset, output_dir: Optional[str] = None,
         tracker.pipeline = None
         pipeline.close()
 
-    fps = dataset.get_total_num_frames() / max(sum(times), 1e-9)
+    seconds = sum(times)
+    if is_distributed():
+        results = accumulate_results(all_gather_objects(results))
+        seconds = max(all_gather_objects(seconds))
+    fps = dataset.get_total_num_frames() / max(seconds, 1e-9)
     out = {"results": results, "fps": fps}
     if getattr(dataset, "has_gt", False):
         gt = dataset.gt_dict() if hasattr(dataset, "gt_dict") else dataset.annotations
@@ -217,7 +221,7 @@ def inference_vis(tracker, dataset, output_dir: Optional[str] = None,
             e = out["eval"]
             print(f"TrackMAP: AP {e['AP']:.1f} AP50 {e['AP50']:.1f} AP75 {e['AP75']:.1f} "
                   f"AR {e['AR']:.1f} | {fps:.1f} FPS")
-    if output_dir:
+    if output_dir and is_main_process():
         os.makedirs(output_dir, exist_ok=True)
         res_path = os.path.join(output_dir, "results.json")
         with open(res_path, "w") as f:
@@ -278,16 +282,15 @@ def evaluate_coco(model, dataset, cfg, evaluator=None, device=None,
     is used (bbox, and segm with MASK_ON). With `log_losses` the criterion
     also runs on each val image's targets (a second forward, given the
     targets) and the averaged losses are returned under "losses" (reference
-    engine.py:98-150). One process. Runs on the GPU unless ``device`` says
-    otherwise."""
+    engine.py:98-150). In a process group each rank evaluates images rank,
+    rank + world, ... (padded) and the predictions, one copy an image, and
+    the loss sums are gathered before the summary, which every rank returns
+    (`devis_tpu/inference.py:404-405,528-532`). Runs on the GPU unless
+    ``device`` says otherwise."""
+    from .parallel import all_gather_objects, is_distributed, padded_shard
     device = resolve_device(device)
     if next(model.parameters()).device.type != device.type:
         raise ValueError(f"model lies on {next(model.parameters()).device}, not {device}")
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "evaluate_coco runs in one process; sharding images over ranks "
-            "comes with the port's DDP (ROADMAP.md queue A item 3)")
     buckets = make_eval_buckets(cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
     mask_on = bool(cfg.MODEL.MASK_ON)
     if evaluator is None:
@@ -333,7 +336,7 @@ def evaluate_coco(model, dataset, cfg, evaluator=None, device=None,
             loss_sums[k] = loss_sums.get(k, 0.0) + float(v)
         loss_count += 1
 
-    indices = list(range(len(dataset)))
+    indices = padded_shard(len(dataset))
     B = max(1, int(cfg.TEST.EVAL_BATCH_SIZE))
     if B > 1 and hasattr(dataset, "eval_hw"):
         groups: Dict[Tuple[int, int], List[int]] = {}
@@ -413,6 +416,16 @@ def evaluate_coco(model, dataset, cfg, evaluator=None, device=None,
             _postprocess(*pending)
     finally:
         loader.shutdown(wait=True)
+    if is_distributed():
+        evaluator.predictions = merge_rank_predictions(
+            all_gather_objects(evaluator.predictions))
+        if log_losses:
+            gathered = all_gather_objects((loss_sums, loss_count))
+            loss_count = sum(c for _, c in gathered)
+            loss_sums = {}
+            for sums, _ in gathered:
+                for k, v in sums.items():
+                    loss_sums[k] = loss_sums.get(k, 0.0) + v
     summary = evaluator.summarize()
     if log_losses and loss_sums:
         summary["losses"] = {k: v / loss_count for k, v in loss_sums.items()}

@@ -21,9 +21,19 @@ weight surgery, or a checkpoint directory), then either
     epochs. `--resume DIR` restores the model, AdamW, the step and the RNG
     states and starts at `meta.json`'s epoch + 1 with its `best_stats`.
 
-One process on one card, which the entry point uses unless the caller of
-`main` names another device. `coco_panoptic`, Swin and more than one rank
-raise, naming their ROADMAP.md items.
+One process a card. Under `torchrun --nproc_per_node N -m devis_torch.main
+...` each rank joins the process group the launcher describes (NCCL on the
+GPU of its LOCAL_RANK; gloo with a CPU device) and trains the model wrapped
+in `DistributedDataParallel` on its share of the global batch: SOLVER.BATCH_SIZE
+clips a rank for `vis` (the JAX CLI's global batch, BATCH_SIZE x devices),
+SOLVER.BATCH_SIZE images over all ranks for `coco`. `TPU.MESH_DP`, when not
+0, must equal the world size. Rank 0 alone writes the config, the metrics
+and the checkpoints, from the unwrapped module, so their names are the
+reference's and a checkpoint resumes at any world size. The evaluations
+shard their videos or images over the ranks and gather the results
+(`inference_vis`, `evaluate_coco`). The entry point uses the GPU unless the
+caller of `main` names another device. `coco_panoptic` raises, naming its
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -129,16 +139,20 @@ def build_train_loader(cfg, dataset, max_batches: Optional[int] = None):
     """The training loader of `main`: the JAX CLI's buckets (TRAIN_SCALES
     and 1333, times INPUT.SCALE_FACTOR_TRAIN), as many instance slots as a
     frame has queries at most, the shuffle of `cfg.SEED`; `max_batches`
-    cuts each epoch (`TrainLoader`)."""
+    cuts each epoch (`TrainLoader`). In a process group the batch is the
+    global one (`devis_tpu/main.py:189-191`: SOLVER.BATCH_SIZE clips a rank,
+    SOLVER.BATCH_SIZE images in all) and this rank collates its share."""
     from .datasets import TrainLoader, make_buckets
+    from .parallel import rank, world_size
     sf = cfg.INPUT.SCALE_FACTOR_TRAIN
     is_vis = cfg.DATASETS.TYPE == "vis"
     # instance slots cannot outnumber the queries a frame can be matched to
     T = cfg.MODEL.DEVIS.NUM_FRAMES if is_vis else 1
-    return TrainLoader(dataset, cfg.SOLVER.BATCH_SIZE, vis=is_vis,
+    world = world_size()
+    return TrainLoader(dataset, cfg.SOLVER.BATCH_SIZE * (world if is_vis else 1), vis=is_vis,
                        buckets=make_buckets([int(sf * s) for s in TRAIN_SCALES], int(sf * 1333)),
                        max_instances=min(cfg.TPU.MAX_INSTANCES, cfg.MODEL.NUM_QUERIES // T),
-                       seed=cfg.SEED, max_batches=max_batches)
+                       seed=cfg.SEED, max_batches=max_batches, rank=rank(), world=world)
 
 
 def main(argv=None, device=None, max_steps: Optional[int] = None) -> Dict:
@@ -147,29 +161,42 @@ def main(argv=None, device=None, max_steps: Optional[int] = None) -> Dict:
     (smoke runs; the loader builds no batch past them, so the saved data
     RNG state is that of the steps taken). Returns what it printed: the evaluations of `--eval-only`, or
     each epoch's train averages and evaluation and the best stats."""
+    from .parallel import destroy_process_group, init_process_group
     args = parse_args(argv)
     cfg = setup_cfg(args)
-    seed_everything(cfg.SEED)
+    from .util.misc import resolve_device
+    device = resolve_device(device)
+    joined = init_process_group(device)          # under torchrun
+    try:
+        return _main(args, cfg, joined or device, max_steps)
+    finally:
+        if joined is not None:
+            destroy_process_group()
+
+
+def _main(args, cfg, device, max_steps: Optional[int]) -> Dict:
+    from .parallel import (all_gather_objects, data_parallel, is_main_process, rank,
+                           world_size)
+    world = world_size()
+    if cfg.TPU.MESH_DP not in (0, world):
+        raise ValueError(f"TPU.MESH_DP {cfg.TPU.MESH_DP} but {world} ranks")
+    seed_everything(cfg.SEED + rank())
 
     from .datasets import build_dataset
     from .engine import create_train_state, make_train_step, train_one_epoch
     from .models import build_model
     from .util import checkpoint as ckpt_lib
     from .util.logging_utils import build_metrics, build_visdom, device_memory_stats
-    from .util.misc import resolve_device
 
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("the port's CLI runs in one process; DDP is ROADMAP.md "
-                                  "queue A item 3")
     if cfg.DATASETS.TYPE not in ("coco", "vis"):
         raise NotImplementedError(f"DATASETS.TYPE {cfg.DATASETS.TYPE!r}: panoptic "
                                   "segmentation is ROADMAP.md queue A item 5 of the port")
-    device = resolve_device(device)
+    main_rank = is_main_process()
     output_dir = cfg.OUTPUT_DIR
     os.makedirs(output_dir, exist_ok=True)
-    with open(os.path.join(output_dir, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+    if main_rank:
+        with open(os.path.join(output_dir, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
 
     dataset_val, num_classes = build_dataset("VAL", cfg)
     model = build_model(num_classes, cfg, device=device, seed=cfg.SEED)
@@ -206,12 +233,17 @@ def main(argv=None, device=None, max_steps: Optional[int] = None) -> Dict:
     loader = build_train_loader(cfg, dataset_train, max_steps)
     state = create_train_state(cfg, model, max(len(loader), 1),
                                restore_from=args.resume or None)
-    generator = torch.Generator(device=device).manual_seed(cfg.SEED)    # dropout
+    # dropout: a stream a rank; the augmentation draws are the same on every
+    # rank (each draws the whole global batch)
+    generator = torch.Generator(device=device).manual_seed(cfg.SEED + rank())
     data_rng = _data_rng(dataset_train)
     start_epoch, best_stats = 0, {}
     if args.resume:
-        if "dropout" in state.rng_states:
-            generator.set_state(state.rng_states["dropout"])
+        saved = state.rng_states.get("dropout_ranks") or [state.rng_states.get("dropout")]
+        if len(saved) == world and saved[rank()] is not None:
+            generator.set_state(saved[rank()])
+        elif rank() == 0 and saved[0] is not None:
+            generator.set_state(saved[0])
         if data_rng is not None and "data" in state.rng_states:
             data_rng.setstate(state.rng_states["data"])
         meta_path = os.path.join(args.resume, "meta.json")
@@ -222,12 +254,20 @@ def main(argv=None, device=None, max_steps: Optional[int] = None) -> Dict:
             best_stats = meta.get("best_stats", {})
 
     def rng_states():
-        out = {"dropout": generator.get_state()}
+        dropout = all_gather_objects(generator.get_state().cpu())
+        out = {"dropout": dropout[0]}
+        if world > 1:
+            out["dropout_ranks"] = dropout
         if data_rng is not None:
             out["data"] = data_rng.getstate()
         return out
 
-    step_fn = make_train_step(model, cfg)
+    def save(path):
+        states = rng_states()                     # every rank takes part
+        if main_rank:
+            ckpt_lib.save_checkpoint(path, state, states)
+
+    step_fn = make_train_step(data_parallel(model, device), cfg)
     visdom = build_visdom(cfg)
     history = []
     with build_metrics(cfg) as metrics:
@@ -237,9 +277,10 @@ def main(argv=None, device=None, max_steps: Optional[int] = None) -> Dict:
             state, train_stats = train_one_epoch(step_fn, state, loader, generator, epoch)
             print(f"epoch {epoch}: {time.time() - t0:.1f}s "
                   f"loss {train_stats.get('loss', float('nan')):.4f}")
-            metrics.write(epoch, {**train_stats, **device_memory_stats(device)},
-                          kind="train_epoch")
-            if visdom:
+            if main_rank:
+                metrics.write(epoch, {**train_stats, **device_memory_stats(device)},
+                              kind="train_epoch")
+            if visdom and main_rank:
                 visdom.plot("train", epoch, {k: v for k, v in train_stats.items() if k in (
                     "loss", "loss_ce", "loss_bbox", "loss_giou", "loss_mask", "loss_dice",
                     "class_error")})
@@ -250,18 +291,18 @@ def main(argv=None, device=None, max_steps: Optional[int] = None) -> Dict:
                 key, stat, record["eval"] = _evaluate(cfg, model, dataset_val, device)
                 if stat > best_stats.get(key, -1):
                     best_stats[key] = stat
-                    ckpt_lib.save_checkpoint(os.path.join(output_dir, f"checkpoint_best_{key}"),
-                                             state, rng_states())
+                    save(os.path.join(output_dir, f"checkpoint_best_{key}"))
                 print(f"eval epoch {epoch}: {key}={stat:.2f} (best {best_stats[key]:.2f})")
-                metrics.write(epoch, {key: stat}, kind="eval")
+                if main_rank:
+                    metrics.write(epoch, {key: stat}, kind="eval")
             # checkpoints (reference main.py:332-385)
             ckpt_dir = os.path.join(output_dir, "checkpoint")
-            ckpt_lib.save_checkpoint(ckpt_dir, state, rng_states())
-            with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
-                json.dump({"epoch": epoch, "best_stats": best_stats}, f)
+            save(ckpt_dir)
+            if main_rank:
+                with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
+                    json.dump({"epoch": epoch, "best_stats": best_stats}, f)
             if (epoch + 1) % cfg.SOLVER.CHECKPOINT_INTERVAL == 0:
-                ckpt_lib.save_checkpoint(os.path.join(output_dir, f"checkpoint_epoch_{epoch}"),
-                                         state, rng_states())
+                save(os.path.join(output_dir, f"checkpoint_epoch_{epoch}"))
             history.append(record)
     return {"epochs": history, "best_stats": best_stats, "start_epoch": start_epoch}
 

@@ -16,9 +16,11 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops.interpolate import resize_bilinear_hw
+from ..parallel.mesh import is_distributed
 from ..util import box_ops
 from . import matcher as matcher_lib
 
@@ -53,11 +55,19 @@ def dice_loss(inputs, targets, num_boxes, valid=None):
     return loss.sum() / num_boxes
 
 
-def reduce_num_boxes(counts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The normaliser shared by every clip of a batch: the mean target count
-    over the clips, at least 1 (the JAX package's all-reduce over its clip
-    axis)."""
-    return torch.stack([c.float() for c in counts]).mean().clamp(min=1.0)
+def reduce_num_boxes(counts: Sequence[torch.Tensor],
+                     across_ranks: bool = False) -> torch.Tensor:
+    """The normaliser shared by every item of a batch: the mean target count
+    over the items, at least 1 (the JAX package's all-reduce over its clip
+    axis, `devis_tpu/models/criterion.py:64-68`). With `across_ranks` in a
+    process group, the mean is over every rank's items: the sum of the
+    counts over the sum of the items."""
+    counts = torch.stack([c.float() for c in counts])
+    if across_ranks and is_distributed():
+        both = torch.stack([counts.sum(), counts.new_tensor(float(len(counts)))])
+        dist.all_reduce(both)
+        return (both[0] / both[1]).clamp(min=1.0)
+    return counts.mean().clamp(min=1.0)
 
 
 def image_losses(outputs: Dict, targets: Dict, src_idx: torch.Tensor,
@@ -112,11 +122,14 @@ def image_losses(outputs: Dict, targets: Dict, src_idx: torch.Tensor,
 
 def image_criterion(outputs: Dict, targets: Dict, matcher_cfg: Dict,
                     focal_alpha: float = 0.25,
-                    mask_on: bool = False) -> Dict[str, torch.Tensor]:
+                    mask_on: bool = False,
+                    num_boxes: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The criterion over the final and auxiliary outputs of a batch of
-    images. A level that carries 'indices' (set by the model when it is given
-    targets) is not matched again."""
-    num_boxes = targets["valid"].sum().float().clamp(min=1.0)
+    images. `num_boxes` is the normaliser (`reduce_num_boxes`); alone, the
+    batch's count of valid targets. A level that carries 'indices' (set by
+    the model when it is given targets) is not matched again."""
+    if num_boxes is None:
+        num_boxes = targets["valid"].sum().float().clamp(min=1.0)
 
     def level(out, masks):
         idx = out.get("indices")

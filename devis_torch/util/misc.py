@@ -92,14 +92,19 @@ class MetricLogger:
         raise AttributeError(attr)
 
     def synchronize_between_processes(self):
-        """Sums each meter's count and total over the ranks (reference
-        misc.py:199-210); the port trains in one process, where this does
-        nothing, and raises with more than one rank (ROADMAP.md queue A
-        item 3)."""
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError("metrics across ranks come with the port's DDP "
-                                      "(ROADMAP.md queue A item 3)")
+        """Sums each meter's count and total over the ranks of a process
+        group (reference misc.py:199-210), so that `global_avg` is the
+        average over every rank's updates; nothing to do in one process."""
+        from ..parallel.mesh import comm_device, is_distributed
+        if not is_distributed():
+            return
+        names = sorted(self.meters)
+        t = torch.tensor([[self.meters[k].count, self.meters[k].total] for k in names],
+                         dtype=torch.float64, device=comm_device())
+        torch.distributed.all_reduce(t)
+        for k, (count, total) in zip(names, t.tolist()):
+            self.meters[k].count = int(count)
+            self.meters[k].total = total
 
     def __str__(self):
         return self.delimiter.join(f"{name}: {meter}"

@@ -8,6 +8,7 @@ with instance-aware attention; both with the plain-conv mask head and the
 import pytest
 
 from .test_torch_ablations import ablation_pair, check_eval, check_train_step
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = 6
 KEYS = ["3", "4"]

@@ -9,6 +9,7 @@ ablations 3 and 4 are in `test_torch_ablation_four_levels.py`."""
 import pytest
 
 from .test_torch_ablations import ablation_pair, check_eval, check_train_step
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = 6
 KEYS = ["2", "2-5"]

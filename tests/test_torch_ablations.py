@@ -27,6 +27,7 @@ from devis_torch.util.synthetic import synthetic_clip_batch
 from devis_torch.util.weights import from_jax_params
 
 from .test_torch_slice import _flatten, random_variables
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ABLATIONS = "configs/devis/ablations"

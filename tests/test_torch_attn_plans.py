@@ -11,6 +11,8 @@ import torch
 from devis_torch.ops import _build
 from devis_torch.ops import ms_deform_attn_cuda as K
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _k6(name):
     return _build.source_define("ms_deform_attn_rows", name)

@@ -7,7 +7,6 @@ at 1e-5 of the reference's largest magnitude; the capacity plan; and the DCN
 route's query grid."""
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +17,9 @@ from devis_tpu.ops.ms_deform_attn_pallas import (ms_deform_attn_rows,
 from devis_torch.ops import deform_conv as dc
 from devis_torch.ops import ms_deform_attn_cuda as K
 from devis_torch.ops.ms_deform_attn import rule_window
+
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from .test_torch_train_ops import jit_vjp
 
 SHAPES = ((12, 16), (6, 8), (3, 4))
 S = sum(h * w for h, w in SHAPES)
@@ -45,13 +47,14 @@ def _rows(x):
 
 def _jax_grads(fn, value, loc, att, cot, Q):
     """The JAX VJP of a Pallas rows op at (value, loc, att); padded queries
-    sample outside the map."""
+    sample outside the map. Jitted: the interpret-mode kernels then run as
+    one XLA program instead of op by op (the same gradients, 3-4x sooner)."""
     def f(v, l, a):
         lx = _rows(l[..., 0]).at[:, :, Q:].set(-10.0)
         ly = _rows(l[..., 1]).at[:, :, Q:].set(-10.0)
         return fn(v, lx, ly, _rows(a))
-    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (value, loc, att)))
-    return [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+    _, grads = jit_vjp(f, (value, loc, att), cot)
+    return [np.asarray(g) for g in grads]
 
 
 def _dcn_loc(rng, B, px=1.5):

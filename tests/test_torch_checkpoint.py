@@ -22,6 +22,8 @@ import torch
 from devis_torch.util import checkpoint as ckpt
 from devis_tpu.util import checkpoint as jckpt
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 T, H, W = 2, 64, 96
 
 

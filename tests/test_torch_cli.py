@@ -24,6 +24,8 @@ from devis_torch.main import build_train_loader, main, parse_args, setup_cfg
 from devis_torch.util import checkpoint as ckpt
 from devis_torch.util.fixtures import write_coco_tree, write_vis_tree
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NARROW = ["MODEL.HIDDEN_DIM", "64", "MODEL.DIM_FEEDFORWARD", "128"]
 
@@ -187,15 +189,26 @@ def test_capped_epoch_draws_the_augmentation_for_its_batches_only(tmp_path):
         np.testing.assert_array_equal(g["targets"]["masks"], w["targets"]["masks"])
 
 
-def test_swin_with_recomputation_resumes_to_the_bit(tmp_path):
-    """`MODEL.BACKBONE swin_t_p4w7` with both recomputation flags and the
-    dropout and drop path on, from the YT-19 Swin-L config file: one step, a
-    save, and `--resume` for a second end where two steps in one run without
-    the flags end (model, AdamW, step, dropout generator and data RNG, to
-    the bit): the recompute draws the forward's masks and leaves the saved
+NARROW_SWIN = "swin_t_narrow_p4w7"
+
+
+def test_swin_with_recomputation_resumes_to_the_bit(tmp_path, monkeypatch):
+    """A Swin backbone with both recomputation flags and the dropout and
+    drop path on, from the YT-19 Swin-L config file: one step, a save, and
+    `--resume` for a second end where two steps in one run without the
+    flags end (model, AdamW, step, dropout generator and data RNG, to the
+    bit): the recompute draws the forward's masks and leaves the saved
     generator where the forward left it. The Swin-L config files resolve
-    through the port's YAML reader."""
+    through the port's YAML reader. The backbone is `swin_t_p4w7`'s layout
+    (depths 2, 2, 6, 2, window 7, drop path 0.2) at a quarter of its width,
+    registered for this test: recomputation and the resume do not depend on
+    the width, and full-width Swin-L is held on the card."""
+    from devis_torch.models.backbones import swin as P
     from devis_torch.models.backbones.swin import SWIN_CONFIGS
+    t = SWIN_CONFIGS["swin_t_p4w7"]
+    monkeypatch.setitem(SWIN_CONFIGS, NARROW_SWIN, P._cfg(
+        t["embed_dim"] // 4, t["depths"], tuple(max(1, h // 4) for h in t["num_heads"]),
+        t["window"], t["drop_path_rate"]))
     swin_l = [os.path.join(ROOT, "configs", *p) for p in (
         ("devis", "YT-19", "devis_Swin_L_YT-19.yaml"), ("devis", "YT-21", "devis_Swin_L_YT-21.yaml"),
         ("devis", "OVIS", "devis_Swin_L_OVIS.yaml"),
@@ -208,7 +221,7 @@ def test_swin_with_recomputation_resumes_to_the_bit(tmp_path):
                           size=(48, 64))
     common = ["--config-file", swin_l[0]]
     remat = ["TPU.SWIN_GRADIENT_CHECKPOINT", "True", "TPU.TRANSFORMER_GRADIENT_CHECKPOINT", "True"]
-    opts = NARROW + ["MODEL.BACKBONE", "swin_t_p4w7", "MODEL.WEIGHTS", "",
+    opts = NARROW + ["MODEL.BACKBONE", NARROW_SWIN, "MODEL.WEIGHTS", "",
                      "DATASETS.DATA_PATH", data, "MODEL.TRANSFORMER.ENCODER_LAYERS", "1",
                      "MODEL.TRANSFORMER.DECODER_LAYERS", "2", "MODEL.LOSS.MASK_AUX_LOSS", "[0]",
                      "INPUT.SCALE_FACTOR_TRAIN", "0.125", "TEST.START_EVAL_EPOCH", "9"]

@@ -22,6 +22,8 @@ from devis_torch.inference import merge_rank_predictions
 from devis_tpu.evaluation import coco_eval as jce
 from devis_tpu.inference import merge_rank_predictions as jmerge
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = 1e-12
 
 

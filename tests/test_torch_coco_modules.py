@@ -15,6 +15,7 @@ from devis_torch.util.synthetic import synthetic_image_batch
 from devis_torch.util.weights import from_jax_params
 
 from .test_torch_slice import _flatten, random_variables
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W = 64, 96
 NUM_CLASSES = 7               # with the background; the model emits 6 logits

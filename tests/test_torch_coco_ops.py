@@ -16,6 +16,9 @@ from devis_torch.ops import ms_deform_attn_cuda as K
 from devis_torch.ops.deform_conv import deform_conv2d, deform_conv2d_plain
 from devis_torch.ops.ms_deform_attn import ms_deform_attn
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from .test_torch_train_ops import jit_vjp
+
 SHAPES = ((12, 16), (6, 8), (3, 4))
 S = sum(h * w for h, w in SHAPES)
 L = len(SHAPES)
@@ -87,8 +90,7 @@ def test_proj_gradients_match_jax():
     rebuilds the rows and runs `_bwd_kernel_rows`)."""
     case = _proj_case(1, B=1)
     cot = np.random.RandomState(2).randn(1, 40, 2 * 16).astype(np.float32)
-    _, vjp = jax.vjp(_jax_proj(case), *(jnp.asarray(v) for v in case.values()))
-    want = vjp(jnp.asarray(cot))
+    _, want = jit_vjp(_jax_proj(case), tuple(case.values()), cot)
     leaves = [torch.from_numpy(v).requires_grad_(True) for v in case.values()]
     got = torch.autograd.grad(_port_proj(*leaves), leaves, torch.from_numpy(cot))
     for name, g, w in zip(case, got, want):
@@ -136,9 +138,8 @@ def test_qmajor_op_matches_jax_pallas_forward_and_grad():
     from devis_tpu.ops.ms_deform_attn_pallas import ms_deform_attn_pallas
     case = _rows_case(5)
     cot = np.random.RandomState(6).randn(2, 20, 2 * 16).astype(np.float32)
-    want, vjp = jax.vjp(lambda v, l, a: ms_deform_attn_pallas(v, SHAPES, l, a),
-                        *(jnp.asarray(v) for v in case.values()))
-    want_g = vjp(jnp.asarray(cot))
+    want, want_g = jit_vjp(lambda v, l, a: ms_deform_attn_pallas(v, SHAPES, l, a),
+                            tuple(case.values()), cot)
     leaves = [torch.from_numpy(v).requires_grad_(True) for v in case.values()]
     before = K.msda_taps.plain_calls
     got = K.msda_taps(leaves[0], SHAPES, leaves[1], leaves[2])

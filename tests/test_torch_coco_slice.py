@@ -20,6 +20,7 @@ from devis_torch.util.weights import from_jax_params
 
 from .test_torch_coco_modules import NUM_CLASSES, make_pair
 from .test_torch_slice import _flatten
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W = 64, 96
 N_SLOTS = 4

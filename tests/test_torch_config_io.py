@@ -11,6 +11,8 @@ import yaml
 
 from devis_torch.config import dump_yaml, get_cfg_defaults, load_yaml, parse_yaml_value
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
 

@@ -13,6 +13,8 @@ import os
 import pytest
 import torch
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = sorted(os.path.relpath(p, ROOT)
                for p in glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))

@@ -19,6 +19,8 @@ from devis_torch.ops.hungarian import lsa, lsa_numpy
 from devis_torch.ops.interpolate import resize_bilinear_hw
 from devis_torch.util import box_ops as tbox
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 T, NQ, K, N = 3, 6, 5, 4          # frames, trajectories, classes, target slots
 MCFG = dict(cost_class=2.0, cost_bbox=5.0, cost_giou=2.0, focal_alpha=0.25,
             use_l1_distance_sum=False)

@@ -36,6 +36,8 @@ from devis_tpu.datasets import synthetic as jsyn
 from devis_tpu.datasets import transforms as jtr
 from devis_tpu.datasets import vis as jvis
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 IMG_ATOL = 1e-4 * 255                     # grey levels
 NORM_ATOL = IMG_ATOL / 255 / 0.224        # after /255 and the ImageNet std
 SEED = 5

@@ -16,6 +16,8 @@ from devis_torch.ops.deform_conv import (mma_plan, modulated_deform_conv2d,
                                          modulated_deform_conv2d_emulated,
                                          modulated_deform_conv2d_plain)
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 B, CIN, COUT, H, W, K = 2, 8, 6, 10, 12, 3
 
 

@@ -20,6 +20,7 @@ from devis_torch.util.synthetic import synthetic_clip_batch
 from devis_torch.util.weights import from_jax_params
 
 from .test_torch_slice import _flatten, random_variables
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T, H, W = 2, 64, 96
 NUM_CLASSES = 7               # with the background; the model emits 6 logits
@@ -232,9 +233,12 @@ def test_nan_guard_skips_the_update(pair):
 # (e) the slice
 # ---------------------------------------------------------------------------
 
-def _jax_loss_fn(jmodel, variables, batch):
+def jax_clip_value_and_grad(jmodel, variables):
     """The JAX train step's loss for one clip with dropout off, from the
-    same public pieces as `devis_tpu.engine.make_train_step`."""
+    same public pieces as `devis_tpu.engine.make_train_step`, jitted once
+    for any clip of one shape: `f(params, images, pad_mask, targets) ->
+    ((total, losses), grads)`. Alone, a clip's normaliser is its own count
+    of instances x T."""
     from devis_tpu.config import get_cfg_defaults as jax_cfg
     from devis_tpu.models import matcher_cfg_from
     from devis_tpu.models.criterion import (build_weight_dict, clip_criterion,
@@ -243,10 +247,8 @@ def _jax_loss_fn(jmodel, variables, batch):
     weight_dict = build_weight_dict(cfg)
     mcfg = matcher_cfg_from(cfg, clip=True)
     frozen = {k: v for k, v in variables.items() if k != "params"}
-    images, pad = jnp.asarray(batch["images"][0]), jnp.asarray(batch["pad_mask"][0])
-    targets = jax.tree.map(lambda x: jnp.asarray(x[0]), batch["targets"])
 
-    def loss_fn(params):
+    def loss_fn(params, images, pad, targets):
         out = jmodel.apply({"params": params, **frozen}, images, pad, targets=targets,
                            train=True, deterministic=True)
         losses = clip_criterion(out, targets, NUM_CLASSES - 1, T, mcfg,
@@ -255,24 +257,19 @@ def _jax_loss_fn(jmodel, variables, batch):
     return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
 
 
-def test_train_step_matches_jax(pair):
-    from devis_tpu.config import get_cfg_defaults as jax_cfg
-    from devis_tpu.engine import create_train_state as jax_state
-    from devis_torch.config import get_cfg_defaults
-    from devis_torch.engine import (create_train_state, global_norm, make_train_step,
-                                    param_labels)
-    jmodel, variables, tmodel = pair
-    cfg = _cfg(get_cfg_defaults)
-    batch = _batch()
-    grad_fn = _jax_loss_fn(jmodel, variables, batch)
-    jstate = jax_state(_cfg(jax_cfg), variables, STEPS_PER_EPOCH)
-    tstate = create_train_state(cfg, tmodel, STEPS_PER_EPOCH)
-    step = make_train_step(tmodel, cfg)
-    start = {k: v.clone() for k, v in tmodel.state_dict().items()}
+def _jax_loss_fn(jmodel, variables, batch):
+    """`jax_clip_value_and_grad` on the batch's first clip, as a function of
+    the parameters."""
+    fn = jax_clip_value_and_grad(jmodel, variables)
+    images, pad = jnp.asarray(batch["images"][0]), jnp.asarray(batch["pad_mask"][0])
+    targets = jax.tree.map(lambda x: jnp.asarray(x[0]), batch["targets"])
+    return lambda params: fn(params, images, pad, targets)
 
-    (jtotal, jlosses), jgrads = grad_fn(jstate.params)
-    tstate, metrics = step(tstate, batch)
 
+def check_step_against_jax(cfg, tmodel, metrics, jtotal, jlosses, jgrads):
+    """A port step's metrics and the gradients it left on `tmodel` (clipped
+    in place) against the JAX loss and gradients of the same batch."""
+    from devis_torch.engine import global_norm
     # every loss, f32 on both sides: 1e-3 of its value
     assert set(jlosses) | {"loss", "grad_norm", "finite"} == set(metrics)
     assert float(metrics["finite"]) == 1.0
@@ -304,6 +301,25 @@ def test_train_step_matches_jax(pair):
         assert float(err.abs().max()) <= 5e-3 * top, name
     assert float(global_norm(tmodel.parameters())) == pytest.approx(
         cfg.SOLVER.GRAD_CLIP_MAX_NORM, rel=1e-4)
+
+
+def test_train_step_matches_jax(pair):
+    from devis_tpu.config import get_cfg_defaults as jax_cfg
+    from devis_tpu.engine import create_train_state as jax_state
+    from devis_torch.config import get_cfg_defaults
+    from devis_torch.engine import create_train_state, make_train_step, param_labels
+    jmodel, variables, tmodel = pair
+    cfg = _cfg(get_cfg_defaults)
+    batch = _batch()
+    grad_fn = _jax_loss_fn(jmodel, variables, batch)
+    jstate = jax_state(_cfg(jax_cfg), variables, STEPS_PER_EPOCH)
+    tstate = create_train_state(cfg, tmodel, STEPS_PER_EPOCH)
+    step = make_train_step(tmodel, cfg)
+    start = {k: v.clone() for k, v in tmodel.state_dict().items()}
+
+    (jtotal, jlosses), jgrads = grad_fn(jstate.params)
+    tstate, metrics = step(tstate, batch)
+    check_step_against_jax(cfg, tmodel, metrics, jtotal, jlosses, jgrads)
 
     # a second step on both sides, then the parameters. Adam's first steps
     # move each element by about its group's rate whatever its gradient's

@@ -26,6 +26,8 @@ from devis_torch.datasets.coco import polygons_to_mask, polygons_to_mask_plain
 from devis_torch.datasets.transforms import hsv_to_rgb, rgb_to_hsv
 from devis_torch.evaluation import _native
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _cv2_rgb(path):
     return cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)

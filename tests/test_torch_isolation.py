@@ -8,6 +8,8 @@ import sys
 import pytest
 import torch
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "devis_tpu", "yaml", "cv2", "ml_dtypes", "scipy")
 PORT_MODULES = ("devis_torch", "devis_torch.config", "devis_torch.models",
@@ -30,7 +32,9 @@ PORT_MODULES = ("devis_torch", "devis_torch.config", "devis_torch.models",
                 "devis_torch.main", "devis_torch.datasets", "devis_torch.datasets.coco",
                 "devis_torch.datasets.image_io", "devis_torch.evaluation.coco_eval",
                 "devis_torch.util.checkpoint", "devis_torch.util.logging_utils",
-                "devis_torch.util.fixtures")
+                "devis_torch.util.fixtures", "devis_torch.parallel",
+                "devis_torch.parallel.mesh", "devis_torch.parallel.multihost",
+                "devis_torch.overfit_synthetic")
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -90,6 +94,28 @@ def _small_cfg():
     cfg.MODEL.NUM_QUERIES = 4
     cfg.MODEL.DEVIS.NUM_FRAMES = 2
     return cfg
+
+
+def test_overfit_and_process_group_need_an_explicit_cpu(monkeypatch):
+    """The overfit check runs on the GPU unless told otherwise; a process
+    group on the GPU needs NCCL, and without it joining fails loudly (this
+    build of torch has none), while outside torchrun nothing is joined."""
+    import torch.distributed as dist
+
+    from devis_torch import overfit_synthetic
+    from devis_torch.parallel import init_process_group
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        overfit_synthetic.main(steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        overfit_synthetic.build()
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert init_process_group() is None and not dist.is_initialized()
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setattr(dist, "is_nccl_available", lambda: False)
+    with pytest.raises(RuntimeError, match="NCCL"):
+        init_process_group()
+    assert not dist.is_initialized()
 
 
 def test_entry_points_need_an_explicit_cpu(monkeypatch):

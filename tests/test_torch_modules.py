@@ -11,6 +11,8 @@ import torch
 
 from devis_torch.util.weights import from_jax_params
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 SHAPES = ((8, 12), (4, 6), (2, 3))
 S = sum(h * w for h, w in SHAPES)
 L = len(SHAPES)

@@ -15,6 +15,8 @@ from devis_torch.ops import ms_deform_attn_cuda as K
 from devis_torch.ops.ms_deform_attn import (ms_deform_attn, rule_window,
                                             temporal_frame_table)
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 SHAPES = ((12, 16), (6, 8), (3, 4))
 S = sum(h * w for h, w in SHAPES)
 L = len(SHAPES)

@@ -21,6 +21,8 @@ from jax.experimental import pallas as pl
 
 from devis_torch.ops import probes
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 C, WP, NCAND, REPS = 4, 16, 4, 2
 N = 4 * WP

@@ -21,6 +21,7 @@ from devis_torch.util.weights import from_jax_params
 
 from .test_torch_slice import _flatten
 from .test_torch_swin import TINY, _jax_pair, devis_cfg
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T, H, W = 2, 64, 96
 NUM_CLASSES = 7

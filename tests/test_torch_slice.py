@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 T, H, W = 2, 64, 96          # canvas
 H_VALID, W_VALID = 56, 80    # the clip's frames; the rest of the canvas is padding
 

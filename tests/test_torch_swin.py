@@ -17,6 +17,7 @@ import torch
 from devis_torch.util.weights import from_jax_params
 
 from .test_torch_slice import _close, _flatten, random_variables
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(embed_dim=16, depths=(2, 2, 2, 2), num_heads=(2, 2, 4, 4), window=4,
             num_channels=(16, 32, 64, 128), drop_path_rate=0.0)

@@ -17,6 +17,7 @@ from devis_torch.ops.msda_lab import MODES, lab_temporal_proj
 from devis_torch.ops.ms_deform_attn import rule_window, temporal_frame_table
 
 from .test_torch_msda import _jax_proj_args
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = ((12, 16), (6, 8), (3, 4))
 S = sum(h * w for h, w in SHAPES)

@@ -14,6 +14,8 @@ import torch
 
 from devis_torch.ops import ms_deform_attn_cuda as K
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 SHAPES = ((12, 16), (6, 8), (3, 4))
 S = sum(h * w for h, w in SHAPES)
 COCO_SHAPES = ((104, 168), (52, 84), (26, 42), (13, 21))

@@ -27,6 +27,8 @@ from devis_tpu.tracking.inference_matcher import \
     HungarianInferenceMatcher as JaxMatcher
 from devis_tpu.tracking.tracker import Tracker as JaxTracker
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 # size pairs (h, w) -> (oh, ow) the mask resize is held at: the two e2e
 # corpus shapes, then seeded up- and downscales, odd sizes among them
 SIZE_PAIRS = [((90, 160), (360, 640)), ((120, 80), (480, 320)), ((45, 80), (360, 640)),

@@ -19,6 +19,8 @@ from devis_torch.ops.deform_conv import (modulated_deform_conv2d,
                                          modulated_deform_conv2d_rows)
 from devis_torch.ops.ms_deform_attn import rule_window
 
+from .test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 SHAPES = ((12, 16), (6, 8), (3, 4))
 S = sum(h * w for h, w in SHAPES)
 L = len(SHAPES)
@@ -61,6 +63,15 @@ def _torch_grads(fn, arrays, cot):
     return out.detach().numpy(), [g.numpy() for g in grads]
 
 
+def jit_vjp(fn, args, cot):
+    """`fn`'s value at `args` and its VJP of `cot`, jitted: the JAX side's
+    interpret-mode kernels run as one XLA program instead of op by op."""
+    def run(args, cot):
+        out, vjp = jax.vjp(fn, *args)
+        return out, vjp(cot)
+    return jax.jit(run)(tuple(jnp.asarray(a) for a in args), jnp.asarray(cot))
+
+
 def _rows_case(rng, B, Q, M, D, P, n_levels):
     value = rng.rand(B, S, M, D).astype(np.float32)
     loc = (rng.rand(B, Q, M, n_levels, P, 2) * 1.2 - 0.1).astype(np.float32)
@@ -82,8 +93,7 @@ def test_temporal_attention_gradients_match_pallas(rng, rule):
         ly = _pad_out_of_range(_rows(l[..., 1]), Q)
         return ms_deform_attn_rows_temporal(v, SHAPES, lx, ly, _rows(a), Q, rule)
 
-    want, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in (value, loc, att)))
-    want_grads = vjp(jnp.asarray(cot))
+    want, want_grads = jit_vjp(jax_fn, (value, loc, att), cot)
     got, got_grads = _torch_grads(
         lambda v, l, a: K.msda_temporal(v, SHAPES, l, a, rule), (value, loc, att), cot)
     _close(got, want, "out")
@@ -109,8 +119,7 @@ def test_single_frame_attention_gradients_match_pallas(rng, M, D):
         ly = _pad_out_of_range(_rows(l[..., 1]), Q)
         return ms_deform_attn_rows(v, SHAPES, lx, ly, _rows(a), Q)
 
-    want, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in (value, loc, att)))
-    want_grads = vjp(jnp.asarray(cot))
+    want, want_grads = jit_vjp(jax_fn, (value, loc, att), cot)
     before = (K.msda_rows.plain_calls, K.msda_rows.launches)
     got, got_grads = _torch_grads(lambda v, l, a: K.msda_rows(v, SHAPES, l, a),
                                   (value, loc, att), cot)
@@ -154,8 +163,7 @@ def test_temporal_proj_gradients_match_pallas(rng, rule):
             _tiled(t_off[..., 0::2]), _tiled(t_off[..., 1::2]),
             _tiled(c_logit), _tiled(t_logit), Q, rule)
 
-    want, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in arrays))
-    want_grads = vjp(jnp.asarray(cot))
+    want, want_grads = jit_vjp(jax_fn, arrays, cot)
     got, got_grads = _torch_grads(
         lambda *t: K.msda_temporal_proj(t[0], SHAPES, *t[1:], rule), arrays, cot)
     _close(got, want, "out")
@@ -192,8 +200,7 @@ def test_dcn_layer_gradients_match_jax(rng, cout):
         out = _mdc_reference(jnp.transpose(x, (0, 2, 3, 1)), *rest, 1)
         return jnp.transpose(out, (0, 3, 1, 2))
 
-    want, vjp = jax.vjp(jax_fn, *(jnp.asarray(t) for t in a))
-    want_grads = vjp(jnp.asarray(cot))
+    want, want_grads = jit_vjp(jax_fn, a, cot)
     before = (K.msda_rows.plain_calls, modulated_deform_conv2d.plain_calls)
     got, got_grads = _torch_grads(modulated_deform_conv2d, a, cot)
     # under grad the layer takes the rows route, not K4's plain version
