@@ -28,10 +28,10 @@
    differentiable DCNv2 route (K6) against K4. A backward
    kernel's bf16 run is held against the plain version on the same inputs
    upcast to f32 (the plain version's own bf16 scatter-add loses the sum).
-   Every K5 and K7 case logs the kernel alone, the op (zero + kernel +
-   cast), the zero and cast, the kernel at capacity 0 (no window), the
-   kernel's count of f32 adds onto the value gradient (flushed, past the
-   capacity) beside the live corners x D a kernel without windows adds.
+   Every K5 and K7 case logs the device time of the op's kernels (entries,
+   sort, gather, tap gradients: `device_profile`, by the op's tag in the
+   kernels' names), their launches a call, all its device work and the op
+   by CUDA events.
 3. Drives the inference path: `build_model` at the YT-19 R50 config (bf16,
    6+6 layers, 60 queries, seeded random weights) and `VISInferFn` over 3
    consecutive clips of a seeded synthetic 360x640 uint8 video. Launch
@@ -192,10 +192,26 @@
    all-reduce calls of one profiled step of each (DDP's buckets on top of
    the normaliser's and the metrics'). A failure to set up NCCL fails the
    run.
-13. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
-   `redesigned`: whether its first port has been redesigned for Hopper; K5
-   and K7 with `op_ms`, `global_adds`, `global_only_ms` and, per shape,
-   window statistics; K6 and K8 with `op_ms` and their times per shape; K9
+13. Determinism (after the kernel phases, `determinism_phase`): K5, K7 and
+   K9 `REPEATS` times each on the same inputs at the paths' shapes (K5 at
+   the clip encoder and decoder and at W = 35, L = 1; K7 at the clip mask
+   head's six layers, the image mask head's six at 50 masks and the image
+   encoder; K9 at the image decoder): every run's gradients equal the
+   first's bit for bit and agree with the plain version; device time beside
+   the bound.
+14. The visualizers (`viz_phase`): the visualization config from its own
+   file through `devis_torch.main --eval-only` on a YouTube-VIS 2021 tree
+   whose two validation videos carry its `VIDEO_NAMES`, at full width
+   (180 queries, bf16): K1-K4 launches counted, the kernels held to their
+   plain versions on the run's first inputs, the merged overlays of both
+   videos counted; `visualize_att_maps --per-level` on the same tree and
+   weights, its capture held to the plain path's.
+15. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
+   `redesigned`: whether its first port has been redesigned for Hopper;
+   `repeat_equal`: for K5, K7 and K9 whether the determinism phase's runs
+   were equal, with `determinism` by shape; K5
+   and K7 with `op_ms`, `device_ms` and their times per shape;
+   K6 and K8 with `op_ms` and their times per shape; K9
    with `op_ms` and its op's `breakdown`; K12a and K12b with `op_ms`, K12b
    with `method_floor_ms`; K12c with its shapes and, under `sync`, the
    mma.sync form's; `cli_launches`: its launches over the CLI phase;
@@ -207,13 +223,15 @@
    `ablation0_w35` for K1, K3, K5: ms, plain ms, bound and error at
    ablation 0's W = 35, L = 1; `overfit_{train,eval}_launches` and
    `ddp_launches`: its launches in the overfit phase's steps and tracking
-   and in the 3 DDP steps; `overfit_max_abs_err`: its largest error in the
+   and in the 3 DDP steps; `viz_launches`: over the visualization phase's
+   two runs; `overfit_max_abs_err`: its largest error in the
    overfit phase's checks), a
    clip-latency line, a
    train-step line with peak memory, the image model's two lines, the e2e
    line, the `cli` line, the `swin` line, the `ablations` line (each config's
    clip latency, busy ms, idle share, step ms and peak GiB, with the card),
-   the `overfit` line and the `ddp` line, the card line, and last {"ok":
+   the `overfit` line, the `ddp` line and the `viz` line, the card line,
+   and last {"ok":
    true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -221,6 +239,7 @@ Exits non-zero, printing no result, without a CUDA device or without the
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -331,13 +350,13 @@ def device_ms(fn, kernel: str, iters: int = 20, tries: int = 3) -> float:
     raise AssertionError(f"{kernel}: {counts} launches profiled of {iters} in {tries} windows")
 
 
-def device_profile(fn, iters: int = 20):
+def device_profile(fn, iters: int = 20, tag: str = ""):
     """(device ms, kernel launches, wall ms) a call of `fn` over `iters`
-    calls: the device time of every kernel and memset it launched, from
-    torch.profiler (a warm-up window, then the kept one, as `device_ms`),
-    and host-clock time a call of an untraced run ending in a
-    synchronisation, which is the host's time where it exceeds the
-    device's."""
+    calls: the device time of every kernel and memset it launched whose name
+    holds `tag` (every one by default), from torch.profiler (a warm-up
+    window, then the kept one, as `device_ms`), and host-clock time a call
+    of an untraced run ending in a synchronisation, which is the host's time
+    where it exceeds the device's."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
@@ -352,10 +371,12 @@ def device_profile(fn, iters: int = 20):
             prof.step()
     total, n = 0.0, 0
     for e in kept:
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+        if tag in e.key and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
             total += e.self_cuda_time_total if us is None else us
             n += e.count
+    if n == 0:
+        raise AssertionError(f"no kernel named {tag!r} in the profiler's window")
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
@@ -831,41 +852,29 @@ def backward_cost(loc, att, value, shapes, frames, d):
     return nbytes, taps * (24 * d + 40), corners
 
 
-def bwd_times(torch, op, launch, value, loc, att, plan, corners, iters=10):
-    """Times and window statistics of a backward (K5, K7) on its bf16 inputs
-    at its default `plan`: `ms` the kernel alone (`launch(out, plan, adds)`
-    into preallocated gradient buffers), `op_ms` the public op (it zeroes an
-    f32 value gradient, launches, casts it to the value's dtype),
-    `zero_cast_ms` that zero and cast alone, `global_only_ms` the kernel at
-    capacity 0 (no window: every corner adds to global memory, as a kernel
-    without windows does), `global_adds` the kernel's count of f32 values
-    added to the value gradient (by flushes, past the capacity) beside the
-    `corners` x D a kernel without windows adds."""
-    d = value.shape[-1]
-    out = (torch.zeros(value.shape, dtype=torch.float32, device=value.device),
-           torch.zeros_like(loc), torch.zeros_like(att))
-    adds = torch.zeros(2, dtype=torch.int64, device=value.device)
-    launch(out, plan, adds)
-    ms = cuda_time(lambda: launch(out, plan, None), iters)
-    global_only_ms = cuda_time(lambda: launch(out, plan._replace(cap=0), None), iters)
-    op_ms = cuda_time(op, iters)
-    zero_cast_ms = cuda_time(lambda: torch.zeros(value.shape, dtype=torch.float32,
-                                                 device=value.device).to(value.dtype), iters)
-    flushed, over = adds.tolist()
-    return dict(ms=ms, op_ms=op_ms, zero_cast_ms=zero_cast_ms, global_only_ms=global_only_ms,
-                global_adds=flushed + over, windows=dict(
-                    plan=dict(plan._asdict()), flushed_adds=flushed, over_capacity_adds=over,
-                    adds_without_windows=corners * d,
-                    ratio=corners * d / max(flushed + over, 1)))
+BWD_TAGS = {"K5": "k5_bwd", "K7": "k7_bwd", "K9": "k9_bwd"}
+
+
+def bwd_times(torch, key, op, iters=10):
+    """Times of a backward op (K5, K7, K9: csrc/msda_bwd.cuh) on its bf16
+    inputs: `ms` the device time of its kernels a call (entries, the radix
+    sort's passes, bounds, gather, tap gradients: the kernels whose name
+    holds its tag), `kernels` their launches a call, `device_ms` every
+    kernel and memset of a call (the zeroed segment bounds among them),
+    `op_ms` the op a call by CUDA events."""
+    ms, n, _ = device_profile(op, iters, BWD_TAGS[key])
+    dev_ms, launches, _ = device_profile(op, iters)
+    return dict(ms=ms, kernels=n, device_ms=dev_ms, device_launches=launches,
+                op_ms=cuda_time(op, iters))
 
 
 def bwd_compare(torch, label, bwd, plain, args32, args16):
     """A backward kernel's f32 and bf16 gradients against its plain version;
     the bf16 run is held against the plain version on the same inputs upcast
     to f32 (the plain version's own bf16 scatter-add loses the sum). f32: the
-    atomics' order changes the last bits; bf16: the value gradient is
-    rounded once to bf16, the row gradients stay f32. Returns the bf16 value
-    gradient's error."""
+    kernels sum in another order than the plain version; bf16: the value
+    gradient is rounded once to bf16, the row gradients stay f32. Returns
+    the bf16 value gradient's error."""
     up = tuple(t.float() if torch.is_tensor(t) else t for t in args16)
     err = 0.0
     for tag, args, ref_args, tols in (("f32 ", args32, args32, (1e-4, 1e-4, 1e-4)),
@@ -882,12 +891,9 @@ def bwd_compare(torch, label, bwd, plain, args32, args16):
 
 
 def log_bwd(where, rec):
-    win = rec["windows"]
-    log(f"    {where}: kernel {rec['ms']:.4f} ms (capacity 0: {rec['global_only_ms']:.4f}), op "
-        f"{rec['op_ms']:.4f} ms (zero + cast {rec['zero_cast_ms']:.4f}), plain "
-        f"{rec['plain_ms']:.3f} ms; bound {rec['bound_ms']:.5f} ms; global adds "
-        f"{win['flushed_adds']} flushed + {win['over_capacity_adds']} past the capacity, "
-        f"{win['adds_without_windows']} without windows ({win['ratio']:.2f}x)")
+    log(f"    {where}: kernels {rec['ms']:.4f} ms in {rec['kernels']:.0f} launches, all device "
+        f"work {rec['device_ms']:.4f} ms, op {rec['op_ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.3f} ms; bound {rec['bound_ms']:.5f} ms")
 
 
 def temporal_bwd_phase(torch, dev, gen, results):
@@ -923,9 +929,7 @@ def temporal_bwd_phase(torch, dev, gen, results):
         err = bwd_compare(torch, "", K.msda_temporal_bwd, K.msda_temporal_bwd_plain,
                           (value, SHAPES, loc, att, grad, rule), a16)
         nbytes, flops, corners = backward_cost(loc, att, a16[0], SHAPES, frames, D)
-        rec = bwd_times(torch, lambda: K.msda_temporal_bwd(*a16),
-                        lambda out, p, adds: K.launch_temporal_bwd(*a16, out, p, adds),
-                        a16[0], loc, att, K.bwd_plan(SHAPES, torch.bfloat16, D, P), corners)
+        rec = bwd_times(torch, "K5", lambda: K.msda_temporal_bwd(*a16))
         rec["plain_ms"] = cuda_time(lambda: K.msda_temporal_bwd_plain(*a16), 2, 1)
         rec.update(max_abs_err=err, bytes=nbytes, flops=flops,
                    bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3)
@@ -941,9 +945,126 @@ def temporal_bwd_phase(torch, dev, gen, results):
         replaces="devis_tpu/ops/ms_deform_attn_pallas.py:940",
         max_abs_err=max(c["max_abs_err"] for c in cases.values()),
         **{k: enc[k] + dec[k] for k in ("ms", "op_ms", "plain_ms", "bytes", "flops",
-                                         "global_adds", "global_only_ms")},
-        windows=enc["windows"],
+                                         "device_ms")},
         flop_rate=F32_FLOPS, library_ms=None, shapes=cases)
+
+
+REPEATS = 5                    # runs of a backward on the same inputs, bits compared
+
+
+def determinism_phase(torch, dev, gen, results):
+    """K5, K7 and K9 each `REPEATS` times on the same bf16 inputs at the
+    paths' shapes: K5 at the clip encoder (raster references, K1's inputs)
+    and decoder (Q 10) and at W = 35, L = 1 (ablation 0's encoder layer 0:
+    36 frames of the 10x18 level); K7 at the clip mask head's six layers
+    (D 264 down to out_lay's D 1), the image mask head's six at 50 masks
+    and the image encoder (2 images, Q = S); K9 at the image decoder (2
+    images, Q 300). Every run's gradients must equal the first's bit for bit
+    (`torch.equal`: grad_value, grad_loc, grad_att; K9's grad_value, grad_wt)
+    and the first agree with the plain version on the inputs upcast to f32
+    (value 1e-2, the others 1e-4, as `bwd_compare`; the image mask head at
+    `COCO_MASK_CMP_B` masks where the plain version's f32 copy of U passes
+    1.5 GB). Logs each case's device time (its kernels, `device_profile`)
+    beside its bound; adds `determinism` and `repeat_equal` to
+    results["K5"], ["K7"], ["K9"]."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.ms_deform_attn import temporal_frame_table
+
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
+    out = {"K5": {}, "K7": {}, "K9": {}}
+
+    def case(key, name, op, plain, cost, parts=("value", "loc", "att"), cut=None):
+        first = [t.clone() for t in op()]
+        equal = True
+        for _ in range(REPEATS - 1):
+            equal &= all(torch.equal(a, b) for a, b in zip(first, op()))
+        want = plain()
+        errs = [compare(f"{key} ({name}) grad_{part}", g if cut is None else g[:cut], w,
+                        1e-2 if part == "value" else 1e-4)
+                for part, g, w in zip(parts, first, want)]
+        del first, want
+        if not equal:
+            raise AssertionError(f"{key} ({name}): {REPEATS} runs on the same inputs differ")
+        ms, n, _ = device_profile(op, 5, BWD_TAGS[key])
+        nbytes, flops = cost
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+        log(f"    {key} {name}: {REPEATS} runs equal bit for bit; {ms:.4f} ms of device time in "
+            f"{n:.0f} launches, bound {bound:.5f} ms; error {errs[0]:.3e}")
+        out[key][name] = dict(repeat_equal=True, repeats=REPEATS, max_abs_err=errs[0],
+                              ms=ms, kernels=n, bound_ms=bound)
+        torch.cuda.empty_cache()
+
+    log(f"determinism: K5, K7 and K9 {REPEATS} times each on the same inputs")
+    L = len(SHAPES)
+    S = sum(h * w for h, w in SHAPES)
+    for name, Tn, shapes, Q in (("clip encoder", T, SHAPES, S),
+                                ("clip decoder", T, SHAPES, NQ // T),
+                                ("W=35 L=1", 36, ((10, 18),), 180)):
+        W, Ln, Sn = Tn - 1, len(shapes), sum(h * w for h, w in shapes)
+        rule = ("all",)
+        if name == "clip encoder":
+            a = encoder_inputs(torch, dev, gen, "raster")
+            value = a[0]
+            loc = K.temporal_proj_locations(SHAPES, a[2], a[3], a[4], M).contiguous()
+            att = K.temporal_proj_weights(a[5], a[6], M, L).contiguous()
+            del a
+        else:
+            value = rnd(Tn, Sn, M, D)
+            loc = torch.rand(Tn, Q, M, (1 + W) * Ln, P, 2, generator=gen, device=dev) * 1.2 - 0.1
+            att = torch.softmax(rnd(Tn, Q, M, (1 + W) * Ln * P), -1).reshape(loc.shape[:-1])
+        a16 = (bf(value), shapes, loc, att, bf(rnd(Tn, Q, M * D)), rule)
+        up = tuple(t.float() if torch.is_tensor(t) else t for t in a16)
+        table = torch.as_tensor(temporal_frame_table(rule, Tn), device=dev)
+        frames = torch.cat([torch.arange(Tn, device=dev)[:, None], table], 1)
+        nbytes, flops, _ = backward_cost(loc, att, a16[0], shapes, frames, D)
+        case("K5", name, lambda: K.msda_temporal_bwd(*a16),
+             lambda: K.msda_temporal_bwd_plain(*up), (nbytes, flops))
+        del value, loc, att, a16, up
+    for where, B, layers in (("clip", DCN_B, DCN_LAYERS),
+                             ("image", COCO_SLOTS * COCO_BATCH, COCO_DCN_LAYERS)):
+        for lname, _, cout, h, w in layers:
+            shapes = ((h, w),) * 9
+            if where == "clip":
+                value, loc, att, grad = mask_head_rows(torch, dev, gen, B, cout, h, w)
+            else:
+                value = rnd(B, 9 * h * w, 1, cout)
+                loc = dcn_route_loc(torch, dev, gen, B, h, w)
+                att = torch.rand(B, h * w, 1, 9, 1, generator=gen, device=dev) * 2.0
+                grad = rnd(B, h * w, cout)
+            a16 = (bf(value), shapes, loc, att, bf(grad))
+            del value, grad
+            nb = B if B * 9 * h * w * cout * 4 <= 1.5e9 else COCO_MASK_CMP_B
+            cut = tuple(t[:nb].float() if torch.is_tensor(t) and t.dtype == torch.bfloat16
+                        else t[:nb] if torch.is_tensor(t) else t for t in a16)
+            nbytes, flops, _ = backward_cost(loc, att, a16[0], shapes, None, cout)
+            case("K7", f"{where} {lname} D={cout} B={B}", lambda: K.msda_rows_bwd(*a16),
+                 lambda: K.msda_rows_bwd_plain(*cut), (nbytes, flops), cut=nb)
+            del loc, att, a16, cut
+    Sc, Lc = sum(h * w for h, w in COCO_SHAPES), len(COCO_SHAPES)
+    value = rnd(COCO_BATCH, Sc, M, D)
+    loc = torch.rand(COCO_BATCH, Sc, M, Lc, P, 2, generator=gen, device=dev) * 1.2 - 0.1
+    att = torch.softmax(rnd(COCO_BATCH, Sc, M, Lc * P), -1).reshape(loc.shape[:-1])
+    a16 = (bf(value), COCO_SHAPES, loc, att, bf(rnd(COCO_BATCH, Sc, M * D)))
+    up = tuple(t.float() if torch.is_tensor(t) else t for t in a16)
+    nbytes, flops, _ = backward_cost(loc, att, a16[0], COCO_SHAPES, None, D)
+    case("K7", f"image encoder B={COCO_BATCH}", lambda: K.msda_rows_bwd(*a16),
+         lambda: K.msda_rows_bwd_plain(*up), (nbytes, flops))
+    del value, loc, att, a16, up
+    value, loc, att = image_decoder_rows(torch, dev, gen, COCO_BATCH)
+    idx, wt = K.taps(COCO_SHAPES, loc, att)
+    v16, g16 = bf(value), bf(rnd(COCO_BATCH, COCO_NQ, M * D))
+    rows = corner_stats(loc, COCO_SHAPES)[2]
+    live = int((wt != 0).sum())
+    nbytes = rows * D * 2 + idx.numel() * 4 + 2 * wt.numel() * 4 + g16.numel() * 2 \
+        + v16.numel() * 2
+    case("K9", f"image decoder B={COCO_BATCH}",
+         lambda: K.msda_taps_bwd(v16, COCO_SHAPES, idx, wt, g16),
+         lambda: K.msda_taps_bwd_plain(v16.float(), COCO_SHAPES, idx, wt, g16.float()),
+         (nbytes, idx.numel() * 2 * D + live * 2 * D), parts=("value", "wt"))
+    for key, cases in out.items():
+        results[key]["determinism"] = cases
+        results[key]["repeat_equal"] = all(c["repeat_equal"] for c in cases.values())
 
 
 def mask_head_rows(torch, dev, gen, B, cout, h, w):
@@ -973,23 +1094,21 @@ def rows_phase(torch, dev, gen, results):
     log(f"K6 msda_rows / K7 msda_rows_bwd, B={DCN_B}, 9 levels, per mask-head layer")
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
     fwd = dict(ms=0.0, op_ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, layers=[])
-    bwd = dict(ms=0.0, op_ms=0.0, plain_ms=0.0, bytes=0, flops=0, global_adds=0,
-               global_only_ms=0.0, err=0.0, layers=[])
+    bwd = dict(ms=0.0, op_ms=0.0, plain_ms=0.0, bytes=0, flops=0, device_ms=0.0, err=0.0,
+               layers=[])
     for name, cin, cout, h, w in DCN_LAYERS:
         shapes = ((h, w),) * 9
         hw = h * w
         value, loc, att, grad = mask_head_rows(torch, dev, gen, DCN_B, cout, h, w)
         v16, g16 = bf(value), bf(grad)
-        # K6 as the route calls it (the query grid is for its backward, K7)
-        grid = (h, w)
         with torch.no_grad():
             if name in ("lay1", "lay5"):
-                compare(f"{name} K6 f32 ", K.msda_rows(value, shapes, loc, att, grid),
+                compare(f"{name} K6 f32 ", K.msda_rows(value, shapes, loc, att),
                         ms_deform_attn(value, shapes, loc, att), 1e-4)
-            err = compare(f"{name} K6 bf16", K.msda_rows(v16, shapes, loc, att, grid),
+            err = compare(f"{name} K6 bf16", K.msda_rows(v16, shapes, loc, att),
                           ms_deform_attn(v16, shapes, loc, att), 2e-2)
             fwd["err"] = max(fwd["err"], err)
-            op = lambda: K.msda_rows(v16, shapes, loc, att, grid)  # noqa: E731
+            op = lambda: K.msda_rows(v16, shapes, loc, att)  # noqa: E731
             ms = device_ms(op, "msda_rows_kernel", iters=10)
             op_ms = cuda_time(op, 10)
             plain_ms = cuda_time(lambda: ms_deform_attn(v16, shapes, loc, att), 2, 1)
@@ -1007,20 +1126,16 @@ def rows_phase(torch, dev, gen, results):
                 f"{op_ms:.4f} ms (plain {plain_ms:.3f}), bound "
                 f"{fwd['layers'][-1]['bound_ms']:.4f} ms")
 
-        # the route's K7 takes 2-D tiles of the h x w query grid
         a16 = (v16, shapes, loc, att, g16)
-        err = bwd_compare(torch, f"{name} K7", lambda *a: K.msda_rows_bwd(*a, grid),
-                          K.msda_rows_bwd_plain,
+        err = bwd_compare(torch, f"{name} K7", K.msda_rows_bwd, K.msda_rows_bwd_plain,
                           (value, shapes, loc, att, grad) if name in ("lay1", "lay5") else None,
                           a16)
         bwd["err"] = max(bwd["err"], err)
         nbytes, flops, corners = backward_cost(loc, att, v16, shapes, None, cout)
-        rec = bwd_times(torch, lambda: K.msda_rows_bwd(*a16, grid),
-                        lambda out, p, adds: K.launch_rows_bwd(*a16, out, p, grid, adds),
-                        v16, loc, att, K.bwd_plan(shapes, torch.bfloat16, cout, 1, grid), corners)
+        rec = bwd_times(torch, "K7", lambda: K.msda_rows_bwd(*a16))
         rec["plain_ms"] = cuda_time(lambda: K.msda_rows_bwd_plain(*a16), 2, 1)
         rec.update(layer=name, bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3)
-        for k in ("ms", "op_ms", "plain_ms", "global_adds", "global_only_ms"):
+        for k in ("ms", "op_ms", "plain_ms", "device_ms"):
             bwd[k] += rec[k]
         bwd["bytes"] += nbytes
         bwd["flops"] += flops
@@ -1035,8 +1150,7 @@ def rows_phase(torch, dev, gen, results):
             replaces=f"devis_tpu/ops/ms_deform_attn_pallas.py:{line}", max_abs_err=tot["err"],
             ms=tot["ms"], plain_ms=tot["plain_ms"], bytes=tot["bytes"], flops=tot["flops"],
             flop_rate=F32_FLOPS, library_ms=None,
-            **{k: tot[k] for k in ("op_ms", "global_adds", "global_only_ms", "layers")
-               if k in tot})
+            **{k: tot[k] for k in ("op_ms", "device_ms", "layers") if k in tot})
 
     log("DCNv2 layer: the differentiable route (K6) against K4 on the same inputs")
     Kk = 3
@@ -1223,12 +1337,12 @@ def check_probes_idle(after):
 
 KERNEL_GROUPS = {"K1 msda_temporal_proj": "msda_temporal_proj_win_kernel",
                  "K2 msda_tap_window": "msda_tap_window_kernel",
-                 "K5 msda_temporal_bwd": "msda_temporal_bwd_win_kernel",
+                 "K5 msda_temporal_bwd": "k5_bwd",
                  "K3 msda_temporal": "msda_temporal_kernel",
-                 "K7 msda_rows_bwd": "msda_rows_bwd_win_kernel",
+                 "K7 msda_rows_bwd": "k7_bwd",
                  "K6 msda_rows": "msda_rows_kernel",
                  "K8 msda_proj": "msda_proj_kernel",
-                 "K9 msda_taps_bwd": "msda_taps_bwd_kernel",
+                 "K9 msda_taps_bwd": "k9_bwd",
                  "K4 / K10 dcn_layer": "dcn_layer_"}   # dcn_layer_mma_kernel, _f32_kernel
 
 
@@ -1395,32 +1509,38 @@ def check_clip_fetch(torch, outs, cfg, hw, canvas):
             raise AssertionError("non-finite or out-of-range outputs")
 
 
-def clip_vs_plain(torch, model, x, pad):
-    """One clip through the kernels and through their plain versions on the
-    card, held to the clip path's gates. Returns the errors."""
+@contextlib.contextmanager
+def plain_forward():
+    """Within the block a model's forward takes the plain versions of K1, K3,
+    K8, the q-major op and K4 in place of the kernels (the clip without
+    temporal connections, DeVIS ablations, takes the single-frame ops)."""
     from devis_torch.models import attention as attn_mod
     from devis_torch.models import segmentation as seg_mod
     from devis_torch.ops import ms_deform_attn_cuda as K
     from devis_torch.ops.deform_conv import modulated_deform_conv2d_plain
-
     from devis_torch.ops.ms_deform_attn import ms_deform_attn
 
+    sites = ((attn_mod, "msda_temporal_proj", K.msda_temporal_proj_plain),
+             (attn_mod, "msda_temporal", K.ms_deform_attn_temporal_plain),
+             (attn_mod, "msda_proj", K.msda_proj_plain), (attn_mod, "msda_taps", ms_deform_attn),
+             (seg_mod, "modulated_deform_conv2d", modulated_deform_conv2d_plain))
+    saved = [getattr(mod, name) for mod, name, _ in sites]
+    for mod, name, plain in sites:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(sites, saved):
+            setattr(mod, name, fn)
+
+
+def clip_vs_plain(torch, model, x, pad):
+    """One clip through the kernels and through their plain versions on the
+    card, held to the clip path's gates. Returns the errors."""
     with torch.inference_mode():
         out_k, res_k = model(x, pad)
-        saved = (attn_mod.msda_temporal_proj, attn_mod.msda_temporal, attn_mod.msda_proj,
-                 attn_mod.msda_taps, seg_mod.modulated_deform_conv2d)
-        # the clip without temporal connections (DeVIS ablations) takes the
-        # single-frame ops
-        attn_mod.msda_temporal_proj = K.msda_temporal_proj_plain
-        attn_mod.msda_temporal = K.ms_deform_attn_temporal_plain
-        attn_mod.msda_proj = K.msda_proj_plain
-        attn_mod.msda_taps = ms_deform_attn
-        seg_mod.modulated_deform_conv2d = modulated_deform_conv2d_plain
-        try:
+        with plain_forward():
             out_p, res_p = model(x, pad)
-        finally:
-            (attn_mod.msda_temporal_proj, attn_mod.msda_temporal, attn_mod.msda_proj,
-             attn_mod.msda_taps, seg_mod.modulated_deform_conv2d) = saved
     # bf16 end to end through 12 attention layers and 6 DCNv2 layers: the two
     # paths round at different places, so probabilities and mask logits agree
     # to 5e-2 of their largest magnitude (a seeded model's probabilities are
@@ -1812,10 +1932,7 @@ def compare_train_paths(torch, cfg, model_k, batch, ops, plain_names):
         if isinstance(mod, Dropout):
             mod.p = 0.0
     model_p = copy.deepcopy(model_k)
-    # the DCN route hands `msda_rows` its query grid, which the plain version
-    # does not take
-    patches = [(dc_mod, name, lambda v, s, lc, a, grid=None, f=getattr(K, plain): f(v, s, lc, a))
-               if name == "msda_rows" else (attn_mod, name, getattr(K, plain))
+    patches = [(dc_mod if name == "msda_rows" else attn_mod, name, getattr(K, plain))
                for name, plain in plain_names.items()]
     out = []
     for tag, model in (("kernels", model_k), ("plain", model_p)):
@@ -1989,8 +2106,8 @@ def coco_kernel_phases(torch, dev, gen, results):
                 err = e
     v16, g16 = bf(value), bf(grad)
     op = lambda: K.msda_taps_bwd(v16, COCO_SHAPES, idx, wt, g16)  # noqa: E731
-    ms = device_ms(op, "msda_taps_bwd_kernel")
-    op_ms = cuda_time(op, 50)
+    rec9 = bwd_times(torch, "K9", op, iters=20)
+    ms, op_ms = rec9["ms"], rec9["op_ms"]
     plain_ms = cuda_time(lambda: K.msda_taps_bwd_plain(v16, COCO_SHAPES, idx, wt, g16), 3, 1)
     live = int((wt != 0).sum())
     rows = corner_stats(loc, COCO_SHAPES)[2]
@@ -1999,7 +2116,8 @@ def coco_kernel_phases(torch, dev, gen, results):
     flops = idx.numel() * 2 * D + live * 2 * D
     bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
     breakdown = taps_bwd_breakdown(torch, K, v16, loc, att, g16)
-    log(f"    kernel {ms:.5f} ms by device time, op {op_ms:.4f} ms, plain {plain_ms:.3f} ms; "
+    log(f"    kernels {ms:.5f} ms by device time in {rec9['kernels']:.0f} launches, all device "
+        f"work {rec9['device_ms']:.5f} ms, op {op_ms:.4f} ms, plain {plain_ms:.3f} ms; "
         f"bound {bound:.5f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
         f"{live} live entries, grid {K.taps_plan(D, torch.bfloat16, True)}")
     for part, (dms, n, wall) in breakdown.items():
@@ -2008,7 +2126,7 @@ def coco_kernel_phases(torch, dev, gen, results):
         name="msda_taps_bwd", route="cuda", source="devis_torch/csrc/ms_deform_attn_taps.cu",
         replaces="devis_tpu/ops/ms_deform_attn_pallas.py:443", max_abs_err=err,
         ms=ms, op_ms=op_ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
-        flop_rate=F32_FLOPS, library_ms=None, atomic_bytes=live * D * 4,
+        flop_rate=F32_FLOPS, library_ms=None, device_ms=rec9["device_ms"],
         breakdown={part: dict(device_ms=dms, launches=n, wall_ms=wall)
                    for part, (dms, n, wall) in breakdown.items()})
     del idx, wt, v16, g16
@@ -2037,9 +2155,7 @@ def coco_kernel_phases(torch, dev, gen, results):
         bwd_compare(torch, f"{where} K7", K.msda_rows_bwd, K.msda_rows_bwd_plain,
                     (value, COCO_SHAPES, loc, att, grad), a16)
         nbytes, flops, corners = backward_cost(loc, att, v16, COCO_SHAPES, None, D)
-        rec = bwd_times(torch, lambda: K.msda_rows_bwd(*a16),
-                        lambda out, p, adds: K.launch_rows_bwd(*a16, out, p, None, adds),
-                        v16, loc, att, K.bwd_plan(COCO_SHAPES, torch.bfloat16, D, P), corners)
+        rec = bwd_times(torch, "K7", lambda: K.msda_rows_bwd(*a16))
         rec["plain_ms"] = cuda_time(lambda: K.msda_rows_bwd_plain(*a16), 2, 1)
         rec.update(bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3)
         times["K7"] = rec
@@ -2142,7 +2258,7 @@ def coco_mask_head_bwd_phase(torch, dev, gen, results):
     from devis_torch.ops.ms_deform_attn import ms_deform_attn
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
     B = COCO_SLOTS * COCO_BATCH
-    tot = dict(ms=0.0, op_ms=0.0, bound_ms=0.0, global_adds=0, global_only_ms=0.0, layers=[])
+    tot = dict(ms=0.0, op_ms=0.0, bound_ms=0.0, device_ms=0.0, layers=[])
     fwd = dict(ms=0.0, op_ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, layers=[])
     log(f"K6 msda_rows / K7 msda_rows_bwd at the image mask head, B={B}, 9 levels, per layer")
     for name, cin, cout, h, w in COCO_DCN_LAYERS:
@@ -2154,9 +2270,8 @@ def coco_mask_head_bwd_phase(torch, dev, gen, results):
         a16 = (v16, shapes, loc, att, g16)
         nb = B if B * 9 * h * w * cout * 4 <= 1.5e9 else COCO_MASK_CMP_B
         cut = tuple(t[:nb] if torch.is_tensor(t) else t for t in a16)
-        grid = (h, w)
         with torch.no_grad():
-            op = lambda: K.msda_rows(v16, shapes, loc, att, grid)  # noqa: E731
+            op = lambda: K.msda_rows(v16, shapes, loc, att)  # noqa: E731
             err = compare(f"{name} B={nb} K6 bf16", op()[:nb], ms_deform_attn(*cut[:4]), 2e-2)
             ms = device_ms(op, "msda_rows_kernel", iters=5)
             op_ms = cuda_time(op, 5)
@@ -2172,18 +2287,15 @@ def coco_mask_head_bwd_phase(torch, dev, gen, results):
             fwd[k] += v
         fwd["err"] = max(fwd["err"], err)
 
-        bwd_compare(torch, f"{name} B={nb} K7", lambda *a: K.msda_rows_bwd(*a, grid),
-                    K.msda_rows_bwd_plain, None, cut)
+        bwd_compare(torch, f"{name} B={nb} K7", K.msda_rows_bwd, K.msda_rows_bwd_plain, None,
+                    cut)
         nbytes, flops, corners = backward_cost(loc, att, v16, shapes, None, cout)
-        rec = bwd_times(torch, lambda: K.msda_rows_bwd(*a16, grid),
-                        lambda out, p, adds: K.launch_rows_bwd(*a16, out, p, grid, adds),
-                        v16, loc, att, K.bwd_plan(shapes, torch.bfloat16, cout, 1, grid), corners,
-                        iters=5)
+        rec = bwd_times(torch, "K7", lambda: K.msda_rows_bwd(*a16), iters=5)
         rec["plain_ms"] = cuda_time(lambda: K.msda_rows_bwd_plain(*cut), 2, 1)
         rec.update(layer=name, compare_batch=nb,
                    bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3)
         log_bwd(f"{name} D={cout} at {h}x{w} (plain at B={nb})", rec)
-        for k in ("ms", "op_ms", "bound_ms", "global_adds", "global_only_ms"):
+        for k in ("ms", "op_ms", "bound_ms", "device_ms"):
             tot[k] += rec[k]
         tot["layers"].append(rec)
         del loc, att, v16, g16, a16, cut
@@ -2717,16 +2829,15 @@ def cli_kernel_checks(torch, dev, calls, train, where):
                 del g, idx, wt, got, want
             del args, value, loc, att, out
         if "msda_rows" in calls:                      # mask-head layer 0 (route): K6; K7
-            u, shapes, loc, att, grid = calls["msda_rows"]
+            u, shapes, loc, att = calls["msda_rows"]
             nb = _batch_cut(u, u[0].numel() * 4)
             cut = (u[:nb], shapes, loc[:nb], att[:nb])
             log(f"  mask-head layer 0 (the route under a gradient): B={u.shape[0]} "
-                f"grid {tuple(grid)} D={u.shape[-1]}, held at {nb}")
-            out = K.msda_rows(u, shapes, loc, att, grid)
+                f"level {shapes[0]} D={u.shape[-1]}, held at {nb}")
+            out = K.msda_rows(u, shapes, loc, att)
             keep("K6", compare("  K6 bf16", out[:nb], ms_deform_attn(*cut), 2e-2))
             if train:
-                keep("K7", bwd_compare(torch, "  K7 (route)",
-                                       lambda *a: K.msda_rows_bwd(*a, grid),
+                keep("K7", bwd_compare(torch, "  K7 (route)", K.msda_rows_bwd,
                                        K.msda_rows_bwd_plain, None,
                                        cut + (grad_for(out[:nb]),)))
             del u, loc, att, cut, out
@@ -3072,8 +3183,7 @@ def swin_step_compare(torch, dev, cfg, model, batch):
     """A step with both recomputation flags and one without, from the same
     weights, batch and dropout generator seed, dropout 0.1 and drop path up
     to 0.3 on: losses to 1e-2 and each gradient to GRAD_TOL of its own norm
-    + GRAD_FLOOR of the whole (`report_step_difference`; K5's atomics order
-    the value gradient's sums anew in each step), the generator's state
+    + GRAD_FLOOR of the whole (`report_step_difference`), the generator's state
     after the step equal. Leaves the weights as they were."""
     from devis_torch.engine import create_train_state, make_train_step
 
@@ -3322,7 +3432,7 @@ def ablation_k5(torch, calls):
         table = torch.as_tensor(temporal_frame_table(rule, Tn), device=value.device)
         frames = torch.cat([torch.arange(Tn, device=value.device)[:, None], table], 1)
         nbytes, flops, corners = backward_cost(loc, att, value, shapes, frames, Dh)
-        ms = device_ms(lambda: K.msda_temporal_bwd(*args), "msda_temporal_bwd_win")
+        ms = device_profile(lambda: K.msda_temporal_bwd(*args), 10, "k5_bwd")[0]
         op_ms = cuda_time(lambda: K.msda_temporal_bwd(*args), 10)
         plain_ms = cuda_time(lambda: K.msda_temporal_bwd_plain(*args), 1, 1)
     bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
@@ -3583,7 +3693,7 @@ def ddp_phase(torch, dev, card):
     `DistributedDataParallel` (`parallel.data_parallel`), each from the same
     weights and dropout seed. The first steps are held to each other at the
     train path's gates (every loss to 1e-2, each gradient to 5e-2 of its
-    norm + 1e-5 of the whole: K5 and K7 sum with atomics, so bits differ);
+    norm + 1e-5 of the whole);
     then 3 timed steps of each, the wrapped ones with the counts zeroed just
     before and read just after, and one profiled step of each, where the
     wrapped step must call the all-reduce more often (DDP's buckets) than
@@ -3670,6 +3780,131 @@ def ddp_phase(torch, dev, card):
                 os.environ[k] = v
 
 
+# ---------------------------------------------------------------------------
+# the visualizers
+# ---------------------------------------------------------------------------
+
+VIZ_CONFIG = "configs/devis/devis_R_50_visualization_YT-21.yaml"
+VIZ_VIDEOS = ("4b1a561480", "c34989e3")      # the config's TEST.VIZ.VIDEO_NAMES
+VIZ_QUERIES = 3
+
+
+def viz_phase(torch, dev, card):
+    """The visualizers at the visualization config's full width (180
+    queries, 6 + 6 layers, bf16) on a seeded YouTube-VIS 2021 tree whose two
+    validation videos (12 frames of 360x640, 3 clips each) carry the
+    config's `VIDEO_NAMES`, one set of seeded weights (the noise of
+    `move_taps_off_the_grid`) saved as a checkpoint of the port for both
+    runs. (1) `devis_torch.main --config-file <the config> --eval-only`
+    with DATASETS.DATA_PATH, MODEL.WEIGHTS and the output paths set: K1-K4
+    6 launches a clip and no plain path, the kernels held to their plain
+    versions on the run's first inputs (`cli_kernel_checks`), one merged
+    overlay a frame of each named video. (2) `visualize_att_maps.main(...
+    --per-level)` on the same tree and weights, 3 queries a video: K1-K4 6
+    launches a video, a merged overlay and one a level a (query, frame),
+    and its capture (the last decoder layer's current-frame locations and
+    weights) held to the capture of the same forward through the plain
+    versions (`plain_forward`) within the clip path's gates:
+    locations 2e-2 (normalized, as boxes), weights 5e-2 of their largest
+    value. Returns (record, launches by op over both runs)."""
+    import tempfile
+    import types
+
+    import cv2
+
+    from devis_torch import visualize_att_maps
+    from devis_torch.config import get_cfg_defaults
+    from devis_torch.datasets import build_dataset
+    from devis_torch.models import build_model
+    from devis_torch.util import checkpoint as ckpt
+    from devis_torch.util.fixtures import tree_summary, write_vis_tree
+
+    t_phase = time.perf_counter()
+    ops = kernel_ops()
+    cfg_file = os.path.join(HERE, VIZ_CONFIG)
+    rec = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="devis_viz_") as tmp:
+        data = os.path.join(tmp, "data")
+        write_vis_tree(data, seed=SEED, n_train=1, n_val=2, n_frames=12, size=VIDEO_HW,
+                       version="2021", val_names=VIZ_VIDEOS)
+        log(f"visualization phase: YouTube-VIS 2021 tree {tree_summary(data)}")
+        common = ["DATASETS.DATA_PATH", data, "TPU.COMPUTE_DTYPE", "bfloat16"]
+        cfg = get_cfg_defaults()
+        cfg.merge_from_file(cfg_file)
+        cfg.merge_from_list(common + ["MODEL.WEIGHTS", ""])
+        model = build_model(build_dataset("VAL", cfg)[1], cfg, device=dev, seed=cfg.SEED)
+        move_taps_off_the_grid(torch, model, dev, box_noise=True)
+        weights = os.path.join(tmp, "weights")
+        ckpt.save_checkpoint(weights, types.SimpleNamespace(
+            model=model, optimizer=torch.optim.SGD(model.parameters(), lr=0.0), step=0))
+        del model
+        torch.cuda.empty_cache()
+        common += ["MODEL.WEIGHTS", weights]
+
+        viz_out = os.path.join(tmp, "visual_results")
+        log(f"visualization config --eval-only: {len(VIZ_VIDEOS)} named videos, merged tracks")
+        t0 = time.perf_counter()
+        run = run_cli(torch, ["--config-file", cfg_file, "--eval-only"] + common
+                      + ["OUTPUT_DIR", os.path.join(tmp, "out"), "TEST.VIZ.OUT_VIZ_PATH", viz_out],
+                      ops, [2 * 3 * b for b in (6, 6, 6, 0, 0, 0, 6)])
+        rec["cli_s"] = time.perf_counter() - t0
+        rec["kernel_checks"] = cli_kernel_checks(torch, dev, run.calls, False,
+                                                 "visualization config --eval-only")
+        check_finite("visualization config eval", run.result["eval"]["eval"])
+        overlays = {}
+        for name in VIZ_VIDEOS:
+            folder = os.path.join(viz_out, name)
+            files = sorted(os.listdir(folder)) if os.path.isdir(folder) else []
+            shapes = {getattr(cv2.imread(os.path.join(folder, f)), "shape", None)
+                      for f in files}
+            if len(files) != 12 or shapes != {VIDEO_HW + (3,)}:
+                raise AssertionError(f"{name}: overlays {files} of shapes {shapes}")
+            overlays[name] = len(files)
+        if sorted(os.listdir(viz_out)) != sorted(VIZ_VIDEOS):
+            raise AssertionError(f"renders for {os.listdir(viz_out)}")
+        rec["overlays"] = overlays
+        log(f"  overlays {overlays}; {rec['cli_s']:.1f} s ({card})")
+
+        maps = {}
+        def maps_argv(out):
+            return ["--config-file", cfg_file, "--videos", "2", "--queries", str(VIZ_QUERIES),
+                    "--per-level", "--out-dir", os.path.join(tmp, out)] + common
+
+        zero_coco_counts(ops)
+        t0 = time.perf_counter()
+        maps["kernels"] = visualize_att_maps.main(maps_argv("maps"))
+        torch.cuda.synchronize()
+        rec["att_maps_s"] = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in ops}
+        check_coco_counts(ops, [2 * b for b in (6, 6, 6, 0, 0, 0, 6)])
+        with plain_forward():
+            maps["plain"] = visualize_att_maps.main(maps_argv("maps_plain"))
+        errs = {"loc": 0.0, "att / max": 0.0}
+        n_files = 0
+        for vid, got in maps["kernels"].items():
+            want = maps["plain"][vid]
+            errs["loc"] = max(errs["loc"], float(abs(got["loc"] - want["loc"]).max()))
+            errs["att / max"] = max(errs["att / max"], float(
+                abs(got["att"] - want["att"]).max() / abs(want["att"]).max()))
+            T, _, _, L = got["loc"].shape[:4]
+            if len(got["paths"]) != VIZ_QUERIES * T * (1 + L) or \
+                    any(not os.path.getsize(p) for p in got["paths"]):
+                raise AssertionError(f"video {vid}: {len(got['paths'])} maps written")
+            n_files += len(got["paths"])
+        log(f"  visualize_att_maps --per-level: {n_files} maps, {rec['att_maps_s']:.1f} s "
+            f"({card}); launches {launches}; capture against the plain path: {errs} "
+            f"(limits 2e-2, 5e-2)")
+        if errs["loc"] > 2e-2 or errs["att / max"] > 5e-2:
+            raise AssertionError("the attention maps' capture disagrees with the plain path")
+        rec.update(att_map_files=n_files, capture_errs=errs)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"visualization phase: {rec['phase_s']:.1f} s")
+    total = dict(run.launches)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return rec, total
+
+
 def main() -> int:
     try:
         import torch
@@ -3707,6 +3942,8 @@ def main() -> int:
     temporal_bwd_phase(torch, dev, gen, results)
     rows_phase(torch, dev, gen, results)
     coco_kernel_phases(torch, dev, gen, results)
+    determinism_phase(torch, dev, gen, results)
+    torch.cuda.empty_cache()
     with torch.inference_mode():
         probe_phase(torch, dev, gen, results)
     for fn in probe_ops():
@@ -3741,6 +3978,8 @@ def main() -> int:
     overfit, overfit_launches = overfit_phase(torch, dev, card)
     torch.cuda.empty_cache()
     ddp, ddp_launches = ddp_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+    viz, viz_launches = viz_phase(torch, dev, card)
     probe_launches = check_probes_idle("every model path")
 
     # K1-K4: launches of the clip inference path's 3 clips; K5-K7: of the clip
@@ -3768,6 +4007,7 @@ def main() -> int:
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": r["library_ms"], "redesigned": key in REDESIGNED,
+            "repeat_equal": r.get("repeat_equal"),
             "train_launches": train_launches.get(r["name"], 0),
             "coco_image_launches": coco_launches.get(r["name"], 0),
             "coco_train_launches": coco_train_launches.get(r["name"], 0),
@@ -3789,9 +4029,10 @@ def main() -> int:
                                                                   "eval_kernel_errs")
                                         if key in overfit[c]), default=None),
             "ddp_launches": ddp_launches.get(r["name"], 0),
+            "viz_launches": viz_launches.get(r["name"], 0),
             **({"ablation0_w35": ablations["0"]["kernels_w"][key]}
                if key in ablations["0"]["kernels_w"] else {}),
-            **{k: r[k] for k in ("atomic_bytes", "global_adds", "global_only_ms",
+            **{k: r[k] for k in ("device_ms", "determinism",
                                  "coco_shapes", "route_ms", "layers", "op_ms",
                                  "k2_ms", "windows", "lab", "random_refs", "path_inputs",
                                  "script_shape", "shapes", "hmma_in_sass", "max_sm_clock_mhz",
@@ -3812,6 +4053,7 @@ def main() -> int:
     print(json.dumps({"ablations": ablations}))
     print(json.dumps({"overfit": overfit}))
     print(json.dumps({"ddp": ddp}))
+    print(json.dumps({"viz": viz}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,9 @@
 //      launches it first.
 //   K3 msda_temporal       <- _fwd_kernel_temporal (decoder).
 //      The same sampling from precomputed locations and weights.
-//   K5 msda_temporal_bwd_win <- _bwd_kernel_rows_temporal (backward of K1, K3).
+//   K5 msda_temporal_bwd   <- _bwd_kernel_rows_temporal (backward of K1, K3).
 //      From the output gradient: the gradient of the per-frame value, of the
-//      locations and of the weights, with the taps rebuilt in the kernel.
+//      locations and of the weights, with the taps rebuilt from loc and att.
 //
 // K1 (see its kernel below): one block per (t, m, q-block of 128 queries), the
 // grid of K2. A tap's location, corners and softmax weight are computed once,
@@ -43,29 +43,20 @@
 // for windows to pay: what bounds it is the latency of its two dependent
 // reads (location, then corners), not bytes.
 //
-// K5 (`msda_bwd_block` in msda_common.cuh, shared with K7): the value
-// gradient is a scatter, one add per (tap, corner, channel) onto the frame the
-// rule names (the TPU kernel's one-hot fold of temporal slots onto frames is
-// layout; here the slot's frame is addressed directly). Added straight into
-// the f32 gradient, 3.0e9 scalar adds at the encoder's shapes kept L2's
-// atomic units busy 21 times the bound. The kernel takes K1's raster blocks
-// of 128 queries of one (t, m); per stage (frame slot, level) one thread per
-// (query, point) computes the tap once, the block's corners are sorted by
-// window row (the box of rows its taps touch: at raster references about
-// 1 300 rows a frame against 8 200 corner touches), each touched row is read
-// once, its adds summed in registers and flushed once with a vector atomic
-// (6x fewer global adds at raster references, 2.5x at random ones), and each
-// tap's weight and location gradients are gathered from its corners' dot
-// products and written once. The flush's order changes from run to run: the
-// sums are not bit-reproducible. What bounds it now: latency, through the
-// barriers between its per-stage steps and the dependent shared-memory reads
-// of the row pass, more than any throughput.
-//
+// K5 (`bwd_run` in msda_bwd.cuh, shared with K7 and K9): the value gradient
+// is a scatter, one add per (tap, corner, channel) onto the frame the rule
+// names (the TPU kernel's one-hot fold of temporal slots onto frames is
+// layout; here the slot's frame is addressed directly). Summed with f32
+// atomics, its last bits would change from run to run; so the corners are
+// sorted by value row and one warp sums each row in a fixed order, as the
+// JAX kernel's W^T @ g has one owner per value tile: equal inputs give equal
+// bits.
+
 // Location arithmetic uses explicit round-to-nearest intrinsics (see
 // msda_common.cuh): K1 and K2 then compute exactly the f32 values of the
 // plain PyTorch versions, and a K2 window covers every K1 tap.
 
-#include "msda_common.cuh"
+#include "msda_bwd.cuh"
 
 // The offsets a window rule may hold. The `all` rule reads no offsets and
 // takes any number of other frames (W = T - 1: 35 in a 36-frame clip).
@@ -734,13 +725,12 @@ __global__ void __launch_bounds__(K3_WARPS * 32) msda_temporal_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K5: backward of K1 and K3 from precomputed locations and weights, on the
-// windowed block of msda_common.cuh.
+// K5: backward of K1 and K3 from precomputed locations and weights
+// (msda_bwd.cuh).
 //   value (T, S, M, D); loc (T, Q, M, Lf, P, 2) f32; att (T, Q, M, Lf, P) f32;
-//   grad_out (T, Q, M*D) -> grad_value (T, S, M, D) f32, zeroed by the caller;
-//   grad_loc like loc; grad_att like att; adds (2) counters or null. A
-//   location's gradient is the pixel gradient times the level size, times the
-//   tap's weight.
+//   grad_out (T, Q, M*D) -> grad_value (T, S, M, D) in the value's type;
+//   grad_loc like loc; grad_att like att. A location's gradient is the pixel
+//   gradient times the level size, times the tap's weight.
 
 // The value frame of frame slot j for the queries of frame t.
 struct SlotFrame {
@@ -750,19 +740,6 @@ struct SlotFrame {
     return j == 0 ? t : source_frame(rule, j - 1, t, T);
   }
 };
-
-template <typename scalar_t, int LPQ>
-__global__ void __launch_bounds__(BWD_THREADS, 2) msda_temporal_bwd_win_kernel(
-    const scalar_t* __restrict__ value, const float* __restrict__ loc,
-    const float* __restrict__ att, const scalar_t* __restrict__ grad_out,
-    float* __restrict__ grad_value, float* __restrict__ grad_loc, float* __restrict__ grad_att,
-    unsigned long long* __restrict__ adds, int T, int Q, int S, int M, int D, int P,
-    Pyramid pyr, FrameRule rule, BwdTiles tiles, BwdPlan plan, int groups, bool aligned,
-    int vw) {
-  msda_bwd_block<scalar_t, LPQ>(value, loc, att, grad_out, grad_value, grad_loc, grad_att, adds,
-                                Q, S, M, D, P, (1 + rule.W) * pyr.L, pyr, SlotFrame{rule, T},
-                                tiles, plan, groups, aligned, vw);
-}
 
 // ---------------------------------------------------------------------------
 // C entry points. Pointers and the stream arrive as void*; `levels` is
@@ -895,56 +872,25 @@ static int launch_temporal(void* value, void* loc, void* att, void* out, int T, 
   return (int)cudaGetLastError();
 }
 
-template <typename scalar_t, int LPQ>
-static int launch_temporal_bwd_win(const void* value, const void* loc, const void* att,
-                                   const void* grad_out, void* grad_value, void* grad_loc,
-                                   void* grad_att, void* adds, int T, int Q, int S, int M, int D,
-                                   int P, const Pyramid& pyr, const FrameRule& rule,
-                                   const BwdTiles& t, const BwdPlan& plan, int groups,
-                                   size_t smem, cudaStream_t stream) {
-  auto kernel = msda_temporal_bwd_win_kernel<scalar_t, LPQ>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const bool aligned = (D * (int)sizeof(scalar_t)) % 16 == 0 && (uintptr_t)value % 16 == 0 &&
-                       (uintptr_t)grad_out % 16 == 0;
-  const int blocks = T * M * t.n_tiles * groups * ((D + plan.slice - 1) / plan.slice);
-  kernel<<<blocks, BWD_THREADS, smem, stream>>>(
-      (const scalar_t*)value, (const float*)loc, (const float*)att, (const scalar_t*)grad_out,
-      (float*)grad_value, (float*)grad_loc, (float*)grad_att, (unsigned long long*)adds, T, Q,
-      S, M, D, P, pyr, rule, t, plan, groups, aligned, bwd_flush_width(D, grad_value));
-  return (int)cudaGetLastError();
-}
-
-// Raster blocks of `qb` queries; `lanes` a query and the plan come from the
-// wrapper's `bwd_plan`; `groups` splits the stages over blocks.
+// `lanes`, `per` and `vec` (the gather's split of D) come from the wrapper's
+// `taps_plan`; scratch as `BwdScratch` says, with wts and dots of 4 floats a
+// tap.
 template <typename scalar_t>
 static int launch_temporal_bwd(void* value, void* loc, void* att, void* grad_out,
-                               void* grad_value, void* grad_loc, void* grad_att, void* adds,
-                               int T, int Q, int S, int M, int D, int P, int qb, int cap,
-                               int slice, int pitch, int lanes, int groups, const int* levels,
-                               int L, int rule_all, const int* offsets, int W, void* stream) {
-  const Pyramid pyr = make_pyramid(levels, L);
-  const FrameRule rule = make_rule(rule_all, offsets, W);
-  BwdTiles t;
-  BwdPlan plan;
-  size_t smem;
-  const int err = bwd_setup(Q, D, P, Vec16<scalar_t>::N, pyr, qb, 0, 0, 0, 0, cap, slice,
-                            pitch, lanes, t, plan, smem);
-  if (err) return err;
-  if (!rule_ok(rule_all, W) || groups < 1) return (int)cudaErrorInvalidValue;
-#define K5_LAUNCH(N)                                                                         \
-  return launch_temporal_bwd_win<scalar_t, N>(value, loc, att, grad_out, grad_value,         \
-                                              grad_loc, grad_att, adds, T, Q, S, M, D, P, pyr, \
-                                              rule, t, plan, groups, smem, (cudaStream_t)stream)
-  switch (lanes) {
-    case 1: K5_LAUNCH(1);
-    case 2: K5_LAUNCH(2);
-    case 4: K5_LAUNCH(4);
-    case 8: K5_LAUNCH(8);
-  }
-#undef K5_LAUNCH
-  return (int)cudaErrorInvalidValue;
+                               void* grad_value, void* grad_loc, void* grad_att, void* keys0,
+                               void* keys1, void* vals0, void* vals1, void* wts, void* dots,
+                               void* begin, void* end, void* hist, void* sums, void* top, int T,
+                               int Q, int S, int M, int D, int P, int lanes, int per, int vec,
+                               int gpr, const int* levels, int L, int rule_all,
+                               const int* offsets, int W, void* stream) {
+  if (L < 1 || L > MAX_LEVELS || !rule_ok(rule_all, W)) return (int)cudaErrorInvalidValue;
+  const BwdScratch s{{(unsigned*)keys0, (unsigned*)keys1}, {(unsigned*)vals0, (unsigned*)vals1},
+                     (int*)begin, (int*)end, (int*)hist, (int*)sums, (int*)top};
+  return bwd_run<k5_bwd, scalar_t>(
+      value, (const float*)loc, (const float*)att, grad_out, grad_value, (float*)grad_loc,
+      (float*)grad_att, (float*)wts, (float*)dots, s, T, T, Q, S, M, D, (1 + W) * L, P, lanes,
+      per, vec, gpr, make_pyramid(levels, L), SlotFrame{make_rule(rule_all, offsets, W), T},
+      (cudaStream_t)stream);
 }
 
 extern "C" {
@@ -998,24 +944,27 @@ int msda_temporal_bf16(void* value, void* loc, void* att, void* out, int T, int 
 }
 
 int msda_temporal_bwd_f32(void* value, void* loc, void* att, void* grad_out, void* grad_value,
-                          void* grad_loc, void* grad_att, void* adds, int T, int Q, int S, int M,
-                          int D, int P, int qb, int cap, int slice, int pitch, int lanes,
-                          int groups, const int* levels, int L, int rule_all, const int* offsets,
-                          int W, void* stream) {
-  return launch_temporal_bwd<float>(value, loc, att, grad_out, grad_value, grad_loc, grad_att,
-                                    adds, T, Q, S, M, D, P, qb, cap, slice, pitch, lanes, groups,
-                                    levels, L, rule_all, offsets, W, stream);
+                          void* grad_loc, void* grad_att, void* keys0, void* keys1, void* vals0,
+                          void* vals1, void* wts, void* dots, void* begin, void* end, void* hist,
+                          void* sums, void* top, int T, int Q, int S, int M, int D, int P,
+                          int lanes, int per, int vec, int gpr, const int* levels, int L,
+                          int rule_all, const int* offsets, int W, void* stream) {
+  return launch_temporal_bwd<float>(
+      value, loc, att, grad_out, grad_value, grad_loc, grad_att, keys0, keys1, vals0, vals1, wts,
+      dots, begin, end, hist, sums, top, T, Q, S, M, D, P, lanes, per, vec, gpr, levels, L,
+      rule_all, offsets, W, stream);
 }
 
 int msda_temporal_bwd_bf16(void* value, void* loc, void* att, void* grad_out, void* grad_value,
-                           void* grad_loc, void* grad_att, void* adds, int T, int Q, int S, int M,
-                           int D, int P, int qb, int cap, int slice, int pitch, int lanes,
-                           int groups, const int* levels, int L, int rule_all,
-                           const int* offsets, int W, void* stream) {
-  return launch_temporal_bwd<__nv_bfloat16>(value, loc, att, grad_out, grad_value, grad_loc,
-                                            grad_att, adds, T, Q, S, M, D, P, qb, cap, slice,
-                                            pitch, lanes, groups, levels, L, rule_all, offsets,
-                                            W, stream);
+                           void* grad_loc, void* grad_att, void* keys0, void* keys1, void* vals0,
+                           void* vals1, void* wts, void* dots, void* begin, void* end, void* hist,
+                           void* sums, void* top, int T, int Q, int S, int M, int D, int P,
+                           int lanes, int per, int vec, int gpr, const int* levels, int L,
+                           int rule_all, const int* offsets, int W, void* stream) {
+  return launch_temporal_bwd<__nv_bfloat16>(
+      value, loc, att, grad_out, grad_value, grad_loc, grad_att, keys0, keys1, vals0, vals1, wts,
+      dots, begin, end, hist, sums, top, T, Q, S, M, D, P, lanes, per, vec, gpr, levels, L,
+      rule_all, offsets, W, stream);
 }
 
 }  // extern "C"

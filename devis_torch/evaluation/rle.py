@@ -54,6 +54,14 @@ def iou(dt: Sequence[Dict], gt: Sequence[Dict],
                               [bool(c) for c in iscrowd])
 
 
+def compute_iou_matrix(masks1: Sequence[Dict], masks2: Sequence[Dict],
+                       is_encoded: bool = True) -> np.ndarray:
+    """RLE IoU matrix, (len(masks1), len(masks2)) float64 (reference
+    util/mask_ops.py:5-33). `is_encoded` is the reference's flag: the
+    masks are RLEs either way."""
+    return iou(list(masks1), list(masks2))
+
+
 def merge(rles: Sequence[Dict], intersect: bool = False) -> Dict:
     """Union (or intersection) of RLE masks."""
     if not rles:

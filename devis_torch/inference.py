@@ -127,7 +127,7 @@ def build_tracker(cfg, model, device=None):
     """The clip-stitching tracker over `model` (reference `build_tracker`,
     `src/models/__init__.py:84-108`). Runs on the GPU unless ``device`` says
     otherwise; the model must lie there."""
-    from .tracking.inference_matcher import HungarianInferenceMatcher
+    from .tracking.inference_matcher import build_inference_matcher
     from .tracking.tracker import Tracker
 
     ct = cfg.TEST.CLIP_TRACKING
@@ -136,12 +136,7 @@ def build_tracker(cfg, model, device=None):
     infer_fn = VISInferFn(model, T, make_eval_buckets(cfg.INPUT.MIN_SIZE_TEST,
                                                       cfg.INPUT.MAX_SIZE_TEST),
                           device=device)
-    matcher = HungarianInferenceMatcher(
-        overlap_window=overlap, cost_class=ct.CLASS_COST,
-        cost_mask_iou=ct.MASK_COST, score_cost=ct.SCORE_COST,
-        center_distance_cost=ct.CENTER_COST,
-        use_binary_mask_iou=ct.USE_BINARY_MASK_IOU,
-        use_frame_average_iou=ct.USE_FRAME_AVERAGE_IOU)
+    matcher = build_inference_matcher(cfg)
     tracker_cfg = dict(
         per_class_matching=ct.PER_CLASS_MATCHING,
         track_min_detection_score=ct.MIN_FRAME_SCORE,

@@ -24,7 +24,9 @@ Frames ride the batch axis. Temporal levels are frame-major: (W, L).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -208,7 +210,17 @@ class TemporalMSDeformAttnEncoder(TemporalMSDeformAttnBase):
 
 class TemporalMSDeformAttnDecoder(TemporalMSDeformAttnBase):
     """Decoder temporal attention with instance-aware temporal references:
-    query i of frame t samples frame f around query i's reference in f."""
+    query i of frame t samples frame f around query i's reference in f.
+
+    Where `capture` is a list (`capture_sampling`), each call appends the
+    tensors the JAX decoder sows for the visualizer
+    (`devis_tpu/models/attention.py:557-562`): `loc_c` (T, Lq, M, L, P, 2)
+    and `att_c` (T, Lq, M, L, P), the current frame's locations and its
+    slice of the joint softmax; `loc_t` (T, Lq, M, W*L, P, 2) and `att_t`
+    (T, Lq, M, W*L, P), the temporal frames'. Views of the forward's own
+    tensors: no copy, no launch. None (the default): nothing is kept."""
+
+    capture: Optional[List[Dict]] = None
 
     def __init__(self, *args, instance_aware: bool = True, **kw):
         super().__init__(*args, **kw)
@@ -246,9 +258,29 @@ class TemporalMSDeformAttnDecoder(TemporalMSDeformAttnBase):
         else:
             t_ref = ref.repeat(1, 1, W, 1)
         loc_t = compute_sampling_locations(t_ref, t_off, t_shapes, P)
+        if self.capture is not None:
+            self.capture.append(dict(loc_c=loc_c.detach(), att_c=att[:, :, :, :L].detach(),
+                                     loc_t=loc_t.detach(), att_t=att[:, :, :, L:].detach()))
         loc = torch.cat([loc_c, loc_t], dim=3).float().contiguous()
         out = msda_temporal(value, spatial_shapes, loc, att.contiguous(), ("all",))
         return self.output_proj(out).reshape(1, T * Lq, C)
+
+
+@contextlib.contextmanager
+def capture_sampling(model):
+    """Within the block every `TemporalMSDeformAttnDecoder` of `model`
+    appends its sampling capture to the list this yields, one record a
+    layer's call, in call order (`util.visualization.decoder_attention`
+    reads it); after it nothing is kept."""
+    layers = [m for m in model.modules() if isinstance(m, TemporalMSDeformAttnDecoder)]
+    records: List[Dict] = []
+    for m in layers:
+        m.capture = records
+    try:
+        yield records
+    finally:
+        for m in layers:
+            m.capture = None
 
 
 class MultiHeadAttention(nn.Module):

@@ -97,12 +97,14 @@ def build_log(name: str) -> str:
 
 @functools.lru_cache(maxsize=None)
 def source_define(name: str, macro: str) -> int:
-    """The integer a `#define macro` of source `name` sets: the one place a
-    launch constant is kept where Python needs it too."""
-    with open(_paths(name)[0]) as f:
+    """The integer a `#define macro` of source `name` (or of the header
+    `name` where it ends in `.cuh`) sets: the one place a launch constant is
+    kept where Python needs it too."""
+    path = os.path.join(SRC_DIR, name) if name.endswith(".cuh") else _paths(name)[0]
+    with open(path) as f:
         found = re.search(rf"^#define {macro} (\d+)\b", f.read(), re.M)
     if found is None:
-        raise KeyError(f"{macro} is not defined in {name}.cu")
+        raise KeyError(f"{macro} is not defined in {os.path.basename(path)}")
     return int(found.group(1))
 
 

@@ -139,7 +139,7 @@ def deform_conv2d_rows(x, offset, mask, weight, bias, padding: int = 1):
     u = torch.matmul(x.reshape(B, 1, Cin, HW).transpose(2, 3),
                      weight.reshape(1, KK, Cin, Cout))           # (B, KK, HW, Cout)
     out = msda_rows(u.reshape(B, KK * HW, 1, Cout), ((H, W),) * KK,
-                    loc.contiguous(), att.contiguous(), (H, W))  # (B, HW, Cout)
+                    loc.contiguous(), att.contiguous())          # (B, HW, Cout)
     out = out.float() + bias.float()
     return out.to(x.dtype).transpose(1, 2).reshape(B, Cout, H, W)
 

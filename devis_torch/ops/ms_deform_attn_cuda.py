@@ -28,18 +28,18 @@ and `plain_calls` CPU dispatches, per op.
   * K6 `msda_rows` (replaces `_fwd_kernel_fused`) and K7 `msda_rows_bwd`
     (replaces `_bwd_kernel_rows`): single-frame attention, value
     (B, S, M, D) at any D, loc (B, Q, M, L, P, 2), att (B, Q, M, L, P), and
-    its backward. `query_grid` (H, W) says the queries are an H x W pixel
-    grid (the DCN route), which K7 takes in 2-D tiles. K6 takes raster runs
+    its backward. K6 takes raster runs
     of (b, q, m) in the split `rows_plan` gives: each tap's geometry
     computed once, chunks of channels over the threads, taps over groups of
     threads where the launch is too small to fill the card.
-  * K5 and K7 share one windowed block (`csrc/msda_common.cuh`): per query
-    tile and stage (frame slot, level) the corners' value-gradient adds are
-    sorted by window row (the box of rows the tile's taps touch, its first
-    `bwd_plan(...).cap` rows in raster order) and each row is summed on chip
-    and added once with a vector atomic; corners past the capacity add where
-    they lie. `msda_*_bwd_windowed_plain` repeat that in PyTorch and count
-    the adds.
+  * K5, K7 and K9 share one backward in a fixed order (`csrc/msda_bwd.cuh`):
+    the corners' entries (value row, weight) are sorted by value row with a
+    stable radix sort, one warp a value row sums its entries in a fixed
+    order and writes the row once in the value's dtype, and each entry's
+    dot g . row gives the weight and location gradients (K9: grad_wt).
+    Equal inputs give equal bits on every run, as the JAX kernels' one
+    owner a value tile does. `msda_bwd_mirror` and `msda_taps_bwd_mirror`
+    repeat that order on the CPU, tile and row order as arguments.
   * K8 `msda_proj` (replaces `_fwd_kernel_proj`): single-frame attention
     from the raw projections, the image model's encoder and first decoder
     layer: value (B, S, M, D), references (B, Q, L, 2), offsets
@@ -57,8 +57,7 @@ On a CUDA tensor K1, K3, K6 and K8 run as `torch.autograd.Function`s whose
 backward is K5, K5, K7 and K7 (`msda_taps`: K6 forward, K9 backward). K1's backward rebuilds loc and att from the raw projections
 under autograd, launches K5 and lets autograd chain the loc and att gradients
 to references, offsets and logits. On the CPU autograd differentiates the
-plain versions. The value gradient's flushes are f32 atomics: equal inputs
-give results that differ in the last bits from run to run.
+plain versions.
 
 Levels run frame-major: the current frame's L levels, then L levels for each
 of the W frames the rule names (`temporal_frame_rule`). The value is read per
@@ -357,195 +356,235 @@ def msda_rows_bwd_plain(value, spatial_shapes, loc, att, grad_out):
 
 
 # ---------------------------------------------------------------------------
-# K5 and K7 on windows: the capacity plan and the windowed plain version
+# K5, K7 and K9 in a fixed order: the transpose and the gather, and their
+# mirror on the CPU
 # ---------------------------------------------------------------------------
 
-# The windowed backward block (csrc/msda_common.cuh, `msda_bwd_block`): 512
-# threads; 128 bytes of box, scan totals and flag; per (query, point) 64
-# bytes of tap (geometry, sums, the corners' places and sorted weights and
-# queries) and 4 f32 dots a 16-byte channel chunk; the queries' output
-# gradient slice as f32; 8 bytes per window row (its bin, the touched list)
-BWD_THREADS = 512
-BWD_HEAD_BYTES = 128
-BWD_TAP_BYTES = 64
-BWD_MAX_SLICE = 64            # channels a slice: at most 8 bf16 / 16 f32 lanes a query
-BwdPlan = collections.namedtuple("BwdPlan", "qb tile slice lanes pitch cap smem")
-_BWD_TILES = {128: (8, 16), 256: (16, 16), 512: (16, 32)}
-BWD_GRID_ROWS = 4096
-BWD_MIN_BLOCKS = 4 * 132    # two waves of two blocks an SM on an H100
+def _bwd_define(macro: str) -> int:
+    return _build.source_define("msda_bwd.cuh", macro)
 
 
-def bwd_smem_bytes(qb: int, n_points: int, cap: int, pitch: int, vec: int) -> int:
-    """Dynamic shared memory of one K5/K7 block, as the kernel lays it out
-    (`vec` channels in 16 bytes of the value's dtype)."""
-    return (BWD_HEAD_BYTES + qb * n_points * (BWD_TAP_BYTES + 16 * (pitch // vec))
-            + qb * pitch * 4 + -(-cap * 8 // 16) * 16)
+def bwd_sort_plan(n_rows: int):
+    """(passes, bits a digit) of the radix sort over keys 0 .. n_rows (the
+    last one a corner outside its level): 8 bits at most a digit, the
+    key's bits split evenly over the fewest passes."""
+    bits = max(int(n_rows).bit_length(), 1)
+    passes = -(-bits // 8)
+    return passes, -(-bits // passes)
 
 
-def bwd_plan(spatial_shapes, dtype, head_dim: int, n_points: int,
-             query_grid=None) -> BwdPlan:
-    """The capacity plan of K5 and K7. Channels in slices of at most
-    `BWD_MAX_SLICE` (a multiple of 16 bytes of the value's dtype), one block
-    a slice; `lanes` a query in the pass over corners past the capacity, each
-    owning 16 bytes of a slice; `qb` queries a block (128, or 256 and 512
-    where a query takes 2 and 1 lanes; twice that in a query grid where
-    shared memory still holds `BWD_GRID_ROWS` window rows), in 2-D `tile`s
-    (rows, columns) of the `query_grid` where one is given; `pitch` f32 of a
-    query's staged output gradient; `cap` window rows a stage sorts its
-    corners into (the first `cap` rows of the box in raster order), as many
-    as let two blocks share an SM's shared memory (two are what the
-    registers allow), at most the largest level. Raises where the taps alone
-    do not fit. A caller may `_replace` `cap` (0: no window); the launchers
-    check the bytes."""
-    grid = None if query_grid is None else tuple(int(v) for v in query_grid)
-    return _bwd_plan(normalize_shapes(spatial_shapes), dtype, int(head_dim), int(n_points),
-                     grid)
+def bwd_scratch(n_entries: int, n_rows: int, device, weights: bool = True):
+    """Device scratch of one K5, K7 or K9 launch (csrc/msda_bwd.cuh
+    `BwdScratch`): keys and sorted entry indices twice, begin and end a value
+    row (zeroed), the tiles' digit histograms, the scan's tile totals and its
+    top total; with `weights`, the corners' weights and dots (K9 reads its
+    weights and writes its dots in place: wt, grad_wt)."""
+    tiles = -(-n_entries // _bwd_define("BWD_TILE"))
+    hist = 256 * tiles
+    if -(-hist // _bwd_define("BWD_SCAN_TILE")) > _bwd_define("BWD_SCAN_TOP"):
+        raise ValueError(f"bwd_scratch: {n_entries} entries are more than the scan takes")
+    i32 = dict(dtype=torch.int32, device=device)
+    n = max(n_entries, 1)
+    out = dict(keys=[torch.empty(n, **i32) for _ in range(2)],
+               vals=[torch.empty(n, **i32) for _ in range(2)],
+               begin=torch.zeros(n_rows, **i32), end=torch.zeros(n_rows, **i32),
+               hist=torch.empty(max(hist, 1), **i32),
+               sums=torch.empty(max(-(-hist // _bwd_define("BWD_SCAN_TILE")), 1), **i32),
+               top=torch.empty(1, **i32))
+    if weights:
+        out["wts"] = torch.empty(n, dtype=torch.float32, device=device)
+        out["dots"] = torch.empty(n, dtype=torch.float32, device=device)
+    return out
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_plan(spatial_shapes, dtype, D, P, query_grid):
-    vec = 16 // (torch.finfo(dtype).bits // 8)
-    n_slices = -(-D // BWD_MAX_SLICE)
-    slice_ = min(-(-(-(-D // n_slices)) // vec) * vec, D)
-    lanes = 1
-    while lanes * vec < slice_:
-        lanes *= 2
-    pitch = -(-slice_ // vec) * vec
-    limit = SMEM_PER_SM // 2 - SMEM_RESERVED
-    largest = max(h * w for h, w in spatial_shapes)
-    qb = max(128, BWD_THREADS // lanes)
-    # a query grid takes tiles twice as large where a window of BWD_GRID_ROWS
-    # rows (or the whole level) still fits: fewer halo rows a query are read
-    # and flushed
-    if query_grid is not None and qb < 512 and \
-            bwd_smem_bytes(2 * qb, P, min(BWD_GRID_ROWS, largest), pitch, vec) <= limit:
-        qb *= 2
-    if bwd_smem_bytes(qb, P, 0, pitch, vec) > limit or 4 * qb * P > 0xffff:
-        raise ValueError(f"bwd_plan: {P} points a query leave no shared memory for "
-                         f"{qb}-query blocks")
-    cap = min((limit - bwd_smem_bytes(qb, P, 0, pitch, vec)) // 16 * 2, largest)
-    return BwdPlan(qb, None if query_grid is None else _BWD_TILES[qb], slice_, lanes, pitch,
-                   cap, bwd_smem_bytes(qb, P, cap, pitch, vec))
+def bwd_groups(plan, n_entries: int, n_rows: int) -> int:
+    """Lane groups a value row takes in the gather (`gpr`): the largest
+    power of two at most the mean entries a row over `BWD_UNROLL` (a group
+    takes that many entries a step), at least 1, at most 32 / plan.lanes (a
+    row in one warp). The rest of the warp takes other rows."""
+    mean = n_entries / max(n_rows, 1)
+    g = 1
+    while 2 * g * _bwd_define("BWD_UNROLL") <= mean and 2 * g * plan.lanes <= 32:
+        g *= 2
+    return g
 
 
-def _bwd_tiles(Q, plan, query_grid, device):
-    """(tile of every query (Q,), tiles per (frame, head))."""
-    q = torch.arange(Q, device=device)
-    if query_grid is None:
-        return q // plan.qb, -(-Q // plan.qb)
-    gh, gw = query_grid
-    th, tw = plan.tile
-    tiles_x = -(-gw // tw)
-    return (q // gw // th) * tiles_x + (q % gw) // tw, -(-gh // th) * tiles_x
+def _scratch_ptrs(sc):
+    return (sc["keys"][0].data_ptr(), sc["keys"][1].data_ptr(), sc["vals"][0].data_ptr(),
+            sc["vals"][1].data_ptr())
 
 
-def _bwd_windowed_plain(value, spatial_shapes, loc, att, grad_out, frames, plan,
-                        query_grid):
-    """The windowed backward of K5 and K7 in plain PyTorch, block by block as
-    the kernel runs it: per block and stage the box of rows the live taps'
-    corners touch (clipped to the level), rows of the box in raster order,
-    row i staged where i < min(area, plan.cap); staged adds summed in the
-    block's accumulator and its touched rows flushed once, every other
-    corner added where it lies. `frames` (N, Lx / L) names the value frame
-    of each frame slot of the queries of frame n. Returns (grad_value in the
-    value's dtype, grad_loc f32, grad_att f32, adds): adds[0] the f32 values
-    the flushes add to grad_value, adds[1] those added past the capacity."""
-    spatial_shapes = normalize_shapes(spatial_shapes)
-    N, Q, M, Lx, P, _ = loc.shape
-    F, S, _, D = value.shape
+def _tap_entries(spatial_shapes, loc, att, frames, S, M, n_rows):
+    """Step 1 of K5/K7 on the CPU: (keys (4 * taps,), weights, the taps'
+    geometry (dx, dy, live, level widths, level heights)). Entries in the
+    kernel's order (m, s, n, q, p, c) (`bwd_entries_kernel`); key the value
+    row ((f * S + s) * M + m), `n_rows` where the tap is dead or the corner
+    outside its level."""
+    N, Q, _, Lx, P, _ = loc.shape
     L = len(spatial_shapes)
-    dev = value.device
     starts = level_start_index(spatial_shapes)
-    v = value.float().reshape(F * S * M, D)
-    g = grad_out.float().reshape(N, Q, M, 1, D)
-    g_value = torch.zeros(F * S * M, D, dtype=torch.float32, device=dev)
-    g_loc = torch.zeros(loc.shape, dtype=torch.float32, device=dev)
-    g_att = torch.zeros(att.shape, dtype=torch.float32, device=dev)
-    tile, n_tiles = _bwd_tiles(Q, plan, query_grid, dev)
-    mi = torch.arange(M, device=dev).view(1, 1, M, 1)
-    blk = ((torch.arange(N, device=dev).view(N, 1, 1, 1) * M + mi) * n_tiles
-           + tile.view(1, Q, 1, 1)).expand(N, Q, M, P)
-    n_blocks = N * M * n_tiles
-    adds = torch.zeros(2, dtype=torch.long)
-    for s in range(Lx):
-        j, l = divmod(s, L)
-        h, w = spatial_shapes[l]
-        x = loc[:, :, :, s, :, 0].float() * w - 0.5                # (N, Q, M, P)
-        y = loc[:, :, :, s, :, 1].float() * h - 0.5
-        live = (x >= -1) & (x < w) & (y >= -1) & (y < h)          # tap_geometry
-        x0f = torch.floor(torch.where(live, x, 0.0))
-        y0f = torch.floor(torch.where(live, y, 0.0))
-        dx, dy = x - x0f, y - y0f
-        x0, y0 = x0f.long(), y0f.long()
-        a = att[:, :, :, s].float()
-
-        def box(vals, init, how):
-            out = torch.full((n_blocks,), init, dtype=torch.long, device=dev)
-            return out.scatter_reduce(0, blk[live], vals[live], how)
-        by0 = box(y0.clamp(min=0), 2 ** 62, "amin")
-        by1 = box((y0 + 1).clamp(max=h - 1), -1, "amax")
-        bx0 = box(x0.clamp(min=0), 2 ** 62, "amin")
-        bx1 = box((x0 + 1).clamp(max=w - 1), -1, "amax")
-        bw = torch.where(by1 >= 0, bx1 - bx0 + 1, 0)
-        nst = torch.where(by1 >= 0, (by1 - by0 + 1) * bw, 0).clamp(max=plan.cap)
-        acc = torch.zeros(n_blocks, plan.cap, D, dtype=torch.float32, device=dev)
-        touched = torch.zeros(n_blocks, plan.cap, dtype=torch.bool, device=dev)
-        base = (frames[:, j].view(N, 1, 1, 1) * S + starts[l]) * M + mi
-        s_v, s_x, s_y = (torch.zeros_like(x) for _ in range(3))
-        for oy, ox, wc, cx, cy in ((0, 0, (1 - dy) * (1 - dx), -(1 - dy), -(1 - dx)),
-                                   (0, 1, (1 - dy) * dx, 1 - dy, -dx),
-                                   (1, 0, dy * (1 - dx), -dy, 1 - dx),
-                                   (1, 1, dy * dx, dy, dx)):
-            yi, xi = y0 + oy, x0 + ox
-            ok = live & (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-            rows = base + (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)) * M
-            gv = torch.where(ok, (g * v[rows]).sum(-1), 0.0)
-            s_v, s_x, s_y = s_v + wc * gv, s_x + cx * gv, s_y + cy * gv
-            add = (a * wc)[..., None] * g                          # (N, Q, M, P, D)
-            r = (yi - by0[blk]) * bw[blk] + (xi - bx0[blk])
-            staged = ok & (r < nst[blk])
-            over = ok & ~staged
-            acc.index_put_((blk[staged], r[staged]), add[staged], accumulate=True)
-            touched[blk[staged], r[staged]] = True
-            g_value.index_add_(0, rows[over], add[over])
-            adds[1] += int(over.sum()) * D
-        bi, ri = touched.nonzero(as_tuple=True)
-        nb, mb = bi // (M * n_tiles), bi // n_tiles % M
-        ry, rx = by0[bi] + ri // bw[bi], bx0[bi] + ri % bw[bi]
-        rows = (frames[nb, j] * S + starts[l] + ry * w + rx) * M + mb
-        g_value.index_add_(0, rows, acc[bi, ri])
-        adds[0] += bi.numel() * D
-        g_att[:, :, :, s] = torch.where(live, s_v, 0.0)
-        g_loc[:, :, :, s, :, 0] = torch.where(live, a * s_x * w, 0.0)
-        g_loc[:, :, :, s, :, 1] = torch.where(live, a * s_y * h, 0.0)
-    return g_value.reshape(value.shape).to(value.dtype), g_loc, g_att, adds
+    s_idx = torch.arange(Lx).view(1, 1, 1, Lx, 1)
+    lvl = s_idx % L
+    hs = torch.tensor([h for h, _ in spatial_shapes])[lvl]
+    ws = torch.tensor([w for _, w in spatial_shapes])[lvl]
+    x = loc[..., 0].float() * ws - 0.5
+    y = loc[..., 1].float() * hs - 0.5
+    live = (x >= -1) & (x < ws) & (y >= -1) & (y < hs)
+    x0f, y0f = torch.floor(torch.where(live, x, 0.0)), torch.floor(torch.where(live, y, 0.0))
+    dx, dy = x - x0f, y - y0f
+    x0, y0 = x0f.long(), y0f.long()
+    frame = frames[torch.arange(N).view(N, 1, 1, 1, 1), s_idx // L]
+    m = torch.arange(M).view(1, 1, M, 1, 1)
+    base = frame * S + torch.as_tensor(starts)[lvl]
+    a = att.float()
+    keys, wts = [], []
+    for c in range(4):
+        yi, xi = y0 + (c >> 1), x0 + (c & 1)
+        ok = live & (yi >= 0) & (yi < hs) & (xi >= 0) & (xi < ws)
+        keys.append(torch.where(ok, (base + yi * ws + xi) * M + m, n_rows))
+        cw = (dy if c >> 1 else 1 - dy) * (dx if c & 1 else 1 - dx)
+        wts.append(torch.where(ok, a * cw, 0.0))
+    # the kernel's entry order: (m, s, n, q, p, c), a (head, stage)'s together
+    perm = (2, 3, 0, 1, 4, 5)
+    return (torch.stack(keys, -1).permute(perm).reshape(-1),
+            torch.stack(wts, -1).permute(perm).reshape(-1), (dx, dy, live, ws, hs))
 
 
-def msda_temporal_bwd_windowed_plain(value, spatial_shapes, loc, att, grad_out,
-                                     rule=("all",), plan=None):
-    """Plain K5 as the windowed kernel sums it (`_bwd_windowed_plain`), at
-    `plan` (default `bwd_plan`). Returns (grad_value, grad_loc, grad_att,
-    adds)."""
+def _radix_sort_mirror(keys, n_rows, tile_order=None):
+    """Step 2 on the CPU as the kernels run it: per pass the tiles' digit
+    histograms, their exclusive scan digit-major, then each tile (in
+    `tile_order`, any permutation of the tiles) places its entries at its
+    digit's offset plus their rank among its entries of that digit in entry
+    order. Returns (sorted keys, entry indices)."""
+    n = keys.numel()
+    tile = _bwd_define("BWD_TILE")
+    tiles = -(-n // tile)
+    passes, dbits = bwd_sort_plan(n_rows)
+    bins = 1 << dbits
+    vals = torch.arange(n)
+    order = list(range(tiles)) if tile_order is None else list(tile_order)
+    if sorted(order) != list(range(tiles)):
+        raise ValueError("tile_order must be a permutation of the tiles")
+    for p in range(passes if n else 0):
+        digit = (keys >> (p * dbits)) & (bins - 1)
+        hist = torch.zeros(bins, tiles, dtype=torch.long)
+        hist.index_put_((digit, torch.arange(n) // tile), torch.ones(n, dtype=torch.long),
+                        accumulate=True)
+        flat = hist.reshape(-1)
+        offs = (torch.cumsum(flat, 0) - flat).reshape(bins, tiles)
+        k_out, v_out = torch.empty_like(keys), torch.empty_like(vals)
+        for t in order:
+            d = digit[t * tile:(t + 1) * tile]
+            onehot = torch.nn.functional.one_hot(d, bins)
+            rank = (torch.cumsum(onehot, 0) - onehot).gather(1, d[:, None])[:, 0]
+            at = offs[d, t] + rank
+            k_out[at] = keys[t * tile:(t + 1) * tile]
+            v_out[at] = vals[t * tile:(t + 1) * tile]
+        keys, vals = k_out, v_out
+    return keys, vals
+
+
+def _gather_mirror(value_rows, g_rows, wts, keys, order, n_rows, plan, row_order=None,
+                   chunk=4096):
+    """Steps 3-4 on the CPU: each value row's segment of the sorted entries,
+    entry j of a segment to group j % gpr (`bwd_groups`), each group's
+    w * g summed in entry order, the groups added by the kernel's butterfly;
+    each entry's dot summed over its lanes' chunks, then over the lanes by
+    `group_sum`'s butterfly. `g_rows` (n, D) is the output-gradient row of
+    every entry. `row_order` runs the rows in another order (`chunk` rows at
+    a time). Returns (grad_value (n_rows, D) f32, dots (n,) f32, zero where
+    the key is n_rows)."""
+    D = value_rows.shape[1]
+    groups = bwd_groups(plan, keys.numel(), n_rows)
+    live_keys = keys < n_rows
+    begin = torch.zeros(n_rows, dtype=torch.long)
+    end = torch.zeros(n_rows, dtype=torch.long)
+    kl = keys[live_keys]
+    if kl.numel():
+        pos = torch.arange(keys.numel())[live_keys]
+        first = torch.ones_like(kl, dtype=torch.bool)
+        first[1:] = kl[1:] != kl[:-1]
+        last = torch.ones_like(kl, dtype=torch.bool)
+        last[:-1] = kl[1:] != kl[:-1]
+        begin[kl[first]] = pos[first]
+        end[kl[last]] = pos[last] + 1
+    rows = torch.arange(n_rows) if row_order is None else torch.as_tensor(row_order)
+    rows = rows[end[rows] > begin[rows]]                 # the others stay zero
+    grad = torch.zeros(n_rows, D, dtype=torch.float32)
+    dots = torch.zeros(keys.numel(), dtype=torch.float32)
+    lane_chans = [[c for k in range(plan.per)
+                   for c in range((sub + k * plan.lanes) * plan.cw,
+                                  min((sub + k * plan.lanes + 1) * plan.cw, D))]
+                  for sub in range(plan.lanes)]
+    j = torch.arange(groups)
+    for r0 in range(0, rows.numel(), chunk):
+        rs = rows[r0:r0 + chunk]
+        b, e = begin[rs], end[rs]
+        v = value_rows[rs].float()[:, None, :]
+        acc = torch.zeros(rs.numel(), groups, D, dtype=torch.float32)
+        for k in range(int(((e - b + groups - 1) // groups).max())):
+            i = b[:, None] + j + k * groups                         # (rows, groups)
+            live = i < e[:, None]
+            ids = order[torch.where(live, i, 0)]
+            w = torch.where(live, wts[ids], 0.0)
+            gr = torch.where(live[..., None], g_rows[ids].float(), 0.0)
+            acc = acc + w[..., None] * gr
+            parts = [torch.zeros(ids.shape, dtype=torch.float32) for _ in range(plan.lanes)]
+            for sub, chans in enumerate(lane_chans):
+                for c in chans:
+                    parts[sub] = parts[sub] + gr[..., c] * v[..., c]
+            o = plan.lanes >> 1                   # group_sum: the widest step first
+            while o:
+                parts = [parts[t] + parts[t ^ o] for t in range(plan.lanes)]
+                o >>= 1
+            dots[ids[live]] = parts[0][live]
+        o = 1
+        while o < groups:
+            acc = acc + acc[:, j ^ o]
+            o <<= 1
+        grad[rs] = acc[:, 0]
+    return grad, dots
+
+
+def msda_bwd_mirror(value, spatial_shapes, loc, att, grad_out, frames=None, plan=None,
+                    tile_order=None, row_order=None):
+    """K5 and K7 on the CPU in the kernels' order (csrc/msda_bwd.cuh): the
+    corners' entries, the stable radix sort by value row (tiles in
+    `tile_order`), one warp's sums a row (rows in `row_order`) and the taps'
+    gradients from their dots. value (F, S, M, D); loc (N, Q, M, Lx, P, 2);
+    frames (N, Lx / L) the value frame of each frame slot (default: frame n
+    for the queries of frame n, one slot: K7). Returns (grad_value in the
+    value's dtype, grad_loc f32, grad_att f32), f32 arithmetic."""
     spatial_shapes = normalize_shapes(spatial_shapes)
-    T = value.shape[0]
-    plan = plan or bwd_plan(spatial_shapes, value.dtype, value.shape[3], loc.shape[4])
-    table = torch.as_tensor(temporal_frame_table(rule, T), dtype=torch.long,
-                            device=value.device)
-    frames = torch.cat([torch.arange(T, device=value.device)[:, None], table], 1)
-    return _bwd_windowed_plain(value, spatial_shapes, loc, att, grad_out, frames, plan, None)
-
-
-def msda_rows_bwd_windowed_plain(value, spatial_shapes, loc, att, grad_out, plan=None,
-                                 query_grid=None):
-    """Plain K7 as the windowed kernel sums it, in raster blocks or in 2-D
-    tiles of `query_grid` (H, W). Returns (grad_value, grad_loc, grad_att,
-    adds)."""
-    spatial_shapes = normalize_shapes(spatial_shapes)
-    plan = plan or bwd_plan(spatial_shapes, value.dtype, value.shape[3], loc.shape[4],
-                            query_grid)
-    frames = torch.arange(value.shape[0], device=value.device)[:, None]
-    return _bwd_windowed_plain(value, spatial_shapes, loc, att, grad_out, frames, plan,
-                               query_grid)
+    F, S, M, D = value.shape
+    N, Q, _, Lx, P, _ = loc.shape
+    if frames is None:
+        frames = torch.arange(N)[:, None]
+    plan = plan or taps_plan(D, value.dtype, True)
+    n_rows = F * S * M
+    keys, wts, (dx, dy, live, ws, hs) = _tap_entries(
+        spatial_shapes, loc, att, torch.as_tensor(frames), S, M, n_rows)
+    skeys, order = _radix_sort_mirror(keys, n_rows, tile_order)
+    g_idx = ((torch.arange(N * Q).view(1, 1, N * Q, 1, 1) * M
+              + torch.arange(M).view(M, 1, 1, 1, 1)).expand(M, Lx, N * Q, P, 4).reshape(-1))
+    g_rows = grad_out.float().reshape(N * Q * M, D)[g_idx]
+    grad, dots = _gather_mirror(value.float().reshape(n_rows, D), g_rows, wts, skeys, order,
+                                n_rows, plan, row_order)
+    dots = dots.reshape(M, Lx, N, Q, P, 4).permute(2, 3, 0, 1, 4, 5)
+    tx = torch.zeros(att.shape)
+    ty, tz = torch.zeros(att.shape), torch.zeros(att.shape)
+    for c in range(4):
+        gv = dots[..., c]
+        wy = dy if c >> 1 else 1 - dy
+        wx = dx if c & 1 else 1 - dx
+        tx = tx + wy * wx * gv
+        ty = ty + (wy if c & 1 else -wy) * gv
+        tz = tz + (wx if c >> 1 else -wx) * gv
+    a = att.float()
+    g_att = torch.where(live, tx, 0.0)
+    g_loc = torch.stack([torch.where(live, a * ty * ws, 0.0),
+                         torch.where(live, a * tz * hs, 0.0)], -1)
+    return grad.reshape(value.shape).to(value.dtype), g_loc, g_att
 
 
 # ---------------------------------------------------------------------------
@@ -796,15 +835,6 @@ def _launch_temporal(value, spatial_shapes, loc, att, rule):
     return out
 
 
-def _grad_buffers(value, loc, att, sliced=False):
-    """f32 gradient buffers of a backward kernel; the value's is zeroed for
-    the atomic adds, and so are loc's and att's where the channels take
-    several slices (each adds its share)."""
-    rows = torch.zeros_like if sliced else torch.empty_like
-    return (torch.zeros(value.shape, dtype=torch.float32, device=value.device),
-            rows(loc), rows(att))
-
-
 class MSDATemporalFunction(torch.autograd.Function):
     """K3 forward, K5 backward."""
 
@@ -837,29 +867,38 @@ msda_temporal.launches = 0
 msda_temporal.plain_calls = 0
 
 
-def bwd_stage_groups(n_blocks: int, n_stages: int) -> int:
-    """Groups of stages (levels of frame slots) a K5/K7 launch splits over
-    blocks: enough that `n_blocks` blocks a group reach `BWD_MIN_BLOCKS`,
-    at most one a stage. The stages are independent; splitting them costs
-    each extra block the staging of its queries' output gradient."""
-    return max(1, min(n_stages, -(-BWD_MIN_BLOCKS // max(n_blocks, 1))))
+def _aligned16(t):
+    """`t`, or a copy of it on 16 bytes where it lies off them."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check_bwd_plan(name, plan, n_points, dtype):
-    vec = 16 // (torch.finfo(dtype).bits // 8)
-    smem = bwd_smem_bytes(plan.qb, n_points, plan.cap, plan.pitch, vec)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"{name}: plan {plan} needs {smem} bytes of shared memory, more "
-                         f"than {SMEM_PER_BLOCK}")
+def _launch_bwd(name, value, spatial_shapes, loc, att, grad_out, dims, tail=()):
+    """One K5 or K7 launch (csrc/msda_bwd.cuh `bwd_run`) into new buffers:
+    (grad_value in the value's dtype, grad_loc f32, grad_att f32)."""
+    value, grad_out = _aligned16(value), _aligned16(grad_out)
+    if loc.data_ptr() % 8:          # the kernels read a tap's (x, y) as one float2
+        loc = loc.clone()
+    F, S, M, D = value.shape
+    plan = taps_plan(D, value.dtype, True)
+    gpr = bwd_groups(plan, 4 * att.numel(), F * S * M)
+    sc = bwd_scratch(4 * att.numel(), F * S * M, value.device)
+    g_value = torch.empty_like(value)
+    g_loc, g_att = torch.empty_like(loc), torch.empty_like(att)
+    fn = _function(f"{name}_{_DTYPES[value.dtype]}", 18, 10)
+    with torch.cuda.device(value.device):
+        _build.check(fn(value.data_ptr(), loc.data_ptr(), att.data_ptr(), grad_out.data_ptr(),
+                        g_value.data_ptr(), g_loc.data_ptr(), g_att.data_ptr(),
+                        *_scratch_ptrs(sc), sc["wts"].data_ptr(), sc["dots"].data_ptr(),
+                        sc["begin"].data_ptr(), sc["end"].data_ptr(), sc["hist"].data_ptr(),
+                        sc["sums"].data_ptr(), sc["top"].data_ptr(), *dims, plan.lanes,
+                        plan.per, int(plan.vec), gpr, _levels(spatial_shapes),
+                        len(spatial_shapes), *tail, _stream(value)), name)
+    return g_value, g_loc, g_att
 
 
-def launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule, out, plan=None,
-                        adds=None):
-    """One K5 launch into `out` = (grad_value f32, zeroed; grad_loc; grad_att,
-    zeroed where the plan cuts D into slices) at `plan` (default `bwd_plan`).
-    `adds`, a zeroed (2,) int64 tensor on the device, receives the kernel's
-    counts of f32 values added to grad_value (by flushes, past the
-    capacity). Counts no launch."""
+def launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule=("all",)):
+    """One K5 launch: (grad_value in the value's dtype, grad_loc f32,
+    grad_att f32). Counts no launch."""
     L = len(spatial_shapes)
     W = rule_window(rule, value.shape[0])
     _check_geometry("msda_temporal_bwd", spatial_shapes, value.shape[3], W, rule)
@@ -868,19 +907,9 @@ def launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule, out, pl
     _check_cuda("msda_temporal_bwd", value.device, (grad_out,), value.dtype)
     if tuple(grad_out.shape) != (T, Q, M * D):
         raise ValueError("msda_temporal_bwd: inconsistent shapes")
-    plan = plan or bwd_plan(spatial_shapes, value.dtype, D, P)
-    _check_bwd_plan("msda_temporal_bwd", plan, P, value.dtype)
-    g_value, g_loc, g_att = out
-    groups = bwd_stage_groups(T * M * -(-Q // plan.qb) * -(-D // plan.slice), (1 + W) * L)
-    fn = _function(f"msda_temporal_bwd_{_DTYPES[value.dtype]}", 8, 12)
     rule_all, offsets = _rule_args(rule)
-    with torch.cuda.device(value.device):
-        _build.check(fn(value.data_ptr(), loc.data_ptr(), att.data_ptr(),
-                        grad_out.data_ptr(), g_value.data_ptr(), g_loc.data_ptr(),
-                        g_att.data_ptr(), None if adds is None else adds.data_ptr(),
-                        T, Q, S, M, D, P, plan.qb, plan.cap, plan.slice, plan.pitch,
-                        plan.lanes, groups, _levels(spatial_shapes), L, rule_all, offsets, W,
-                        _stream(value)), "msda_temporal_bwd")
+    return _launch_bwd("msda_temporal_bwd", value, spatial_shapes, loc, att, grad_out,
+                       (T, Q, S, M, D, P), (rule_all, offsets, W))
 
 
 def msda_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule=("all",)):
@@ -891,11 +920,9 @@ def msda_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule=("all",)):
         msda_temporal_bwd.plain_calls += 1
         return msda_temporal_bwd_plain(value, spatial_shapes, loc, att, grad_out,
                                        rule)
-    plan = bwd_plan(spatial_shapes, value.dtype, value.shape[3], loc.shape[4])
-    out = _grad_buffers(value, loc, att, plan.slice < value.shape[3])
-    launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule, out, plan)
+    out = launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule)
     msda_temporal_bwd.launches += 1
-    return out[0].to(value.dtype), out[1], out[2]
+    return out
 
 
 msda_temporal_bwd.launches = 0
@@ -979,40 +1006,34 @@ class MSDARowsFunction(torch.autograd.Function):
     """K6 forward, K7 backward."""
 
     @staticmethod
-    def forward(ctx, value, loc, att, spatial_shapes, query_grid):
-        ctx.spatial_shapes, ctx.query_grid = spatial_shapes, query_grid
+    def forward(ctx, value, loc, att, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
         ctx.save_for_backward(value, loc, att)
         return _launch_rows(value, spatial_shapes, loc, att)
 
     @staticmethod
     def backward(ctx, grad_out):
         value, loc, att = ctx.saved_tensors
-        grads = msda_rows_bwd(value, ctx.spatial_shapes, loc, att,
-                              grad_out.contiguous(), ctx.query_grid)
-        return (*(g if n else None for g, n in zip(grads, ctx.needs_input_grad)),
-                None, None)
+        grads = msda_rows_bwd(value, ctx.spatial_shapes, loc, att, grad_out.contiguous())
+        return (*(g if n else None for g, n in zip(grads, ctx.needs_input_grad)), None)
 
 
-def msda_rows(value, spatial_shapes, loc, att, query_grid=None):
-    """K6 (see module docstring). Returns (B, Q, M*D) in the value's dtype.
-    `query_grid` (H, W) is passed to the backward (K7's 2-D tiles)."""
+def msda_rows(value, spatial_shapes, loc, att):
+    """K6 (see module docstring). Returns (B, Q, M*D) in the value's dtype."""
     spatial_shapes = normalize_shapes(spatial_shapes)
     if not value.is_cuda:
         msda_rows.plain_calls += 1
         return ms_deform_attn(value, spatial_shapes, loc, att)
-    return MSDARowsFunction.apply(value, loc, att, spatial_shapes, query_grid)
+    return MSDARowsFunction.apply(value, loc, att, spatial_shapes)
 
 
 msda_rows.launches = 0
 msda_rows.plain_calls = 0
 
 
-def launch_rows_bwd(value, spatial_shapes, loc, att, grad_out, out, plan=None,
-                    query_grid=None, adds=None):
-    """One K7 launch into `out` = (grad_value f32, zeroed; grad_loc; grad_att,
-    zeroed where the plan cuts D into slices) at `plan` (default `bwd_plan`),
-    in 2-D tiles of `query_grid` (H, W) where given, else in raster blocks;
-    `adds` as in `launch_temporal_bwd`. Counts no launch."""
+def launch_rows_bwd(value, spatial_shapes, loc, att, grad_out):
+    """One K7 launch: (grad_value in the value's dtype, grad_loc f32,
+    grad_att f32). Counts no launch."""
     L = len(spatial_shapes)
     if L > _MAX_LEVELS:
         raise ValueError(f"msda_rows_bwd: at most {_MAX_LEVELS} levels")
@@ -1021,42 +1042,20 @@ def launch_rows_bwd(value, spatial_shapes, loc, att, grad_out, out, plan=None,
     _check_cuda("msda_rows_bwd", value.device, (grad_out,), value.dtype)
     if tuple(grad_out.shape) != (B, Q, M * D):
         raise ValueError("msda_rows_bwd: inconsistent shapes")
-    if query_grid is not None and query_grid[0] * query_grid[1] != Q:
-        raise ValueError(f"msda_rows_bwd: query grid {tuple(query_grid)} for {Q} queries")
-    plan = plan or bwd_plan(spatial_shapes, value.dtype, D, P, query_grid)
-    _check_bwd_plan("msda_rows_bwd", plan, P, value.dtype)
-    if (plan.tile is None) != (query_grid is None):
-        raise ValueError("msda_rows_bwd: a plan with tiles needs a query grid, and one "
-                         "without tiles none")
-    gh, gw = query_grid or (0, 0)
-    th, tw = plan.tile if query_grid else (0, 0)
-    n_tiles = -(-gh // th) * -(-gw // tw) if query_grid else -(-Q // plan.qb)
-    groups = bwd_stage_groups(B * M * n_tiles * -(-D // plan.slice), L)
-    g_value, g_loc, g_att = out
-    fn = _function(f"msda_rows_bwd_{_DTYPES[value.dtype]}", 8, 16)
-    with torch.cuda.device(value.device):
-        _build.check(fn(value.data_ptr(), loc.data_ptr(), att.data_ptr(),
-                        grad_out.data_ptr(), g_value.data_ptr(), g_loc.data_ptr(),
-                        g_att.data_ptr(), None if adds is None else adds.data_ptr(),
-                        B, Q, S, M, D, P, plan.qb, gh, gw, th, tw, plan.cap, plan.slice,
-                        plan.pitch, plan.lanes, groups, _levels(spatial_shapes), L,
-                        _stream(value)),
-                     "msda_rows_bwd")
+    return _launch_bwd("msda_rows_bwd", value, spatial_shapes, loc, att, grad_out,
+                       (B, Q, S, M, D, P))
 
 
-def msda_rows_bwd(value, spatial_shapes, loc, att, grad_out, query_grid=None):
-    """K7 (see module docstring). `query_grid` (H, W): the queries are an
-    H x W pixel grid (the DCN route), taken in 2-D tiles. Returns
-    (grad_value in the value's dtype, grad_loc f32, grad_att f32)."""
+def msda_rows_bwd(value, spatial_shapes, loc, att, grad_out):
+    """K7 (see module docstring). Returns (grad_value in the value's dtype,
+    grad_loc f32, grad_att f32)."""
     spatial_shapes = normalize_shapes(spatial_shapes)
     if not value.is_cuda:
         msda_rows_bwd.plain_calls += 1
         return msda_rows_bwd_plain(value, spatial_shapes, loc, att, grad_out)
-    plan = bwd_plan(spatial_shapes, value.dtype, value.shape[3], loc.shape[4], query_grid)
-    out = _grad_buffers(value, loc, att, plan.slice < value.shape[3])
-    launch_rows_bwd(value, spatial_shapes, loc, att, grad_out, out, plan, query_grid)
+    out = launch_rows_bwd(value, spatial_shapes, loc, att, grad_out)
     msda_rows_bwd.launches += 1
-    return out[0].to(value.dtype), out[1], out[2]
+    return out
 
 
 msda_rows_bwd.launches = 0
@@ -1253,19 +1252,20 @@ def msda_taps_bwd_plain(value, spatial_shapes, idx, wt, grad_out):
     return grad_v.to(value.dtype).contiguous(), torch.stack(grad_wt, 3)
 
 
-# K9's launch (csrc/ms_deform_attn_taps.cu, `msda_taps_bwd_kernel`): a warp
-# a (b, mg, q), its entries over 32 / lanes groups of `lanes` lanes, each
-# lane `per` chunks of `cw` channels (16 bytes where `vec`, else one)
+# The gather of K5, K7 and K9 (csrc/msda_bwd.cuh `bwd_gather_kernel`): a
+# value row `bwd_groups` groups of `lanes` lanes, each lane `per` chunks of
+# `cw` channels (16 bytes where `vec`, else one); a warp 32 / (lanes * gpr)
+# rows
 TapsPlan = collections.namedtuple("TapsPlan", "vec cw chunks lanes per")
 
 
 @functools.lru_cache(maxsize=None)
 def taps_plan(head_dim: int, dtype, aligned: bool) -> TapsPlan:
-    """The split of a K9 entry's `head_dim` channels over a lane group:
-    chunks of 16 bytes where the value, g and grad_value are `aligned` to
-    16 bytes and D fills whole chunks, else of one channel; `per` chunks a
-    lane (1, 2 or `K9_MAX_PER`: the fewest that put every chunk in one
-    warp), `lanes` the least power of two with lanes * per >= chunks."""
+    """The gather's split of a value row's `head_dim` channels over a lane
+    group: chunks of 16 bytes where the value and g are `aligned` to 16
+    bytes and D fills whole chunks, else of one channel; `per` chunks a lane
+    (1, 2 or `BWD_MAX_PER`: the fewest that put every chunk in one warp),
+    `lanes` the least power of two with lanes * per >= chunks."""
     vn = 16 // (torch.finfo(dtype).bits // 8)
     vec = bool(aligned) and head_dim % vn == 0
     cw = vn if vec else 1
@@ -1273,7 +1273,7 @@ def taps_plan(head_dim: int, dtype, aligned: bool) -> TapsPlan:
     per = 1
     while per * 32 < chunks:
         per *= 2
-    if per > _build.source_define("ms_deform_attn_taps", "K9_MAX_PER"):
+    if per > _bwd_define("BWD_MAX_PER"):
         raise ValueError(f"taps_plan: head dim {head_dim} needs {chunks} chunks, more "
                          f"than a warp holds")
     lanes = 1
@@ -1282,71 +1282,59 @@ def taps_plan(head_dim: int, dtype, aligned: bool) -> TapsPlan:
     return TapsPlan(vec, cw, chunks, lanes, per)
 
 
-def taps_lanes(plan: TapsPlan, n_entries: int, head_dim: int, flush: bool = False):
-    """K9's work split inside one warp, in the kernel's order: yields
-    (entry, group, lane of the group, channels) for every chunk a lane
-    loads (or, with `flush`, every piece of the f32 row it adds to),
-    `channels` a range of the head's channels. Entries come in runs of 32;
-    within a run group `grp` takes entries grp, grp + 32 / lanes, ...
-    The flush splits
-    chunks wider than 4 channels (bf16's 8) into pieces of 4, piece p to
-    lane p % lanes."""
-    width, per = plan.cw, plan.per
-    if flush and plan.cw > 4:
-        width, per = 4, plan.per * plan.cw // 4
-    tpw = 32 // plan.lanes
-    for base in range(0, n_entries, 32):
-        cnt = min(32, n_entries - base)
-        for j in range(cnt):
-            for sub in range(plan.lanes):
-                for k in range(per):
-                    c0 = (sub + k * plan.lanes) * width
-                    if c0 < head_dim:
-                        yield base + j, j % tpw, sub, range(c0, min(c0 + width, head_dim))
+def taps_lanes(plan: TapsPlan, n_entries: int, head_dim: int, flush: bool = False,
+               groups: int = None):
+    """The gather's work split over one row's lanes, in the kernel's order:
+    yields (entry, group, lane of the group, channels) for every chunk a
+    lane loads of the row's `n_entries` entries (entry j to group
+    j % `groups`, by default as many as fill a warp), or, with `flush`,
+    every chunk of the row group 0 stores (entry None); `channels` a range
+    of the head's channels."""
+    groups = groups or 32 // plan.lanes
+
+    def chunks(sub):
+        for k in range(plan.per):
+            c0 = (sub + k * plan.lanes) * plan.cw
+            if c0 < head_dim:
+                yield range(c0, min(c0 + plan.cw, head_dim))
+
+    if flush:
+        for sub in range(plan.lanes):
+            for chans in chunks(sub):
+                yield None, 0, sub, chans
+        return
+    for e in range(n_entries):
+        for sub in range(plan.lanes):
+            for chans in chunks(sub):
+                yield e, e % groups, sub, chans
 
 
-def msda_taps_bwd_mirror(value, spatial_shapes, idx, wt, grad_out, plan=None):
-    """K9's index arithmetic on the CPU: each warp's item (b, mg, q) decoded
-    as the kernel decodes it, each entry resolved to a value row (or
-    dropped), the lanes' chunks of `taps_lanes` summed per group for
-    grad_wt, its flush pieces added onto grad_value. Returns what
-    `msda_taps_bwd_plain` returns, in f32 arithmetic."""
+def msda_taps_bwd_mirror(value, spatial_shapes, idx, wt, grad_out, plan=None,
+                         tile_order=None, row_order=None):
+    """K9 on the CPU in the kernels' order (csrc/msda_bwd.cuh): each entry's
+    key (its value row, or n_rows outside its level), the stable radix sort
+    (tiles in `tile_order`), one warp's sums a row (rows in `row_order`).
+    Returns what `msda_taps_bwd_plain` returns, in f32 arithmetic."""
     spatial_shapes = normalize_shapes(spatial_shapes)
     B, S, M, D = value.shape
     _, MG, Q, L, K4 = idx.shape
     G = MG // M
     plan = plan or taps_plan(D, value.dtype, True)
-    items = torch.arange(B * MG * Q)
-    q, mg, b = items % Q, (items // Q) % MG, items // Q // MG
-    m = mg // G
-    n = L * K4
-    ix = idx.reshape(-1, n).long()
-    w = wt.reshape(-1, n).float()
-    g = grad_out.float().reshape(B, Q, MG, D)[b, q, mg]                # (items, D)
-    v = value.float()
-    grad_v = torch.zeros((B, S, M, D), dtype=torch.float32)
-    starts = level_start_index(spatial_shapes)
-    sizes = [h * w_ for h, w_ in spatial_shapes]
-    dots = torch.zeros((B * MG * Q, n, plan.lanes), dtype=torch.float32)
-
-    def row(e):
-        i = ix[:, e]
-        live = (i >= 0) & (i < sizes[e // K4])
-        return live, torch.where(live, starts[e // K4] + i, torch.zeros_like(i))
-
-    for e, _grp, sub, chans in taps_lanes(plan, n, D):
-        live, r = row(e)
-        cs = torch.tensor(list(chans))
-        vals = v[b[:, None], r[:, None], m[:, None], cs] * live[:, None]
-        dots[:, e, sub] += (vals * g[:, cs]).sum(-1)
-    for e, _grp, _sub, chans in taps_lanes(plan, n, D, flush=True):
-        live, r = row(e)
-        cs = torch.tensor(list(chans))
-        add = live & (w[:, e] != 0)
-        grad_v.index_put_((b[add][:, None], r[add][:, None], m[add][:, None], cs),
-                          w[add, e][:, None] * g[add][:, cs], accumulate=True)
-    grad_wt = dots.sum(-1).reshape(idx.shape)
-    return grad_v.to(value.dtype), grad_wt
+    n_rows = B * S * M
+    e = torch.arange(idx.numel())
+    lvl = e // K4 % L
+    item = e // (K4 * L)
+    mg, b = item // Q % MG, item // Q // MG
+    sizes = torch.tensor([h * w for h, w in spatial_shapes])[lvl]
+    starts = torch.as_tensor(level_start_index(spatial_shapes))[lvl]
+    i = idx.reshape(-1).long()
+    ok = (i >= 0) & (i < sizes)
+    keys = torch.where(ok, (b * S + starts + i) * M + mg // G, n_rows)
+    skeys, order = _radix_sort_mirror(keys, n_rows, tile_order)
+    g_rows = grad_out.float().reshape(B * Q * MG, D)[(b * Q + item % Q) * MG + mg]
+    grad, dots = _gather_mirror(value.float().reshape(n_rows, D), g_rows,
+                                wt.reshape(-1).float(), skeys, order, n_rows, plan, row_order)
+    return grad.reshape(value.shape).to(value.dtype), dots.reshape(idx.shape)
 
 
 def msda_taps_bwd(value, spatial_shapes, idx, wt, grad_out):
@@ -1370,18 +1358,22 @@ def msda_taps_bwd(value, spatial_shapes, idx, wt, grad_out):
             or tuple(wt.shape) != tuple(idx.shape)
             or tuple(grad_out.shape) != (B, Q, MG * D)):
         raise ValueError("msda_taps_bwd: inconsistent shapes")
-    g_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+    value, grad_out = _aligned16(value), _aligned16(grad_out)
+    g_value = torch.empty_like(value)
     g_wt = torch.empty_like(wt)
-    plan = taps_plan(D, value.dtype, all(t.data_ptr() % 16 == 0
-                                         for t in (value, grad_out, g_value)))
-    fn = _function(f"msda_taps_bwd_{_DTYPES[value.dtype]}", 6, 10)
+    plan = taps_plan(D, value.dtype, True)
+    gpr = bwd_groups(plan, idx.numel(), B * S * M)
+    sc = bwd_scratch(idx.numel(), B * S * M, value.device, weights=False)
+    fn = _function(f"msda_taps_bwd_{_DTYPES[value.dtype]}", 15, 11)
     with torch.cuda.device(value.device):
         _build.check(fn(value.data_ptr(), idx.data_ptr(), wt.data_ptr(),
                         grad_out.data_ptr(), g_value.data_ptr(), g_wt.data_ptr(),
-                        B, Q, S, M, MG // M, D, K4, plan.lanes, plan.per, int(plan.vec),
+                        *_scratch_ptrs(sc), sc["begin"].data_ptr(), sc["end"].data_ptr(),
+                        sc["hist"].data_ptr(), sc["sums"].data_ptr(), sc["top"].data_ptr(),
+                        B, Q, S, M, MG // M, D, K4, plan.lanes, plan.per, int(plan.vec), gpr,
                         _levels(spatial_shapes), L, _stream(value)), "msda_taps_bwd")
     msda_taps_bwd.launches += 1
-    return g_value.to(value.dtype), g_wt
+    return g_value, g_wt
 
 
 msda_taps_bwd.launches = 0

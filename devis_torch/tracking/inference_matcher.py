@@ -173,3 +173,14 @@ def linear_sum_assignment(cost: np.ndarray):
     order = np.argsort(rows)
     return rows[order], np.arange(m)[order]
 
+
+def build_inference_matcher(cfg) -> HungarianInferenceMatcher:
+    """The clip-stitch matcher of `cfg.TEST.CLIP_TRACKING` (reference
+    `build_inference_matcher`)."""
+    ct = cfg.TEST.CLIP_TRACKING
+    return HungarianInferenceMatcher(
+        cost_mask_iou=ct.MASK_COST, cost_class=ct.CLASS_COST, score_cost=ct.SCORE_COST,
+        center_distance_cost=ct.CENTER_COST,
+        overlap_window=cfg.MODEL.DEVIS.NUM_FRAMES - ct.STRIDE,
+        use_binary_mask_iou=ct.USE_BINARY_MASK_IOU,
+        use_frame_average_iou=ct.USE_FRAME_AVERAGE_IOU)

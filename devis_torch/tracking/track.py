@@ -88,6 +88,9 @@ class Track:
         self.valid_frames: List[bool] = [True] * track_length
         self.mask_id: Optional[int] = None
         self.last_t = 0
+        # (video track id, clip track id) of every stitch: the track
+        # renders' matches.txt (reference tracker.py:27,105)
+        self.matching_ids_record: List = []
 
     def __len__(self):
         return self.length
@@ -151,6 +154,7 @@ class Track:
         """Stitch a matched clip track: overlap frames keep the
         higher-scoring detection, then the new frames are appended
         (reference L103-124)."""
+        self.matching_ids_record.append((self._id, clip_track.get_id()))
         overlap_positions = range(
             self.last_t - t_window - clip_track.start_idx, self.last_t)
         for other_pos, self_pos in enumerate(overlap_positions):
@@ -207,6 +211,11 @@ class Track:
         if policy == "median":
             return float(np.median(scores))
         raise ValueError(f"unknown score policy {policy}")
+
+    def mean_score(self) -> float:
+        """Mean of the valid frames' scores (reference L59-63; the per-clip
+        renders' folder names)."""
+        return self.compute_final_score("mean")
 
     def compute_final_category(self, policy: str) -> int:
         if policy == "most_common":

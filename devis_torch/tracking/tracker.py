@@ -14,8 +14,10 @@ probabilities, and the full-resolution resize and RLE run on a background
 pool, only for frames that survive into a track. Loading, dispatch, fetch
 and stitching overlap as pipeline stages (`ClipPipeline`).
 
-Rendering tracks (`TEST.VIZ`) is not ported: it raises (ROADMAP.md queue A
-item 5).
+`TEST.VIZ` renders tracks (`util/visualization.py`): each clip's tracks
+after the score filters (`SAVE_CLIP_VIZ`), and the final tracks of a video,
+merged on its frames (`SAVE_MERGED_TRACKS`) or a folder a track, under
+`OUT_VIZ_PATH`.
 """
 from __future__ import annotations
 
@@ -57,12 +59,9 @@ class Tracker:
         self.num_frames = num_frames
         self.overlap_window = overlap_window
         # TEST.VIZ (reference models/__init__.py:96-100)
-        viz = {**dict(out_viz_path="", save_clip_viz=False, merge_tracks=False),
-               **(visualization_cfg or {})}
-        if viz["out_viz_path"] or viz["save_clip_viz"]:
-            raise NotImplementedError(
-                "rendering tracks (TEST.VIZ) is not ported: ROADMAP.md queue A "
-                "item 5 (the visualizers)")
+        self.viz = SimpleNamespace(**{
+            **dict(out_viz_path="", save_clip_viz=False, merge_tracks=False),
+            **(visualization_cfg or {})})
         # cumulative timed-path split (result-wait vs stitch) for benchmarks
         self.wait_time = 0.0
         self.stitch_time = 0.0
@@ -153,6 +152,9 @@ class Tracker:
                 track.update(scores[:, i], [cat] * clip_length, boxes[:, i],
                              processed[mid], centers[:, i], mid)
 
+            if self.viz.save_clip_viz and self.viz.out_viz_path:
+                self.visualize_clip_results(video, clip_tracks, clip_idx, clip_length)
+
             t1 = time.time()
             if video_tracks is None:
                 # First clip seeds the video tracks (reference L350-363).
@@ -206,10 +208,41 @@ class Tracker:
         for tr in video_tracks:
             tr.encode_all_masks()
 
+        if self.viz.out_viz_path:
+            # reference tracker.py:450-458: merged overlays, or a folder a
+            # track (with matches.txt), per video
+            from ..util.visualization import (visualize_results_merged,
+                                              visualize_tracks_independently)
+            render = (visualize_results_merged if self.viz.merge_tracks
+                      else visualize_tracks_independently)
+            render(video, video_tracks, self.cfg.final_class_policy,
+                   self.cfg.final_score_policy, self.viz.out_viz_path,
+                   class_names=getattr(video, "cat_names", None))
+
         return [tr.get_formatted_result(video.video_id,
                                         self.cfg.final_class_policy,
                                         self.cfg.final_score_policy)
                 for tr in video_tracks]
+
+    def visualize_clip_results(self, video, clip_tracks, clip_idx: int, clip_length: int):
+        """Each clip's surviving tracks, a folder a track (reference
+        tracker.py:262-279): copy, apply the score filters, encode the
+        masks, draw."""
+        import copy
+
+        from ..util.visualization import visualize_clips_after_processing
+        shows = copy.deepcopy(clip_tracks)
+        if self.cfg.track_min_detection_score != 0:
+            for tr in shows:
+                tr.filter_frame_detections(self.cfg.track_min_detection_score)
+        shows = [tr for tr in shows if tr.valid(min_detections=1)]
+        if self.cfg.track_min_score != 0:
+            shows = [tr for tr in shows if tr.mean_score() > self.cfg.track_min_score]
+        for tr in shows:
+            tr.encode_all_masks()
+        visualize_clips_after_processing(
+            clip_idx, video, video.video_clips[clip_idx][:clip_length], shows,
+            out_path=self.viz.out_viz_path, class_names=getattr(video, "cat_names", None))
 
     # -- per-class stitching with kill/spawn (reference L376-427) -----------
     def _per_class_stitch(self, video, video_tracks, clip_tracks, cats_dict,

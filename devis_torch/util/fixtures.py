@@ -14,12 +14,16 @@ YouTube-VIS 2019 (`write_vis_tree`): `Youtube_VIS-2019/{train,valid}/
 JPEGImages/<video>/<frame>.png` with `train/train.json` and
 `valid/valid.json`, RLE segmentations and `null` where an instance has left
 the frame (each video's last instance is absent from its first frames).
+YouTube-VIS 2021 (`version="2021"`): the same under `Youtube_VIS-2021/`, with
+`{train,valid}/instances.json` (`datasets/vis.py`'s `yt_vis_*_21`); its
+validation videos can be given names (the visualization config's
+`TEST.VIZ.VIDEO_NAMES`).
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -114,14 +118,15 @@ def write_coco_tree(root: str, seed: int = 0, n_train: int = 4, n_val: int = 4,
     return root
 
 
-def _vis_split(root: str, split: str, json_name: str, n_videos: int, n_frames: int,
-               size: Tuple[int, int], rs: np.random.RandomState, first_id: int) -> None:
+def _vis_split(root: str, folder: str, split: str, json_name: str, n_videos: int,
+               n_frames: int, size: Tuple[int, int], rs: np.random.RandomState, first_id: int,
+               video_names: Optional[Sequence[str]] = None) -> None:
     h, w = size
-    base = os.path.join(root, "Youtube_VIS-2019", split)
+    base = os.path.join(root, folder, split)
     videos, annotations = [], []
     for v in range(n_videos):
         vid = first_id + v
-        name = f"{vid:010x}"
+        name = video_names[v] if video_names else f"{vid:010x}"
         n_inst = 3
         tracks = []
         for k in range(n_inst):
@@ -156,12 +161,23 @@ def _vis_split(root: str, split: str, json_name: str, n_videos: int, n_frames: i
                    "categories": [{"id": c, "name": f"cat{c}"} for c in VIS_CATEGORIES]}, f)
 
 
+VIS_TREES = {"2019": ("Youtube_VIS-2019", "train.json", "valid.json"),
+             "2021": ("Youtube_VIS-2021", "instances.json", "instances.json")}
+
+
 def write_vis_tree(root: str, seed: int = 0, n_train: int = 2, n_val: int = 2,
-                   n_frames: int = 12, size: Tuple[int, int] = (360, 640)) -> str:
-    """Writes the YouTube-VIS 2019 tree under `root`; returns `root`."""
+                   n_frames: int = 12, size: Tuple[int, int] = (360, 640),
+                   version: str = "2019", val_names: Optional[Sequence[str]] = None) -> str:
+    """Writes the YouTube-VIS tree of `version` (2019 or 2021, `VIS_TREES`)
+    under `root`; the validation videos take `val_names` (one a video) where
+    given, else their id in hex. Returns `root`."""
+    folder, train_json, val_json = VIS_TREES[version]
+    if val_names is not None and len(val_names) != n_val:
+        raise ValueError(f"{len(val_names)} names for {n_val} validation videos")
     rs = np.random.RandomState(seed)
-    _vis_split(root, "train", "train.json", n_train, n_frames, size, rs, 1)
-    _vis_split(root, "valid", "valid.json", n_val, n_frames, size, rs, 1 + n_train)
+    _vis_split(root, folder, "train", train_json, n_train, n_frames, size, rs, 1)
+    _vis_split(root, folder, "valid", val_json, n_val, n_frames, size, rs, 1 + n_train,
+               val_names)
     return root
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of K2 (`msda_tap_window`), K3 (`msda_temporal`), K6
-(`msda_rows`), K8 (`msda_proj`), K9 (`msda_taps_bwd`) and the probes K12a
+"""Device times of K2 (`msda_tap_window`), K3 (`msda_temporal`), K5
+(`msda_temporal_bwd`), K6 (`msda_rows`), K7 (`msda_rows_bwd`), K8
+(`msda_proj`), K9 (`msda_taps_bwd`) and the probes K12a
 (`tent_band`), K12b (`corner_gather`) and K12c (`mma_probe`, and
 `mma_probe_sync` where a checkout has it) in several checkouts of the port,
 on one card and on the same inputs.
@@ -27,6 +28,14 @@ timing code are this checkout's (`chip_smoke.py` beside this file), bf16:
   (Q 300, 1 and 2 images, `chip_smoke.image_decoder_rows`);
 * K9 at the image train step's decoder layers (2 images, Q 300: the taps of
   `chip_smoke.image_decoder_rows`' locations, a N(0, 1) output gradient);
+* K5 at the clip encoder (Q = S = 5 100) at raster references (K1's inputs,
+  `chip_smoke.encoder_inputs`) and at random ones, and at the decoder (Q 10);
+  K7 at the clip mask head's six layers (B 60), the image mask head's (50
+  masks) and the image encoder (Q = S, 2 images). K5, K7 and K9 are timed as
+  ops: every kernel and memset a call by device time (the atomic form's
+  zero, kernel and cast; the fixed-order form's entries, sort, gather and
+  tap gradients), the op by CUDA events, and 5 calls checked for equal
+  bits (`repeat_equal`);
 * K12a and K12b at `chip_smoke.BAND_SHAPES` (the JAX script's C 16 and C
   512, N 96 Wp), f32, as `chip_smoke.probe_phase` makes their inputs;
 * K12c at `chip_smoke.MMA_SHAPES` (`benchmarks/mxu_probe.py:79-86`'s eight
@@ -41,8 +50,9 @@ parent compares two commits): each kernel's device time by
 events. K2 must equal its plain version, and K3, K6 and K8 agree with
 theirs to 2e-2 of max|plain| (K6 at the image mask head on its first
 `chip_smoke.COCO_MASK_CMP_B` masks where the f32 copy of U passes 1.5 GB),
-K9 to 1e-2 (value gradient) and 1e-4 (tap weights) of the plain version on
-the upcast inputs, K12a and K12b to 1e-5 and K12c to 2e-2, in each DIR. Prints one JSON line a
+K5, K7 and K9 to 1e-2 (value gradient) and 1e-4 (location, weight and tap
+weight gradients) of the plain version on the upcast inputs (K7 at the
+image mask head on its first masks as K6), K12a and K12b to 1e-5 and K12c to 2e-2, in each DIR. Prints one JSON line a
 DIR, the card's name and power limit, and last one JSON object of every
 run. Needs one CUDA card.
 """
@@ -137,6 +147,7 @@ def time_checkout(root, path):
             out["K3"][name] = dict(ms=cs.device_ms(op, "msda_temporal_kernel"),
                                    op_ms=cs.cuda_time(op, 50), max_abs_err=err)
     out.update(rows_proj_times(torch, cs, K, dev))
+    out.update(bwd_times(torch, cs, K, dev))
     out.update(taps_tent_times(torch, cs, K, dev))
     print(json.dumps(out), flush=True)
 
@@ -157,8 +168,7 @@ def taps_tent_times(torch, cs, K, dev):
     got = op()
     err = cs.compare("K9 (decoder) grad_value", got[0], want[0], 1e-2)
     cs.compare("K9 (decoder) grad_wt", got[1], want[1], 1e-4)
-    res["K9"]["decoder B=2"] = dict(ms=cs.device_ms(op, "msda_taps_bwd_kernel"),
-                                    op_ms=cs.cuda_time(op, 50), max_abs_err=err)
+    res["K9"]["decoder B=2"] = dict(**bwd_op_times(torch, cs, op), max_abs_err=err)
     del value, loc, att, grad, idx, wt, v16, g16, got, want
     for label, C, rows in cs.BAND_SHAPES:
         N = rows * cs.BAND_WP
@@ -182,6 +192,93 @@ def taps_tent_times(torch, cs, K, dev):
             err = cs.compare(f"K12c {form} ({n_dots}, {Kd}, {N})", op(), want, 2e-2)
             res["K12c"][f"{form} n_dots={n_dots} K={Kd} N={N}"] = dict(
                 ms=cs.device_ms(op, "mma_probe", iters=10), max_abs_err=err)
+    return res
+
+
+def bwd_op_times(torch, cs, op, iters=10):
+    """A backward op's device time a call (every kernel and memset it
+    launches: the atomic form's zero, kernel and cast; the fixed-order
+    form's memsets, entries, sort, gather and tap gradients), its launches a
+    call, its CUDA-event time, and whether 5 calls give the same bits."""
+    first = [t.clone() for t in op()]
+    same = True
+    for _ in range(4):
+        same &= all(torch.equal(a, b) for a, b in zip(first, op()))
+    dev_ms, launches, _ = cs.device_profile(op, iters)
+    return dict(ms=dev_ms, launches=launches, op_ms=cs.cuda_time(op, iters),
+                repeat_equal=bool(same))
+
+
+def bwd_times(torch, cs, K, dev):
+    """K5 and K7 of a checkout (its wrappers `K`) on inputs made here from
+    seeded generators (see the module docstring), each against its plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 30)
+    bf = torch.bfloat16
+    res = {"K5": {}, "K7": {}}
+
+    def timed(key, name, op, plain, tols=(1e-2, 1e-4, 1e-4), cut=None):
+        got, want = op(), plain()
+        err = 0.0
+        for part, g, w, tol in zip(("value", "loc", "att"), got, want, tols):
+            g = g if cut is None else g[:cut]
+            e = cs.compare(f"{key} ({name}) grad_{part}", g, w, tol)
+            err = e if part == "value" else err
+        del got, want
+        res[key][name] = dict(**bwd_op_times(torch, cs, op), max_abs_err=err)
+        torch.cuda.empty_cache()
+
+    L, W = len(cs.SHAPES), cs.T - 1
+    S = sum(h * w for h, w in cs.SHAPES)
+    for name in ("encoder raster", "encoder random", "decoder"):
+        Q = cs.NQ // cs.T if name == "decoder" else S
+        if name == "encoder raster":
+            a = cs.encoder_inputs(torch, dev, gen, "raster")
+            value = a[0]
+            loc = K.temporal_proj_locations(cs.SHAPES, a[2], a[3], a[4], cs.M).contiguous()
+            att = K.temporal_proj_weights(a[5], a[6], cs.M, L).contiguous()
+            del a
+        else:
+            value = torch.randn(cs.T, S, cs.M, cs.D, generator=gen, device=dev)
+            loc = torch.rand(cs.T, Q, cs.M, (1 + W) * L, cs.P, 2, generator=gen,
+                             device=dev) * 1.2 - 0.1
+            att = torch.softmax(torch.randn(cs.T, Q, cs.M, (1 + W) * L * cs.P, generator=gen,
+                                            device=dev), -1).reshape(loc.shape[:-1])
+        grad = torch.randn(cs.T, Q, cs.M * cs.D, generator=gen, device=dev)
+        a16 = (value.to(bf), cs.SHAPES, loc, att, grad.to(bf), ("all",))
+        up = tuple(t.float() if torch.is_tensor(t) else t for t in a16)
+        timed("K5", name, lambda: K.msda_temporal_bwd(*a16),
+              lambda: K.msda_temporal_bwd_plain(*up))
+        del value, loc, att, grad, a16, up
+    for where, B, layers in (("clip", cs.DCN_B, cs.DCN_LAYERS),
+                             ("image", cs.COCO_SLOTS * cs.COCO_BATCH, cs.COCO_DCN_LAYERS)):
+        for lname, _, cout, h, w in layers:
+            shapes = ((h, w),) * 9
+            if where == "clip":
+                value, loc, att, grad = cs.mask_head_rows(torch, dev, gen, B, cout, h, w)
+            else:
+                value = torch.randn(B, 9 * h * w, 1, cout, generator=gen, device=dev)
+                loc = cs.dcn_route_loc(torch, dev, gen, B, h, w)
+                att = torch.rand(B, h * w, 1, 9, 1, generator=gen, device=dev) * 2.0
+                grad = torch.randn(B, h * w, cout, generator=gen, device=dev)
+            v16, g16 = value.to(bf), grad.to(bf)
+            del value, grad
+            nb = B if B * 9 * h * w * cout * 4 <= 1.5e9 else cs.COCO_MASK_CMP_B
+            cut = (v16[:nb].float(), shapes, loc[:nb], att[:nb], g16[:nb].float())
+            timed("K7", f"{where} {lname}", lambda: K.msda_rows_bwd(v16, shapes, loc, att, g16),
+                  lambda: K.msda_rows_bwd_plain(*cut), cut=nb)
+            del v16, g16, loc, att, cut
+    Sc = sum(h * w for h, w in cs.COCO_SHAPES)
+    Lc = len(cs.COCO_SHAPES)
+    value = torch.randn(cs.COCO_BATCH, Sc, cs.M, cs.D, generator=gen, device=dev)
+    loc = torch.rand(cs.COCO_BATCH, Sc, cs.M, Lc, cs.P, 2, generator=gen, device=dev) * 1.2 - 0.1
+    att = torch.softmax(torch.randn(cs.COCO_BATCH, Sc, cs.M, Lc * cs.P, generator=gen,
+                                    device=dev), -1).reshape(loc.shape[:-1])
+    grad = torch.randn(cs.COCO_BATCH, Sc, cs.M * cs.D, generator=gen, device=dev)
+    a16 = (value.to(bf), cs.COCO_SHAPES, loc, att, grad.to(bf))
+    up = tuple(t.float() if torch.is_tensor(t) else t for t in a16)
+    timed("K7", f"image encoder B={cs.COCO_BATCH}", lambda: K.msda_rows_bwd(*a16),
+          lambda: K.msda_rows_bwd_plain(*up))
     return res
 
 
@@ -227,7 +324,7 @@ def rows_proj_times(torch, cs, K, dev):
                 v16 = value.to(bf)
                 del value
                 nb = B if B * 9 * h * w * cout * 4 <= 1.5e9 else cs.COCO_MASK_CMP_B
-                op = lambda: K.msda_rows(v16, shapes, loc, att, (h, w))  # noqa: E731
+                op = lambda: K.msda_rows(v16, shapes, loc, att)  # noqa: E731
                 timed("K6", f"{where} {lname}", op, lambda: op()[:nb],
                       lambda: ms_deform_attn(v16[:nb], shapes, loc[:nb], att[:nb]),
                       "msda_rows_kernel", iters=10)

@@ -277,8 +277,10 @@ def test_wrappers_run_the_plain_versions_at_36_frames_on_the_cpu():
     """On CPU tensors the wrappers of K1, K2, K3 and K5 take their plain
     versions at ablation 0's geometry (T 36, L 1, the rule "all"), and the
     windowed plain K1 on the plain K2's windows equals the plain K1: every
-    tap lies in its window."""
+    tap lies in its window; K5's plain version equals the mirror of the
+    kernel's order."""
     from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.ms_deform_attn import temporal_frame_table
     T, Q, M, D, P, shapes = 36, 12, 2, 4, 2, ((3, 4),)
     g = torch.Generator().manual_seed(7)
     value = torch.randn(T, 12, M, D, generator=g)
@@ -300,7 +302,9 @@ def test_wrappers_run_the_plain_versions_at_36_frames_on_the_cpu():
                                atol=1e-5)
     grad = torch.randn(T, Q, M * D, generator=g)
     gv, gl, ga = K.msda_temporal_bwd(value, shapes, loc, att, grad)
-    wv, wl, wa, _ = K.msda_temporal_bwd_windowed_plain(value, shapes, loc, att, grad)
+    table = torch.as_tensor(temporal_frame_table(("all",), T))
+    frames = torch.cat([torch.arange(T)[:, None], table], 1)
+    wv, wl, wa = K.msda_bwd_mirror(value, shapes, loc, att, grad, frames)
     for a, b in ((gv, wv), (gl, wl), (ga, wa)):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 

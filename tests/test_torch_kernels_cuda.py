@@ -316,8 +316,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 # ---------------------------------------------------------------------------
 # backward kernels (K5, K7), the forward K6, and the autograd Functions.
-# The value gradient is summed with f32 atomics in an order that changes from
-# run to run; the f32 tolerance covers that, the bf16 one the output rounding.
+# The kernels sum in another order than the plain versions; the f32 tolerance
+# covers that, the bf16 one the output rounding.
 # ---------------------------------------------------------------------------
 
 def _rows_inputs(dev, dtype, B, Q, M, D, P, n_levels, seed=3):
@@ -343,17 +343,15 @@ def test_temporal_bwd_kernel(dev, dtype, rule, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,D,Q,grid,case", [
-    (1, 1, 70, None, "random"), (1, 5, 33, None, "random"), (2, 32, 9, None, "random"),
-    (1, 72, 40, None, "random"), (1, 1, 70, (7, 10), "random"), (1, 16, 40, (5, 8), "random"),
-    (1, 264, 35, (5, 7), "random"), (1, 264, 40, None, "random"), (8, 32, 37, None, "random"),
-    (1, 16, 48, (6, 8), "lines"), (1, 1, 48, (6, 8), "lines"), (1, 264, 48, None, "lines"),
-    (8, 32, 37, None, "lines"), (1, 16, 48, (6, 8), "unaligned"),
-    (8, 32, 48, None, "unaligned"), (1, 264, 48, None, "unaligned")])
-def test_rows_kernels(dev, dtype, M, D, Q, grid, case):
+@pytest.mark.parametrize("M,D,Q,case", [
+    (1, 1, 70, "random"), (1, 5, 33, "random"), (2, 32, 9, "random"), (1, 72, 40, "random"),
+    (1, 16, 40, "random"), (1, 264, 35, "random"), (1, 264, 40, "random"),
+    (8, 32, 37, "random"), (1, 16, 48, "lines"), (1, 1, 48, "lines"), (1, 264, 48, "lines"),
+    (8, 32, 37, "lines"), (1, 16, 48, "unaligned"), (8, 32, 48, "unaligned"),
+    (1, 264, 48, "unaligned")])
+def test_rows_kernels(dev, dtype, M, D, Q, case):
     """K6 in both regimes (a thread a chunk; taps spread over a warp, M 8,
-    D 32), with and without the query grid the DCN route passes (K7's 2-D
-    tiles), D 264 (33 or 66 chunks a unit); "lines": taps exactly on the
+    D 32), D 264 (33 or 66 chunks a unit); "lines": taps exactly on the
     pixel lines x = -1 and y = -1 (their corners inside the level weigh 0)
     and off the map; "unaligned": value and loc views off 16 and 8 bytes
     (element-by-element chunks; the wrapper copies loc). K7 on the same
@@ -369,9 +367,9 @@ def test_rows_kernels(dev, dtype, M, D, Q, grid, case):
         v_k, loc_k = _off_16_bytes(value), _off_16_bytes(loc)
         assert v_k.data_ptr() % 16 and loc_k.data_ptr() % 8
         assert not K.rows_plan(D, dtype, False, M, L, 2, 2 * Q).vec
-    _close(K.msda_rows(v_k, SHAPES, loc_k, att, grid),
+    _close(K.msda_rows(v_k, SHAPES, loc_k, att),
            ms_deform_attn(value, SHAPES, loc, att), dtype)
-    got = K.msda_rows_bwd(v_k, SHAPES, loc_k, att, grad, grid)
+    got = K.msda_rows_bwd(v_k, SHAPES, loc_k, att, grad)
     want = K.msda_rows_bwd_plain(value, SHAPES, loc, att, grad)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
@@ -429,18 +427,20 @@ def test_backward_on_the_lines_x_and_y_minus_one(dev, kernel):
 
 
 # ---------------------------------------------------------------------------
-# K5 and K7 on windows: fitted plans and plans of 6 accumulator rows (most
-# corners add past the capacity), raster references (every pixel of the
-# pyramid a query at its centre, offsets of a pixel or two), random ones, the
-# DCN route's query grid in 2-D tiles, D from 1 to 264 (a channel slice). The
-# kernel's counts of f32 adds equal the windowed plain version's.
+# K5 and K7 in their fixed order (csrc/msda_bwd.cuh): raster references
+# (every pixel of the pyramid a query at its centre, offsets of a pixel or
+# two), random ones, the DCN route's grid, D from 1 to 264. Five launches on
+# the same inputs give the same bits, and those bits are the CPU mirror's
+# (`msda_bwd_mirror`: the same sort, the same order of every sum, each
+# product and sum rounded on its own).
 # ---------------------------------------------------------------------------
 
 GRID = (9, 21)
+REPEATS = 5
 
 
 def _bwd_inputs(dev, dtype, refs, D, n_frames=2, rule=None, seed=13):
-    """(shapes, value, loc, att, grad, query grid) of K7 (rule None) or K5."""
+    """(shapes, value, loc, att, grad) of K7 (rule None) or K5."""
     g = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
     n_levels = L if rule is None else (1 + rule_window(rule, n_frames)) * L
@@ -470,13 +470,13 @@ def _bwd_inputs(dev, dtype, refs, D, n_frames=2, rule=None, seed=13):
     Q = loc.shape[1]
     return (shapes, r(n_frames, S_v, M, D).to(dtype), loc.contiguous(),
             torch.rand(n_frames, Q, M, n_levels, P, generator=g, device=dev),
-            r(n_frames, Q, M * D).to(dtype), GRID if refs == "grid" else None)
+            r(n_frames, Q, M * D).to(dtype))
 
 
 def _bwd_close(got, want, dtype):
-    # f32: the atomics' order; bf16: the value gradient is rounded once to
-    # bf16 (against the plain version on the inputs upcast to f32), the row
-    # gradients stay f32
+    # f32: sums in another order; bf16: the value gradient is rounded once
+    # to bf16 (against the plain version on the inputs upcast to f32), the
+    # row gradients stay f32
     tols = (1e-4, 1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-4, 1e-4)
     for gg, w, tol in zip(got, want, tols):
         assert gg.shape == w.shape
@@ -484,64 +484,60 @@ def _bwd_close(got, want, dtype):
         assert err <= tol * w.float().abs().max().item()
 
 
-def _buffers(value, loc, att):
-    return (torch.zeros(value.shape, dtype=torch.float32, device=value.device),
-            torch.zeros_like(loc), torch.zeros_like(att),
-            torch.zeros(2, dtype=torch.int64, device=value.device))
+def _repeat_equal(fn):
+    """`fn()` REPEATS times: every run's tensors equal the first's, bit for
+    bit. Returns the first."""
+    first = [t.clone() for t in fn()]
+    for _ in range(REPEATS - 1):
+        again = fn()
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+    return first
+
+
+def _mirror(value, shapes, loc, att, grad, frames=None):
+    cpu = [t.cpu() for t in (value, loc, att, grad)]
+    return K.msda_bwd_mirror(cpu[0], shapes, cpu[1], cpu[2], cpu[3], frames)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("plan", ["fitted", "overflow"])
 @pytest.mark.parametrize("refs", ["raster", "random", "grid"])
 @pytest.mark.parametrize("D", [1, 16, 32, 264])
-def test_windowed_rows_bwd_kernel(dev, dtype, plan, refs, D):
-    shapes, value, loc, att, grad, grid = _bwd_inputs(dev, dtype, refs, D)
-    p = K.bwd_plan(shapes, dtype, D, loc.shape[4], grid)
-    p = p._replace(cap=6) if plan == "overflow" else p
-    *out, adds = _buffers(value, loc, att)
-    K.launch_rows_bwd(value, shapes, loc, att, grad, out, p, grid, adds)
-    torch.cuda.synchronize()
+def test_rows_bwd_kernel_in_a_fixed_order(dev, dtype, refs, D):
+    shapes, value, loc, att, grad = _bwd_inputs(dev, dtype, refs, D)
+    got = _repeat_equal(lambda: K.launch_rows_bwd(value, shapes, loc, att, grad))
     want = K.msda_rows_bwd_plain(value.float(), shapes, loc, att, grad.float())
-    _bwd_close((out[0].to(dtype), out[1], out[2]), want, dtype)
-    want_adds = K.msda_rows_bwd_windowed_plain(value, shapes, loc, att, grad, p, grid)[3]
-    assert adds.tolist() == want_adds.tolist()
-    assert (adds[1] > 0).item() == (plan == "overflow")
+    _bwd_close(got, want, dtype)
+    for g, m in zip(got, _mirror(value, shapes, loc, att, grad)):
+        assert torch.equal(g.cpu(), m)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("plan", ["fitted", "overflow"])
 @pytest.mark.parametrize("refs", ["raster", "random"])
 @pytest.mark.parametrize("rule,D", [(("all",), 32), (("window", (-1, 1)), 16)])
-def test_windowed_temporal_bwd_kernel(dev, dtype, plan, refs, rule, D):
-    shapes, value, loc, att, grad, _ = _bwd_inputs(dev, dtype, refs, D, 3, rule)
-    p = K.bwd_plan(shapes, dtype, D, loc.shape[4])
-    p = p._replace(cap=6) if plan == "overflow" else p
-    *out, adds = _buffers(value, loc, att)
-    K.launch_temporal_bwd(value, shapes, loc, att, grad, rule, out, p, adds)
-    torch.cuda.synchronize()
+def test_temporal_bwd_kernel_in_a_fixed_order(dev, dtype, refs, rule, D):
+    from devis_torch.ops.ms_deform_attn import temporal_frame_table
+    shapes, value, loc, att, grad = _bwd_inputs(dev, dtype, refs, D, 3, rule)
+    got = _repeat_equal(lambda: K.launch_temporal_bwd(value, shapes, loc, att, grad, rule))
     want = K.msda_temporal_bwd_plain(value.float(), shapes, loc, att, grad.float(), rule)
-    _bwd_close((out[0].to(dtype), out[1], out[2]), want, dtype)
-    want_adds = K.msda_temporal_bwd_windowed_plain(value, shapes, loc, att, grad, rule, p)[3]
-    assert adds.tolist() == want_adds.tolist()
-    assert (adds[1] > 0).item() == (plan == "overflow")
+    _bwd_close(got, want, dtype)
+    frames = torch.cat([torch.arange(3)[:, None],
+                        torch.as_tensor(temporal_frame_table(rule, 3), dtype=torch.long)], 1)
+    for g, m in zip(got, _mirror(value, shapes, loc, att, grad, frames)):
+        assert torch.equal(g.cpu(), m)
 
 
-def test_windowed_bwd_ops_launch_and_raise(dev):
-    """The ops launch the windowed kernels on CUDA tensors (no plain call),
-    K7 in 2-D tiles where given its grid; a plan that does not fit raises."""
-    shapes, value, loc, att, grad, grid = _bwd_inputs(dev, torch.bfloat16, "grid", 16)
+def test_bwd_ops_launch_and_raise(dev):
+    """The ops launch the kernels on CUDA tensors (no plain call), return the
+    value gradient in the value's dtype; inconsistent shapes raise."""
+    shapes, value, loc, att, grad = _bwd_inputs(dev, torch.bfloat16, "grid", 16)
     before = (K.msda_rows_bwd.launches, K.msda_rows_bwd.plain_calls)
-    tiled = K.msda_rows_bwd(value, shapes, loc, att, grad, grid)
-    raster = K.msda_rows_bwd(value, shapes, loc, att, grad)
-    assert (K.msda_rows_bwd.launches, K.msda_rows_bwd.plain_calls) == (before[0] + 2, before[1])
-    assert tiled[0].dtype == torch.bfloat16 and tiled[1].dtype == torch.float32
-    _bwd_close(tiled, raster, torch.bfloat16)
-    p = K.bwd_plan(shapes, torch.bfloat16, 16, 1, grid)
-    *out, _ = _buffers(value, loc, att)
-    with pytest.raises(ValueError, match="shared memory"):
-        K.launch_rows_bwd(value, shapes, loc, att, grad, out, p._replace(cap=30000), grid)
-    with pytest.raises(ValueError, match="query grid"):
-        K.launch_rows_bwd(value, shapes, loc, att, grad, out, p, (4, 4))
+    got = K.msda_rows_bwd(value, shapes, loc, att, grad)
+    assert (K.msda_rows_bwd.launches, K.msda_rows_bwd.plain_calls) == (before[0] + 1, before[1])
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    with pytest.raises(ValueError, match="inconsistent"):
+        K.msda_rows_bwd(value, shapes, loc, att, grad[:, 1:].contiguous())
 
 
 def _grads(fn, tensors):
@@ -673,7 +669,8 @@ def test_taps_bwd_kernel(dev, dtype, M, G, D, Q, B, shapes, P):
     """K9 at grouped heads and ragged widths (D 5 and 10: one-channel
     chunks in f32 and bf16), and at the image train step's decoder shape
     (B 2, Q 300, M 8, D 32, the COCO pyramid); bf16 against the plain version
-    on the upcast inputs. Some indices lie outside their level."""
+    on the upcast inputs. Some indices lie outside their level. Five
+    launches give the same bits, the CPU mirror's."""
     g = torch.Generator(device=dev).manual_seed(6)
     value = torch.randn(B, sum(h * w for h, w in shapes), M, D, generator=g,
                         device=dev).to(dtype)
@@ -683,12 +680,14 @@ def test_taps_bwd_kernel(dev, dtype, M, G, D, Q, B, shapes, P):
     idx, wt = K.taps(shapes, loc, att)
     idx[:, :, ::3, :, 0] = -1
     idx[:, :, 1::3, :, 1] = 10 ** 6
-    got_v, got_w = K.msda_taps_bwd(value, shapes, idx, wt, grad)
+    got_v, got_w = _repeat_equal(lambda: K.msda_taps_bwd(value, shapes, idx, wt, grad))
     want_v, want_w = K.msda_taps_bwd_plain(value.float(), shapes, idx, wt, grad.float())
     assert got_v.dtype == dtype and got_w.dtype == torch.float32
     _close(got_v, want_v, dtype)
     _close(got_w, want_w, torch.float32)
     assert (got_w[:, :, ::3, :, 0] == 0).all() and (got_w[:, :, 1::3, :, 1] == 0).all()
+    mirror = K.msda_taps_bwd_mirror(value.cpu(), shapes, idx.cpu(), wt.cpu(), grad.cpu())
+    assert torch.equal(got_v.cpu(), mirror[0]) and torch.equal(got_w.cpu(), mirror[1])
 
 
 def test_taps_function_gives_gradients(dev):

@@ -1,8 +1,9 @@
-"""K9's launch plan and index arithmetic on the CPU (`taps_plan`,
+"""K9's gather plan and the order of its sums on the CPU (`taps_plan`,
 `taps_lanes`, `msda_taps_bwd_mirror` in `devis_torch/ops/ms_deform_attn_cuda.py`).
 
-The kernel (`csrc/ms_deform_attn_taps.cu`) runs only on the card; these tests
-hold the CPU mirror of its lane groups and chunks to the plain version,
+The kernels (`csrc/ms_deform_attn_taps.cu`, `csrc/msda_bwd.cuh`) run only on
+the card; these tests hold the CPU mirror of their sort and gather to the
+plain version,
 `msda_taps_bwd_plain`, which `tests/test_torch_coco_ops.py` holds against the
 JAX package's `_bwd_kernel` (Pallas interpret mode). The kernel itself is
 held to the plain version on the card (`tests/test_torch_kernels_cuda.py`)."""
@@ -26,23 +27,26 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 @pytest.mark.parametrize("D", [1, 5, 8, 32, 72])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_taps_plan_takes_every_channel_of_every_entry_once(D, dtype, aligned):
-    """Every (entry, channel) pair of a warp is loaded by exactly one lane
-    of exactly one group, and added onto grad_value by exactly one lane of
-    that group (the flush's split), at L 3 x 4P 8 entries (a partial run of
-    32) and at the image decoder's 64; each entry stays within one group."""
+    """Every (entry, channel) pair of a value row's segment is loaded by
+    exactly one lane of exactly one group (entry j by group j % groups), at
+    24 entries (a partial round) and at 64; every channel of the row is
+    stored once, by group 0."""
     plan = K.taps_plan(D, DTYPES[dtype], aligned)
     assert plan.lanes & (plan.lanes - 1) == 0 and plan.lanes <= 32
     assert plan.lanes * plan.per * plan.cw >= D and plan.per in (1, 2, 4)
+    groups = 32 // plan.lanes
     for n in (24, 64):
-        owner = {}
-        for flush in (False, True):
-            taken = collections.Counter()
-            for e, grp, sub, chans in K.taps_lanes(plan, n, D, flush):
-                assert sub < plan.lanes and grp < 32 // plan.lanes
-                assert owner.setdefault(e, grp) == grp
-                taken.update((e, c) for c in chans)
-            assert set(taken) == {(e, c) for e in range(n) for c in range(D)}
-            assert set(taken.values()) == {1}
+        taken = collections.Counter()
+        for e, grp, sub, chans in K.taps_lanes(plan, n, D):
+            assert sub < plan.lanes and grp == e % groups
+            taken.update((e, c) for c in chans)
+        assert set(taken) == {(e, c) for e in range(n) for c in range(D)}
+        assert set(taken.values()) == {1}
+    stored = collections.Counter()
+    for e, grp, sub, chans in K.taps_lanes(plan, n, D, flush=True):
+        assert e is None and grp == 0 and sub < plan.lanes
+        stored.update(chans)
+    assert set(stored) == set(range(D)) and set(stored.values()) == {1}
 
 
 def test_taps_plan_at_the_paths_shape_and_its_limit():
@@ -53,14 +57,12 @@ def test_taps_plan_at_the_paths_shape_and_its_limit():
     assert K.taps_plan(32, torch.float32, True) == K.TapsPlan(True, 4, 8, 8, 1)
     assert K.taps_plan(32, torch.bfloat16, False) == K.TapsPlan(False, 1, 32, 32, 1)
     assert K.taps_plan(72, torch.float32, False).per == 4
-    # the flush's pieces: one red of a group covers 64 contiguous bytes of
-    # f32 in bf16 (lanes 0-3 at channels 0-15, then 16-31), 128 in f32
-    for dtype, span in ((torch.bfloat16, 16), (torch.float32, 32)):
+    # the row's store: lane c of group 0 writes chunk c, 16 contiguous bytes
+    # of the row in the value's type
+    for dtype in (torch.bfloat16, torch.float32):
         plan = K.taps_plan(32, dtype, True)
-        pieces = [(sub, chans) for e, _, sub, chans in K.taps_lanes(plan, 1, 32, True)]
-        for k in range(32 // span):
-            first = [chans[0] for sub, chans in pieces[k::32 // span]]
-            assert first == list(range(k * span, (k + 1) * span, span // plan.lanes))
+        pieces = [chans[0] for _, _, _, chans in K.taps_lanes(plan, 1, 32, True)]
+        assert pieces == list(range(0, 32, plan.cw))
     with pytest.raises(ValueError, match="more than a warp"):
         K.taps_plan(129, torch.float32, False)
 
@@ -86,8 +88,8 @@ def _close(got, want, rel):
 @pytest.mark.parametrize("D", [1, 5, 8, 32, 72])
 @pytest.mark.parametrize("G", [1, 2, 3])
 def test_mirror_equals_the_plain_version(D, dtype, G):
-    """The mirror of K9's lane groups and chunks (the plan of the dtype,
-    16-byte aligned) equals `msda_taps_bwd_plain` on the same inputs in f32
+    """The mirror of K9's sort and gather (the plan of the dtype, 16-byte
+    aligned) equals `msda_taps_bwd_plain` on the same inputs in f32
     to 1e-6 of max|plain| (f32 sums in another order), with indices below,
     inside and past their levels and some weights 0."""
     value, idx, wt, grad = _inputs(D * 10 + G, 2, 7, 2, G, D, 2, SHAPES, DTYPES[dtype])
@@ -114,3 +116,18 @@ def test_mirror_at_the_image_decoders_shape(dtype):
     want = K.msda_taps_bwd_plain(value.float(), COCO_SHAPES, idx, wt, grad.float())
     for g, w in zip(got, want):
         _close(g, w, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mirror_gives_the_same_bits_in_any_tile_and_row_order(dtype):
+    """The sort's tiles and the gather's rows run in a shuffled order: the
+    value gradient and grad_wt are the same bits (B 2, Q 60, M 4, G 2:
+    23 040 entries, six tiles of the sort)."""
+    value, idx, wt, grad = _inputs(5, 2, 60, 4, 2, 8, 2, SHAPES, DTYPES[dtype])
+    plan = K.taps_plan(8, DTYPES[dtype], True)
+    got = K.msda_taps_bwd_mirror(value.float(), SHAPES, idx, wt, grad.float(), plan)
+    rows = torch.randperm(2 * S * 4, generator=torch.Generator().manual_seed(1))
+    again = K.msda_taps_bwd_mirror(value.float(), SHAPES, idx, wt, grad.float(), plan,
+                                   tile_order=[3, 0, 5, 1, 4, 2], row_order=rows)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)

@@ -5,6 +5,8 @@ the synthetic videos and their ground truth, the two trackers fed the same
 clip outputs, TrackMAP, and the whole slice (`build_tracker` +
 `inference_vis`) with one model's weights in both packages.
 """
+import functools
+
 import cv2
 import ml_dtypes
 import numpy as np
@@ -349,12 +351,6 @@ def test_matcher_takes_more_video_tracks_than_clip_tracks():
             np.testing.assert_array_equal(g, w)
 
 
-def test_visualization_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 5"):
-        Tracker(lambda v, i: None, HungarianInferenceMatcher(), TRACKER_CFG, 4, 2,
-                visualization_cfg=dict(out_viz_path="viz"))
-
-
 # ---------------------------------------------------------------------------
 # The slice as a whole
 # ---------------------------------------------------------------------------
@@ -378,6 +374,84 @@ def _slice_cfg(get_cfg_defaults):
     return cfg
 
 
+@functools.lru_cache(maxsize=None)
+def _twin():
+    """(JAX config, port config, the JAX `impl='xla'` model, its seeded
+    variables, the port model with their weights), built once a worker."""
+    import jax
+    import jax.numpy as jnp
+
+    from devis_torch.config import get_cfg_defaults
+    from devis_torch.models import build_model
+    from devis_torch.util.weights import from_jax_params
+    from devis_tpu.config import get_cfg_defaults as jax_cfg
+    from devis_tpu.models import build_model as jax_build
+
+    from .test_torch_slice import _flatten, random_variables
+
+    jcfg, cfg = _slice_cfg(jax_cfg), _slice_cfg(get_cfg_defaults)
+    jmodel = jax_build(num_classes=41, cfg=jcfg, impl="xla")
+    template = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((3, 64, 64, 3)), jnp.zeros((3, 64, 64), bool),
+        train=False))
+    variables = random_variables(template, seed=3)
+    tmodel = build_model(41, cfg, device="cpu")
+    tmodel.load_state_dict(from_jax_params(_flatten(variables)), strict=True)
+    tmodel.eval()
+    return jcfg, cfg, jmodel, variables, tmodel
+
+
+def test_decoder_capture_matches_the_jax_intermediates():
+    """`capture_sampling` on the port's twin against the JAX decoder's sown
+    `intermediates` (`mutable=["intermediates"]`; jitted, one compile of
+    the tiny twin, about 15 s: op by op it took 70 s) on the same seeded clip, f32, every decoder layer: loc_c and
+    att_c (the current frame's slice of the joint softmax, (T, Lq, M, L, P)),
+    loc_t and att_t, to 1e-5 of max|JAX|; `decoder_attention` reads what
+    `extract_decoder_attention` reads. Off, nothing is kept."""
+    import jax
+    import jax.numpy as jnp
+
+    from devis_torch.models.attention import TemporalMSDeformAttnDecoder, capture_sampling
+    from devis_torch.util.visualization import decoder_attention
+    from devis_tpu.util.visualization import extract_decoder_attention
+
+    _, _, jmodel, variables, tmodel = _twin()
+    rs = np.random.RandomState(11)
+    images = rs.randn(3, 64, 64, 3).astype(np.float32)
+    pad = np.zeros((3, 64, 64), bool)
+    pad[:, :, 48:] = True
+    _, inter = jax.jit(lambda v, x, p: jmodel.apply(v, x, p, train=False,
+                                                    mutable=["intermediates"]))(
+        variables, jnp.asarray(images), jnp.asarray(pad))
+    with torch.no_grad(), capture_sampling(tmodel) as records:
+        tmodel(torch.from_numpy(images), torch.from_numpy(pad))
+    assert all(m.capture is None for m in tmodel.modules()
+               if isinstance(m, TemporalMSDeformAttnDecoder))
+    nodes = []
+
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            if "viz_sampling_locations" in tree:
+                nodes.append((path, tree))
+            for k, v in tree.items():
+                walk(v, path + (k,))
+    walk(inter["intermediates"])
+    nodes.sort(key=lambda kv: kv[0])
+    assert len(records) == len(nodes) == 1
+    names = {"loc_c": "viz_sampling_locations", "att_c": "viz_attention_weights",
+             "loc_t": "viz_temporal_sampling_locations",
+             "att_t": "viz_temporal_attention_weights"}
+    for rec, (_, node) in zip(records, nodes):
+        for key, name in names.items():
+            want = np.asarray(node[name][0])
+            got = rec[key].float().numpy()
+            assert got.shape == want.shape, (key, got.shape, want.shape)
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), key
+    for got, want in zip(decoder_attention(records), extract_decoder_attention(
+            inter["intermediates"])):
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
 def test_inference_vis_matches_the_jax_package(tmp_path):
     """`build_tracker` + `inference_vis` in both packages, f32, the port with
     the JAX twin's weights (`from_jax_params`), on the JAX dataset's videos
@@ -390,31 +464,13 @@ def test_inference_vis_matches_the_jax_package(tmp_path):
     that tie in f16 but not in f32 keep different frames. The port's fetched
     scores and boxes are rounded to f16 here too, so that both trackers
     decide on the same numbers; both round mask logits to float8."""
-    import jax
-    import jax.numpy as jnp
-
-    from devis_torch.config import get_cfg_defaults
     from devis_torch.inference import build_tracker, inference_vis
-    from devis_torch.models import build_model
-    from devis_torch.util.weights import from_jax_params
-    from devis_tpu.config import get_cfg_defaults as jax_cfg
     from devis_tpu.inference import build_tracker as jax_build_tracker
     from devis_tpu.inference import inference_vis as jax_inference_vis
-    from devis_tpu.models import build_model as jax_build
-
-    from .test_torch_slice import _flatten, random_variables
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    jcfg, cfg = _slice_cfg(jax_cfg), _slice_cfg(get_cfg_defaults)
-    jmodel = jax_build(num_classes=41, cfg=jcfg, impl="xla")
-    template = jax.eval_shape(lambda: jmodel.init(
-        jax.random.PRNGKey(0), jnp.zeros((3, 64, 64, 3)), jnp.zeros((3, 64, 64), bool),
-        train=False))
-    variables = random_variables(template, seed=3)
-    tmodel = build_model(41, cfg, device="cpu")
-    tmodel.load_state_dict(from_jax_params(_flatten(variables)), strict=True)
-    tmodel.eval()
+    jcfg, cfg, jmodel, variables, tmodel = _twin()
 
     dataset = synthetic_jax.SyntheticVISValDataset(
         num_frames=3, stride=2, n_videos=2, video_len=7, sizes=[(36, 48), (48, 36)],
