@@ -206,7 +206,37 @@
    plain versions on the run's first inputs, the merged overlays of both
    videos counted; `visualize_att_maps --per-level` on the same tree and
    weights, its capture held to the plain path's.
-15. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
+15. K6 with grouped heads (after K6's phase, `k6_grouped_phase`): G = 1, 2
+   and 4 query heads a value head at the clip mask head's six DCN-route
+   layers (B = 60): against the plain version in bf16 (2e-2) at every
+   layer, f32 (1e-4) at lay1 and lay5, with device time and the bound by
+   bytes (the G heads' shared value rows counted once).
+16. COCO panoptic (`panoptic_phase`): the COCO mask-head config as
+   `coco_panoptic` through `devis_torch.main` on a seeded panoptic tree
+   (4 + 4 JPEG images of 480x640 and 640x480, RGB segment PNGs with
+   things, stuff, a crowd segment and void pixels), full width (300
+   queries, 6 + 6 layers, bf16): 2 epochs of 2 steps of 2 images (K8 7,
+   K6 17, K9 5, K7 19 a step), `--eval-only` of the checkpoint (K8 7, K6 5,
+   K4 6 an image), `evaluate_panoptic` at score threshold 0 on seeded
+   random weights (counts again; at least one segment painted; PQ, SQ, RQ
+   finite), the train run's kernels on their first inputs against their
+   plain versions, one validation image against the plain versions at the
+   image path's gates; seconds an image and a step.
+17. COCO joint training (`joint_phase`): the YT-19 R50 config with
+   `COCO_JOINT_TRAINING True` through the CLI on one 6-frame video and 8
+   annotated COCO stills under one root, 4 steps at full width (K1, K2,
+   K3 6, K5 12, K6 and K7 12 a step), finite losses, at least one clip from
+   the stills (their count printed).
+18. Unequal point counts (`unequal_phase`): the YT-19 R50 config with 2
+   temporal points a frame, full width and depth: 3 clips (K6 36 a clip:
+   the current pass and the 20 temporal levels in 2 groups a layer; no
+   K1-K3), the clip's kernels on their first inputs and one clip against
+   the plain versions, one clip profiled; one train step (K6 36 + 12, K9
+   36, K7 12) with its kernels against their plain versions, and a
+   1 + 2-layer step against the plain path.
+19. The accuracy gate: `python -m devis_torch.accuracy_gate --smoke` in its
+   own process exits 0.
+20. Prints the `kernels` JSON line (K1-K10, K12a-K12c, each with
    `redesigned`: whether its first port has been redesigned for Hopper;
    `repeat_equal`: for K5, K7 and K9 whether the determinism phase's runs
    were equal, with `determinism` by shape; K5
@@ -225,12 +255,15 @@
    `ddp_launches`: its launches in the overfit phase's steps and tracking
    and in the 3 DDP steps; `viz_launches`: over the visualization phase's
    two runs; `overfit_max_abs_err`: its largest error in the
-   overfit phase's checks), a
+   overfit phase's checks; `panoptic_{train,eval}_launches`,
+   `joint_train_launches`, `unequal_{clip,train}_launches` and
+   `panoptic_max_abs_err`, `unequal_max_abs_err`; K6 with `grouped`), a
    clip-latency line, a
    train-step line with peak memory, the image model's two lines, the e2e
    line, the `cli` line, the `swin` line, the `ablations` line (each config's
    clip latency, busy ms, idle share, step ms and peak GiB, with the card),
-   the `overfit` line, the `ddp` line and the `viz` line, the card line,
+   the `overfit` line, the `ddp` line, the `viz` line, the `panoptic`,
+   `joint`, `unequal` and `gate` lines, the card line,
    and last {"ok":
    true, "device": {...}}.
 
@@ -1588,7 +1621,29 @@ def clip_wants(cfg, model, train: bool = False):
     b = int(train)
     if cfg.MODEL.DEVIS.DEFORMABLE_ATTENTION.DISABLE_TEMPORAL_CONNECTIONS:
         return [0, 0, 0, 0, n_enc + 1, n_dec - 1, b * (n_dec - 1), b * (n_enc + 1), n_dcn]
-    return [n_enc, n_enc, n_dec, b * (n_enc + n_dec), 0, 0, 0, 0, n_dcn]
+    k1, k3, k6 = unequal_layers(cfg)
+    return [k1, k1, k3, b * (k1 + k3), 0, k6, b * k6, 0, n_dcn]
+
+
+def unequal_layers(cfg):
+    """(K1 launches a clip, K3's, K6's) of the temporal attention: a layer
+    whose temporal point count equals its current one launches K1 (encoder)
+    or K3 (decoder) once; one with unequal counts runs the q-major op over
+    the current frame's L levels and over the W * L temporal levels in
+    groups of at most 16 (`level_groups`): 1 + ceil(W L / 16) K6 launches."""
+    from devis_torch.ops.ms_deform_attn import rule_window, temporal_frame_rule
+    from devis_torch.ops.ms_deform_attn_cuda import level_groups
+    da = cfg.MODEL.DEVIS.DEFORMABLE_ATTENTION
+    Tn, L = cfg.MODEL.DEVIS.NUM_FRAMES, cfg.MODEL.NUM_FEATURE_LEVELS
+    n_enc = cfg.MODEL.TRANSFORMER.ENCODER_LAYERS
+    n_dec = cfg.MODEL.TRANSFORMER.DECODER_LAYERS
+    w_enc = rule_window(temporal_frame_rule(Tn, da.ENC_TEMPORAL_WINDOW,
+                                            da.ENC_CONNECT_ALL_FRAMES), Tn)
+    enc_two = cfg.MODEL.TRANSFORMER.ENC_N_POINTS != da.ENC_N_POINTS_TEMPORAL_FRAME
+    dec_two = cfg.MODEL.TRANSFORMER.DEC_N_POINTS != da.DEC_N_POINTS_TEMPORAL_FRAME
+    k6 = (n_enc * (1 + len(level_groups(w_enc * L))) if enc_two else 0) \
+        + (n_dec * (1 + len(level_groups((Tn - 1) * L))) if dec_two else 0)
+    return (0 if enc_two else n_enc), (0 if dec_two else n_dec), k6
 
 
 def infer_clips(torch, card, cfg, model, what="inference path", n_clips=3):
@@ -2453,10 +2508,10 @@ def eval_images(torch, card, cfg, model, what="COCO inference path"):
     return dataset, launches, image_ms
 
 
-def coco_vs_plain(torch, dev, model, sample):
-    """One image (`sample` on its canvas) through the kernels and through
-    their plain versions on the card, held to the image path's gates.
-    Returns the errors."""
+def coco_vs_plain(torch, dev, model, sample, hw=COCO_HW, canvas=COCO_CANVAS):
+    """One image (`sample`, `hw` pixels, on its `canvas`) through the
+    kernels and through their plain versions on the card, held to the image
+    path's gates. Returns the errors."""
     import numpy as np
 
     from devis_torch.inference import pack_mask_bits
@@ -2466,10 +2521,10 @@ def coco_vs_plain(torch, dev, model, sample):
     from devis_torch.ops.deform_conv import modulated_deform_conv2d_plain
     from devis_torch.ops.ms_deform_attn import ms_deform_attn
 
-    x = torch.zeros((1,) + COCO_CANVAS + (3,), device=dev)
-    x[0, :COCO_HW[0], :COCO_HW[1]] = torch.from_numpy(sample["image"]).to(dev)
-    pad = torch.ones((1,) + COCO_CANVAS, dtype=torch.bool, device=dev)
-    pad[0, :COCO_HW[0], :COCO_HW[1]] = False
+    x = torch.zeros((1,) + tuple(canvas) + (3,), device=dev)
+    x[0, :hw[0], :hw[1]] = torch.from_numpy(sample["image"]).to(dev)
+    pad = torch.ones((1,) + tuple(canvas), dtype=torch.bool, device=dev)
+    pad[0, :hw[0], :hw[1]] = False
     with torch.inference_mode():
         out_k = model(x, pad)
         saved = (attn_mod.msda_proj, attn_mod.msda_taps, seg_mod.modulated_deform_conv2d)
@@ -2507,8 +2562,8 @@ def coco_vs_plain(torch, dev, model, sample):
         ip = torch.tensor([key_p.index(k) for k in both], device=dev)
         mk, mp = tk["masks"][0][ik].float(), tp["masks"][0][ip].float()
         errs["masks / max|masks|"] = ((mk - mp).abs().max() / mp.abs().max()).item()
-        bits_k = pack_mask_bits(mk[None], COCO_CANVAS)
-        bits_p = pack_mask_bits(mp[None], COCO_CANVAS)
+        bits_k = pack_mask_bits(mk[None], tuple(canvas))
+        bits_p = pack_mask_bits(mp[None], tuple(canvas))
         flipped = (bits_k ^ bits_p).cpu().numpy()
         bit_share = float(np.unpackbits(flipped).mean())
     log(f"  kernel path vs plain path on the card, max abs diff over the largest plain value "
@@ -2872,9 +2927,10 @@ def run_cli(torch, argv, ops, wants, first_step=None, **kwargs):
     evals = {}
     steps, canvases, waits = [], [], []
     saved = (inference.evaluate_coco, inference.inference_vis, engine.make_train_step,
-             datasets.TrainLoader.__iter__)
+             datasets.TrainLoader.__iter__, inference.evaluate_panoptic)
     inference.evaluate_coco = evals["coco"] = _Timed(torch, saved[0])
     inference.inference_vis = evals["vis"] = _Timed(torch, saved[1])
+    inference.evaluate_panoptic = evals["panoptic"] = _Timed(torch, saved[4])
 
     def before_step(state, batch, gen=None):
         canvases.append(tuple(batch["images"].shape[-3:-1]))
@@ -2906,7 +2962,7 @@ def run_cli(torch, argv, ops, wants, first_step=None, **kwargs):
             result = cli.main(argv, **kwargs)
     finally:
         (inference.evaluate_coco, inference.inference_vis, engine.make_train_step,
-         datasets.TrainLoader.__iter__) = saved
+         datasets.TrainLoader.__iter__, inference.evaluate_panoptic) = saved
     launches = {fn.__name__: fn.launches for fn in ops}
     log(f"  launches: {launches}")
     check_coco_counts(ops, wants)
@@ -2915,7 +2971,7 @@ def run_cli(torch, argv, ops, wants, first_step=None, **kwargs):
         log(f"  steps {[round(v, 4) for v in step_s]} s on canvases {canvases}; waits for a "
             f"batch {[round(v, 4) for v in waits]} s")
     return types.SimpleNamespace(
-        result=result, launches=launches, eval_s=sum(evals["coco"].secs) + sum(evals["vis"].secs),
+        result=result, launches=launches, eval_s=sum(sum(e.secs) for e in evals.values()),
         step_s=step_s, canvas=canvases, waits=waits, calls=first.args)
 
 
@@ -3595,7 +3651,7 @@ def ablation_phase(torch, dev, card):
 # training over many steps, and across processes
 # ---------------------------------------------------------------------------
 
-OVERFIT_STEPS = 1000
+OVERFIT_STEPS = 600             # the JAX script's 1000 cut to keep the run's clock
 
 
 def overfit_phase(torch, dev, card):
@@ -3905,6 +3961,296 @@ def viz_phase(torch, dev, card):
     return rec, total
 
 
+# ---------------------------------------------------------------------------
+# COCO panoptic, COCO joint training, unequal point counts, grouped heads,
+# the accuracy gate
+# ---------------------------------------------------------------------------
+
+PANOPTIC_TRAIN, PANOPTIC_VAL = 4, 4           # images of 480x640 and 640x480
+PANOPTIC_EPOCHS = 2                           # of 2 steps of 2 images
+
+
+def panoptic_phase(torch, dev, card):
+    """`DATASETS.TYPE coco_panoptic` through `devis_torch.main` on a seeded
+    panoptic tree (JPEG images, RGB segment PNGs), the COCO mask-head config
+    at full width (300 queries, 6 + 6 layers, bf16): 2 epochs of 2 steps
+    (K8 7, K6 17, K9 5, K7 19 a step), `--eval-only` of the checkpoint
+    (K8 7, K6 5, K4 6 an image), then `evaluate_panoptic` at score
+    threshold 0 on seeded random weights with the noise of step 3 (every
+    top-k mask goes to the paint step: at least one segment painted; PQ,
+    SQ, RQ finite), the train run's kernels on their first inputs against
+    their plain versions and one validation image through the kernels
+    against the plain versions at the image path's gates."""
+    import tempfile
+
+    import numpy as np
+
+    from devis_torch.datasets import build_dataset, pick_canvas
+    from devis_torch.inference import evaluate_panoptic, make_eval_buckets
+    from devis_torch.main import parse_args, setup_cfg
+    from devis_torch.models import build_model
+    from devis_torch.util.fixtures import tree_summary, write_coco_panoptic_tree
+
+    t_phase = time.perf_counter()
+    ops = coco_ops()
+    img = (7, 5, 0, 0, 6, 0)                                   # K8 K6 K9 K7 K4 K10
+    step = (7, 5 + 6 * 2, 5, 7 + 6 * 2, 0, 0)
+    n_steps = PANOPTIC_EPOCHS * PANOPTIC_TRAIN // 2
+    with tempfile.TemporaryDirectory(prefix="devis_panoptic_") as tmp:
+        data = write_coco_panoptic_tree(os.path.join(tmp, "data"), seed=SEED,
+                                        n_train=PANOPTIC_TRAIN, n_val=PANOPTIC_VAL,
+                                        sizes=((480, 640), (640, 480)))
+        log(f"panoptic phase: tree written: {tree_summary(data)}")
+        out = os.path.join(tmp, "out")
+        argv = ["--config-file", os.path.join(HERE, CLI_COCO_CONFIG)]
+        opts = ["DATASETS.TYPE", "coco_panoptic", "TPU.COMPUTE_DTYPE", "bfloat16",
+                "MODEL.WEIGHTS", "", "DATASETS.DATA_PATH", data, "OUTPUT_DIR", out,
+                "SOLVER.BATCH_SIZE", "2", "TEST.EVAL_BATCH_SIZE", "1"]
+        log(f"CLI panoptic train: {PANOPTIC_EPOCHS} epochs of 2 steps of 2 images")
+        train = run_cli(torch, argv + opts + ["SOLVER.EPOCHS", str(PANOPTIC_EPOCHS),
+                                              "TEST.START_EVAL_EPOCH", "9"],
+                        ops, [n_steps * a for a in step])
+        for ep in train.result["epochs"]:
+            check_finite("panoptic train", ep["train"])
+        checks = {"train": cli_kernel_checks(torch, dev, train.calls, True, "panoptic train")}
+        weights = os.path.join(out, "checkpoint")
+        log(f"CLI panoptic --eval-only: {PANOPTIC_VAL} images, PQ at score threshold 0.5")
+        ev = run_cli(torch, argv + ["--eval-only"] + opts + ["MODEL.WEIGHTS", weights], ops,
+                     [PANOPTIC_VAL * b for b in img])
+        check_finite("panoptic eval", ev.result["eval"])
+        log(f"  {ev.result['eval']}")
+
+        # the trained checkpoint's mask logits are all below 0 after 4 steps
+        # (the mask loss pushes the background down first), so the paint step
+        # runs on the seeded random weights with the noise of step 3
+        cfg = setup_cfg(parse_args(argv + opts))
+        dataset, n_classes = build_dataset("VAL", cfg)
+        model = build_model(n_classes, cfg, seed=SEED)
+        move_taps_off_the_grid(torch, model, dev, True)
+        log(f"evaluate_panoptic at score threshold 0: {PANOPTIC_VAL} images, seeded weights")
+        zero_coco_counts(ops)
+        t0 = time.perf_counter()
+        stats = evaluate_panoptic(model, dataset, cfg, score_threshold=0.0)
+        eval_s = time.perf_counter() - t0
+        check_coco_counts(ops, [PANOPTIC_VAL * b for b in img])
+        check_finite("panoptic PQ at threshold 0", stats)
+        if set(stats) != {"PQ", "SQ", "RQ", "PQ_th", "PQ_st", "segments"} \
+                or stats["segments"] < 1:
+            raise AssertionError(f"evaluate_panoptic at threshold 0: {stats}")
+        sample = dataset[0]
+        hw = sample["image"].shape[:2]
+        canvas = pick_canvas(*hw, make_eval_buckets(cfg.INPUT.MIN_SIZE_TEST,
+                                                    cfg.INPUT.MAX_SIZE_TEST))
+        log(f"  one image of {hw[0]}x{hw[1]} on {canvas[0]}x{canvas[1]}: kernel path against "
+            "plain path")
+        vs_plain = coco_vs_plain(torch, dev, model, sample, hw, canvas)
+        del model
+    torch.cuda.empty_cache()
+    rec = {"eval_threshold_0": stats, "eval_cli": ev.result["eval"],
+           "s_per_image": eval_s / PANOPTIC_VAL, "cli_s_per_image": ev.eval_s / PANOPTIC_VAL,
+           "train_step_s": train.step_s, "step_canvas": train.canvas,
+           "batch_wait_s": train.waits, "vs_plain": vs_plain, "kernel_checks": checks,
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    log(f"panoptic phase: {stats['segments']} segments painted at threshold 0, PQ "
+        f"{stats['PQ']:.3f} SQ {stats['SQ']:.3f} RQ {stats['RQ']:.3f}; "
+        f"{rec['s_per_image']:.3f} s an image (threshold 0), {rec['cli_s_per_image']:.3f} s "
+        f"(CLI, 0.5); steps {[round(v, 3) for v in train.step_s]} s on "
+        f"{train.canvas} ({card}); {rec['phase_s']:.1f} s")
+    return rec, {"panoptic_train": train.launches, "panoptic_eval": ev.launches}
+
+
+JOINT_STEPS = 4
+
+
+def joint_phase(torch, dev, card):
+    """`DATASETS.DEVIS.COCO_JOINT_TRAINING True` through `devis_torch.main`:
+    the YT-19 R50 config at full width (bf16) on a YT-19 tree of one
+    6-frame training video and a COCO tree of 8 annotated images under one
+    root, JOINT_STEPS steps (K1, K2, K3 6, K5 12, K6 and K7 12 a step, as the
+    CLI phase's), finite losses, and how many clips came from the joint
+    set (at least one)."""
+    import tempfile
+
+    from devis_torch.datasets import coco_joint_vis
+    from devis_torch.util.fixtures import write_coco_tree, write_vis_tree
+
+    t_phase = time.perf_counter()
+    drawn = []
+    real = coco_joint_vis.CocoJointVIS.__getitem__
+
+    def counted(self, idx):
+        drawn.append(idx)
+        return real(self, idx)
+    vstep = (6, 6, 6, 12, 12, 12, 0)                  # K1 K2 K3 K5 K6 K7 K4
+    with tempfile.TemporaryDirectory(prefix="devis_joint_") as tmp:
+        data = os.path.join(tmp, "data")
+        write_vis_tree(data, seed=SEED, n_train=1, n_val=1, n_frames=6, size=VIDEO_HW)
+        write_coco_tree(data, seed=SEED + 1, n_train=9, n_val=1, sizes=((480, 640), (640, 480)))
+        argv = ["--config-file", os.path.join(HERE, CLI_VIS_CONFIG),
+                "TPU.COMPUTE_DTYPE", "bfloat16", "MODEL.WEIGHTS", "", "DATASETS.DATA_PATH", data,
+                "OUTPUT_DIR", os.path.join(tmp, "out"), "DATASETS.DEVIS.COCO_JOINT_TRAINING",
+                "True", "SOLVER.EPOCHS", "1", "TEST.START_EVAL_EPOCH", "9"]
+        log(f"CLI joint training: {JOINT_STEPS} steps over 1 video clip and the COCO stills")
+        coco_joint_vis.CocoJointVIS.__getitem__ = counted
+        try:
+            run = run_cli(torch, argv, kernel_ops(), [JOINT_STEPS * a for a in vstep],
+                          max_steps=JOINT_STEPS)
+        finally:
+            coco_joint_vis.CocoJointVIS.__getitem__ = real
+    ep = run.result["epochs"][0]
+    check_finite("joint train", ep["train"])
+    if ep["step"] != JOINT_STEPS or not drawn:
+        raise AssertionError(f"joint training: {ep['step']} steps, {len(drawn)} joint clips")
+    rec = {"steps": ep["step"], "joint_clips": len(drawn), "train_step_s": run.step_s,
+           "step_canvas": run.canvas, "batch_wait_s": run.waits, "loss": ep["train"]["loss"],
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    log(f"joint phase: {len(drawn)} of {JOINT_STEPS} clips from the COCO stills; steps "
+        f"{[round(v, 3) for v in run.step_s]} s on {run.canvas}; batch waits "
+        f"{[round(v, 3) for v in run.waits]} s ({card}); {rec['phase_s']:.1f} s")
+    return rec, {"joint_train": run.launches}
+
+
+UNEQUAL_OPTS = ["MODEL.DEVIS.DEFORMABLE_ATTENTION.ENC_N_POINTS_TEMPORAL_FRAME", "2",
+                "MODEL.DEVIS.DEFORMABLE_ATTENTION.DEC_N_POINTS_TEMPORAL_FRAME", "2"]
+
+
+def unequal_phase(torch, dev, card):
+    """The YT-19 R50 config with 2 temporal points a frame (4 current) at
+    full width and depth, bf16, seeded random weights with the noise of
+    step 3: the temporal attention runs the q-major op twice a layer, the
+    20 temporal levels in 2 groups (K6 3 a layer, 36 a clip; K9 as many in
+    a step; no K1, K2, K3, K5). 3 clips through `VISInferFn` with their
+    launches, the clip's kernels on their first inputs and one clip against
+    the plain versions (the clip path's gates), one clip profiled; one
+    train step with launches, its kernels on their first inputs, then a
+    1 + 2-layer step against the plain path (the train path's gates)."""
+    from devis_torch.engine import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    rec = {"card": card}
+    cfg, model = build_from_file(torch, dev, CLI_VIS_CONFIG, NUM_CLASSES, UNEQUAL_OPTS)
+    with _FirstCalls(torch) as first:
+        infer, video, launches, lat = infer_clips(torch, card, cfg, model,
+                                                  "unequal point counts", 3)
+    rec["clip_kernel_errs"] = cli_kernel_checks(torch, dev, first.args, False,
+                                                "unequal points clip")
+    x, pad = clip_input(torch, dev, infer, video)
+    rec["clip_vs_plain"] = clip_vs_plain(torch, model, x, pad)
+    busy, wall, by_group = profile_run(torch, "unequal points clip", lambda: infer(video, 0))
+    rec.update(clip_ms=lat, clip_busy_ms=busy, clip_wall_ms=wall,
+               clip_idle_share=max(0.0, 1 - busy / wall), clip_groups_ms=by_group)
+    del infer
+
+    log("unequal points train step: make_train_step, the train path's batch")
+    k1, k3, k6 = unequal_layers(cfg)
+    n_dcn, n_mask = 6, 1 + len(cfg.MODEL.LOSS.MASK_AUX_LOSS)
+    state = create_train_state(cfg, model, steps_per_epoch=100)
+    step = make_train_step(model, cfg)
+    batch = train_batch(N_SLOTS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    state, _ = step(state, batch, gen)                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops = clip_ops()
+    zero_coco_counts(ops)
+    with _FirstCalls(torch) as first:
+        state, step_ms = timed_steps(torch, step, state, batch, gen, 1)
+    train_launches = {fn.__name__: fn.launches for fn in ops}
+    log(f"  launches: {train_launches}")
+    check_coco_counts(ops, [k1, k1, k3, k1 + k3, 0, k6 + n_dcn * n_mask, k6, n_dcn * n_mask, 0])
+    rec.update(step_ms=step_ms[0], peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    model.eval()
+    del state, step
+    rec["train_kernel_errs"] = cli_kernel_checks(torch, dev, first.args, True,
+                                                 "unequal points train step")
+    del model
+    torch.cuda.empty_cache()
+    log("unequal points: kernel path against plain path, one train step, 1+2 layers")
+    cfg2, model2 = build_from_file(torch, dev, CLI_VIS_CONFIG, NUM_CLASSES, UNEQUAL_OPTS + [
+        "MODEL.TRANSFORMER.ENCODER_LAYERS", "1", "MODEL.TRANSFORMER.DECODER_LAYERS", "2",
+        "MODEL.LOSS.MASK_AUX_LOSS", "[0]"], box_noise=False)
+    rec["step_vs_plain"] = compare_train_paths(torch, cfg2, model2, train_batch(N_SLOTS),
+                                               clip_ops(), {"msda_taps": "ms_deform_attn",
+                                                            "msda_rows": "ms_deform_attn"})
+    del model2
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"unequal points phase: clip {[round(v, 3) for v in lat]} ms, busy {busy:.3f} ms of "
+        f"{wall:.3f}; step {rec['step_ms']:.3f} ms, peak {rec['peak_gib']:.3f} GiB ({card}); "
+        f"{rec['phase_s']:.1f} s")
+    return rec, {"unequal_clip": launches, "unequal_train": train_launches}
+
+
+K6_GROUPS = (1, 2, 4)
+
+
+def k6_grouped_phase(torch, dev, gen, results):
+    """K6 with G query heads a value head (the q-major op's `groups`) at the
+    clip mask head's six DCN-route layers (9 one-point levels, B = 60):
+    against the plain version in bf16 (2e-2) at every layer and G, in f32
+    (1e-4) at lay1 and lay5; device time beside G = 1 and the bound by
+    bytes. Adds `grouped` to K6's record."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.ms_deform_attn import ms_deform_attn
+
+    log(f"K6 with grouped heads, G in {K6_GROUPS}, B={DCN_B}, at the clip mask head's layers")
+    rec = {}
+    with torch.no_grad():
+        for G in K6_GROUPS:
+            tot = dict(ms=0.0, bound_ms=0.0, err=0.0, layers=[])
+            for name, _, cout, h, w in DCN_LAYERS:
+                shapes = ((h, w),) * 9
+                value, loc, att, _ = mask_head_rows(torch, dev, gen, DCN_B, cout, h, w)
+                loc = loc.expand(-1, -1, G, -1, -1, -1).clone()
+                loc = (loc + torch.randn(loc.shape, generator=gen, device=dev) * 0.5
+                       / torch.tensor([w, h], device=dev)).contiguous()
+                att = (att.expand(-1, -1, G, -1, -1)
+                       * torch.rand((DCN_B, h * w, G, 9, 1), generator=gen, device=dev)
+                       ).contiguous()
+                v16 = value.to(torch.bfloat16)
+                if name in ("lay1", "lay5"):
+                    compare(f"{name} G={G} K6 f32 ", K.msda_taps(value, shapes, loc, att),
+                            ms_deform_attn(value, shapes, loc, att), 1e-4)
+                err = compare(f"{name} G={G} K6 bf16", K.msda_taps(v16, shapes, loc, att),
+                              ms_deform_attn(v16, shapes, loc, att), 2e-2)
+                ms = device_ms(lambda: K.msda_taps(v16, shapes, loc, att), "msda_rows_kernel",
+                               iters=10)
+                # the G heads read the one value head: count its rows once
+                _, _, rows = corner_stats(loc.permute(0, 1, 4, 3, 2, 5), shapes)
+                nbytes = (rows * cout * 2 + (loc.numel() + att.numel()) * 4
+                          + DCN_B * h * w * G * cout * 2)
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                tot["ms"] += ms
+                tot["bound_ms"] += bound
+                tot["err"] = max(tot["err"], err)
+                tot["layers"].append(dict(layer=name, ms=ms, bound_ms=bound))
+                log(f"    {name} D={cout} G={G}: K6 {ms:.4f} ms by device time, bound "
+                    f"{bound:.4f} ms")
+                del value, loc, att, v16
+            torch.cuda.empty_cache()
+            rec[str(G)] = tot
+            log(f"  G={G}: six layers {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    results["K6"]["grouped"] = rec
+    results["K6"]["max_abs_err"] = max(results["K6"]["max_abs_err"],
+                                       max(r["err"] for r in rec.values()))
+
+
+def gate_phase(torch, card):
+    """`python -m devis_torch.accuracy_gate --smoke` in its own process on
+    the card: exit code 0 and the gate's lines."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "devis_torch.accuracy_gate", "--smoke"],
+                          cwd=HERE, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    tail = (proc.stdout + proc.stderr)[-3000:]
+    log(f"accuracy gate --smoke: rc {proc.returncode} in {secs:.1f} s ({card})")
+    for line in proc.stdout.splitlines()[-4:]:
+        log(f"  {line}")
+    if proc.returncode != 0 or "smoke: PASS" not in proc.stdout:
+        raise AssertionError(f"accuracy gate --smoke failed (rc {proc.returncode}):\n{tail}")
+    return {"rc": proc.returncode, "s": secs, "card": card}
+
+
 def main() -> int:
     try:
         import torch
@@ -3941,6 +4287,7 @@ def main() -> int:
         dcn_phase(torch, dev, gen, results)
     temporal_bwd_phase(torch, dev, gen, results)
     rows_phase(torch, dev, gen, results)
+    k6_grouped_phase(torch, dev, gen, results)
     coco_kernel_phases(torch, dev, gen, results)
     determinism_phase(torch, dev, gen, results)
     torch.cuda.empty_cache()
@@ -3980,6 +4327,15 @@ def main() -> int:
     ddp, ddp_launches = ddp_phase(torch, dev, card)
     torch.cuda.empty_cache()
     viz, viz_launches = viz_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+    panoptic, panoptic_launches = panoptic_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+    joint, joint_launches = joint_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+    unequal, unequal_launches = unequal_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+    gate = gate_phase(torch, card)
+    new_launches = {**panoptic_launches, **joint_launches, **unequal_launches}
     probe_launches = check_probes_idle("every model path")
 
     # K1-K4: launches of the clip inference path's 3 clips; K5-K7: of the clip
@@ -4030,6 +4386,11 @@ def main() -> int:
                                         if key in overfit[c]), default=None),
             "ddp_launches": ddp_launches.get(r["name"], 0),
             "viz_launches": viz_launches.get(r["name"], 0),
+            **{f"{path}_launches": n.get(r["name"], 0) for path, n in new_launches.items()},
+            "panoptic_max_abs_err": panoptic["kernel_checks"]["train"].get(key),
+            "unequal_max_abs_err": max((unequal[c][key] for c in ("clip_kernel_errs",
+                                                                  "train_kernel_errs")
+                                        if key in unequal[c]), default=None),
             **({"ablation0_w35": ablations["0"]["kernels_w"][key]}
                if key in ablations["0"]["kernels_w"] else {}),
             **{k: r[k] for k in ("device_ms", "determinism",
@@ -4038,7 +4399,7 @@ def main() -> int:
                                  "script_shape", "shapes", "hmma_in_sass", "max_sm_clock_mhz",
                                  "hgmma_in_sass", "sync", "library_48_ms", "method_floor_ms",
                                  "method_flops", "grid", "raster_ms", "random_ms",
-                                 "coco_f1", "breakdown")
+                                 "coco_f1", "breakdown", "grouped")
                if k in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"clip_ms": clip_ms, "fps": STRIDE / clip_ms * 1e3, "card": card}))
@@ -4054,6 +4415,10 @@ def main() -> int:
     print(json.dumps({"overfit": overfit}))
     print(json.dumps({"ddp": ddp}))
     print(json.dumps({"viz": viz}))
+    print(json.dumps({"panoptic": panoptic}))
+    print(json.dumps({"joint": joint}))
+    print(json.dumps({"unequal": unequal}))
+    print(json.dumps({"gate": gate}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

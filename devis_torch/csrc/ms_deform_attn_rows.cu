@@ -16,6 +16,10 @@
 // one point each, D = Cout from 264 down to 1, Q = H*W pixels. The image
 // encoder (Q = S, M = 8, D = 32) runs K7 as K8's backward.
 //
+// Grouped heads (the JAX op's `groups`, ms_deform_attn_pallas.py:509-516):
+// loc and att may carry G query heads a value head, MG = G * M; unit
+// (b, q, mg) reads value head mg / G and writes out (B, Q, MG * D).
+//
 // K6. What bound the first design (a group of G = min(32, pow2 >= D)
 // lanes per (b, q, m), lane i owning channels i, i + G, ...): every lane
 // walked the taps in turn, one dependent round trip each, with 2-byte loads
@@ -107,15 +111,16 @@ __device__ __forceinline__ float4 tap_entry(const Pyramid& pyr, int l, bool live
   return make_float4(dx, dy, a, __uint_as_float(packed));
 }
 
-// value (B, S, M, D); loc (B, Q, M, L, P, 2) f32; att (B, Q, M, L, P) f32
-// -> out (B, Q, M*D). CW channels a thread: 16 bytes, or 1 (any alignment).
+// value (B, S, M, D); loc (B, Q, M*G, L, P, 2) f32; att (B, Q, M*G, L, P)
+// f32 -> out (B, Q, M*G*D): query head mg reads value head mg / G. CW
+// channels a thread: 16 bytes, or 1 (any alignment).
 // ONE: a unit is one thread, which computes its taps itself; else dynamic
 // shared memory holds units * L * P float4 of tap geometry.
 template <typename scalar_t, int CW, bool ONE>
 __global__ void __launch_bounds__(K6_MAX_THREADS) msda_rows_kernel(
     const scalar_t* __restrict__ value, const float* __restrict__ loc,
     const float* __restrict__ att, scalar_t* __restrict__ out, long n_units, int Q, int S, int M,
-    int D, int P, int pshift, Pyramid pyr, RowsPlan plan) {
+    int G, int D, int P, int pshift, Pyramid pyr, RowsPlan plan) {
   using C = Chunk<scalar_t, CW>;
   constexpr int U = ONE ? K6_UNROLL_ONE : K6_UNROLL;
   extern __shared__ float4 s_geo[];  // (unit, tap): dx, dy, a, packed corner
@@ -158,8 +163,8 @@ __global__ void __launch_bounds__(K6_MAX_THREADS) msda_rows_kernel(
   const int c0 = (slice * plan.chunks + c) * CW;
   const bool live = item >= 0 && c < plan.chunks && c0 < D;
   const size_t row = (size_t)M * D;
-  const long b = live ? item / ((long)M * Q) : 0;
-  const int m = live ? (int)(item % M) : 0;
+  const long b = live ? item / ((long)M * G * Q) : 0;
+  const int m = live ? (int)(item % ((long)M * G)) / G : 0;
   const scalar_t* vm = value + (size_t)b * S * row + (size_t)m * D + c0;
   const float4* geo = s_geo + (size_t)(live ? u : 0) * LP;
   const size_t t0 = (size_t)(live ? item : 0) * LP;
@@ -219,11 +224,12 @@ struct SameFrame {
 // 16 bytes among them).
 template <typename scalar_t>
 static int launch_rows(void* value, void* loc, void* att, void* out, int B, int Q, int S, int M,
-                       int D, int P, int vec, int lanes, int groups, int slices, int chunks,
-                       int units, int threads, const int* levels, int L, void* stream) {
+                       int G, int D, int P, int vec, int lanes, int groups, int slices,
+                       int chunks, int units, int threads, const int* levels, int L,
+                       void* stream) {
   constexpr int VN = Vec16<scalar_t>::N;
   const int bad = (int)cudaErrorInvalidValue;
-  if (B < 1 || Q < 1 || M < 1 || D < 1 || P < 1 || L < 1 || L > MAX_LEVELS) return bad;
+  if (B < 1 || Q < 1 || M < 1 || G < 1 || D < 1 || P < 1 || L < 1 || L > MAX_LEVELS) return bad;
   const int cw = vec ? VN : 1, per_unit = groups * lanes;
   if (lanes < 1 || groups < 1 || slices < 1 || units < 1 || chunks < 1 || chunks > lanes ||
       chunks > K6_MAX_CHUNKS || (long)slices * chunks * cw < D ||
@@ -235,7 +241,7 @@ static int launch_rows(void* value, void* loc, void* att, void* out, int B, int 
   if ((uintptr_t)loc % 8 != 0) return bad;
   const bool one = per_unit == 1;
   const size_t smem = one ? 0 : (size_t)units * L * P * sizeof(float4);
-  const long n_units = (long)B * Q * M * slices, blocks = (n_units + units - 1) / units;
+  const long n_units = (long)B * Q * M * G * slices, blocks = (n_units + units - 1) / units;
   if (smem > K6_SMEM || blocks > 0x7fffffffL) return bad;
   const Pyramid pyr = make_pyramid(levels, L);
   for (int l = 0; l < L; ++l)
@@ -247,7 +253,7 @@ static int launch_rows(void* value, void* loc, void* att, void* out, int B, int 
                            : &msda_rows_kernel<scalar_t, 1, false>);
   kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
       (const scalar_t*)value, (const float*)loc, (const float*)att, (scalar_t*)out, n_units, Q,
-      S, M, D, P, point_shift(P), pyr, p);
+      S, M, G, D, P, point_shift(P), pyr, p);
   return (int)cudaGetLastError();
 }
 
@@ -276,18 +282,18 @@ static int launch_rows_bwd(void* value, void* loc, void* att, void* grad_out, vo
 // (L, 2) host ints (h, w). Each returns cudaGetLastError().
 extern "C" {
 
-int msda_rows_f32(void* value, void* loc, void* att, void* out, int B, int Q, int S, int M, int D,
-                  int P, int vec, int lanes, int groups, int slices, int chunks, int units,
-                  int threads, const int* levels, int L, void* stream) {
-  return launch_rows<float>(value, loc, att, out, B, Q, S, M, D, P, vec, lanes, groups, slices,
-                            chunks, units, threads, levels, L, stream);
+int msda_rows_f32(void* value, void* loc, void* att, void* out, int B, int Q, int S, int M, int G,
+                  int D, int P, int vec, int lanes, int groups, int slices, int chunks,
+                  int units, int threads, const int* levels, int L, void* stream) {
+  return launch_rows<float>(value, loc, att, out, B, Q, S, M, G, D, P, vec, lanes, groups,
+                            slices, chunks, units, threads, levels, L, stream);
 }
 
 int msda_rows_bf16(void* value, void* loc, void* att, void* out, int B, int Q, int S, int M,
-                   int D, int P, int vec, int lanes, int groups, int slices, int chunks,
+                   int G, int D, int P, int vec, int lanes, int groups, int slices, int chunks,
                    int units, int threads, const int* levels, int L, void* stream) {
-  return launch_rows<__nv_bfloat16>(value, loc, att, out, B, Q, S, M, D, P, vec, lanes, groups,
-                                    slices, chunks, units, threads, levels, L, stream);
+  return launch_rows<__nv_bfloat16>(value, loc, att, out, B, Q, S, M, G, D, P, vec, lanes,
+                                    groups, slices, chunks, units, threads, levels, L, stream);
 }
 
 int msda_rows_bwd_f32(void* value, void* loc, void* att, void* grad_out, void* grad_value,

@@ -227,7 +227,7 @@ def build_dataset(image_set: str, cfg):
         from .vis import build_vis
         return build_vis(image_set, cfg)
     if cfg.DATASETS.TYPE == "coco_panoptic":
-        raise NotImplementedError("the coco_panoptic dataset is ROADMAP.md queue A "
-                                  "item 5 of the port")
+        from .coco_panoptic import build_coco_panoptic
+        return build_coco_panoptic(image_set, cfg)
     from .coco import build_coco
     return build_coco(image_set, cfg)

@@ -10,13 +10,15 @@ counterpart of the JAX package's `cv2.imread(path, IMREAD_COLOR)` followed by
   dropped and gray is repeated into the three channels. Anything else
   (another bit depth, a palette, Adam7 interlacing) raises `ValueError`
   naming the file and the feature.
-- JPEG: through Pillow where it can be imported, else `ImportError` naming
-  Pillow and ROADMAP.md queue A item 3 (a Pillow-free JPEG decoder). Pillow
-  does not apply an EXIF orientation; IMREAD_COLOR does.
+- JPEG: through Pillow, imported inside the functions that use it (JPEG
+  needs Pillow as the JAX package's reads need cv2); without it
+  `ImportError` names Pillow. The EXIF orientation (tag 0x0112) is applied
+  as IMREAD_COLOR applies it (`ImageOps.exif_transpose`).
 
 The format is told by the file's first bytes, not by its name.
 `encode_png` writes the PNG files the port's fixtures and tests need, with
-any of the five filters and the image data split over several IDAT chunks.
+any of the five filters and the image data split over several IDAT chunks;
+`encode_jpeg` the JPEG files, with an EXIF orientation where asked.
 """
 from __future__ import annotations
 
@@ -185,11 +187,36 @@ def encode_png(pixels: np.ndarray, filter_type: int = 0, idat_bytes: int = 1 << 
             + b"".join(chunk(b"IDAT", p) for p in parts) + chunk(b"IEND", b""))
 
 
-def _decode_jpeg(path: str) -> np.ndarray:
+def _pillow(what: str):
     try:
-        from PIL import Image
+        from PIL import Image, ImageOps
     except ImportError:
-        raise ImportError(f"{path}: decoding JPEG needs Pillow, which is not installed; "
-                          "a Pillow-free JPEG decoder is ROADMAP.md queue A item 3") from None
+        raise ImportError(f"{what}: JPEG needs Pillow, which is not installed") from None
+    return Image, ImageOps
+
+
+def _decode_jpeg(path: str) -> np.ndarray:
+    Image, ImageOps = _pillow(path)
     with Image.open(path) as im:
+        im = ImageOps.exif_transpose(im)
         return np.ascontiguousarray(np.asarray(im.convert("RGB"), np.uint8))
+
+
+def encode_jpeg(pixels: np.ndarray, quality: int = 90, orientation: int = 0) -> bytes:
+    """JPEG bytes of uint8 (h, w, 3) RGB pixels at `quality`; an
+    `orientation` of 1-8 is written as the EXIF tag 0x0112 (the pixels are
+    stored as given: a reader that applies the tag transposes them)."""
+    import io
+    Image, _ = _pillow("encode_jpeg")
+    pixels = np.asarray(pixels)
+    if pixels.dtype != np.uint8 or pixels.ndim != 3 or pixels.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes uint8 (h, w, 3), not {pixels.dtype} "
+                         f"{pixels.shape}")
+    kw = {}
+    if orientation:
+        exif = Image.Exif()
+        exif[0x0112] = int(orientation)
+        kw["exif"] = exif.tobytes()
+    buf = io.BytesIO()
+    Image.fromarray(pixels, "RGB").save(buf, "JPEG", quality=quality, **kw)
+    return buf.getvalue()

@@ -277,12 +277,22 @@ def build_vis(image_set: str, cfg):
                              max_clip_length=T, stride=cfg.TEST.CLIP_TRACKING.STRIDE,
                              min_size=cfg.INPUT.MIN_SIZE_TEST,
                              max_size=cfg.INPUT.MAX_SIZE_TEST), num_classes
+    ds = VISTrainDataset(os.path.join(root, ann), os.path.join(root, img_dir),
+                         num_frames=T, rng=random.Random(cfg.SEED),
+                         sample_each_frame=cfg.INPUT.DEVIS.SAMPLE_EACH_FRAME,
+                         scale_factor=cfg.INPUT.SCALE_FACTOR_TRAIN,
+                         create_bbx_from_mask=cfg.INPUT.DEVIS.CREATE_BBX_FROM_MASK)
     if cfg.DATASETS.DEVIS.COCO_JOINT_TRAINING:
-        raise NotImplementedError("COCO_JOINT_TRAINING (coco_joint_vis) is ROADMAP.md "
-                                  "queue A item 3 of the port")
-    return VISTrainDataset(os.path.join(root, ann), os.path.join(root, img_dir),
-                           num_frames=T, rng=random.Random(cfg.SEED),
-                           sample_each_frame=cfg.INPUT.DEVIS.SAMPLE_EACH_FRAME,
-                           scale_factor=cfg.INPUT.SCALE_FACTOR_TRAIN,
-                           create_bbx_from_mask=cfg.INPUT.DEVIS.CREATE_BBX_FROM_MASK
-                           ), num_classes
+        # COCO stills as pseudo-clips after the videos, with the split's
+        # category map (devis_tpu/datasets/vis.py:319-332)
+        from .coco import COCO_PATHS
+        from .coco_joint_vis import (COCO_TO_YT19_CATEGORY_MAP, COCO_TO_YT21_CATEGORY_MAP,
+                                     CocoJointVIS)
+        cdir, cann, _ = COCO_PATHS["train"]
+        joint = CocoJointVIS(os.path.join(root, cdir), os.path.join(root, cann),
+                             num_frames=T,
+                             category_map=(COCO_TO_YT19_CATEGORY_MAP if "19" in split
+                                           else COCO_TO_YT21_CATEGORY_MAP),
+                             seed=cfg.SEED, scale_factor=cfg.INPUT.SCALE_FACTOR_TRAIN)
+        ds = ConcatDataset([ds, joint])
+    return ds, num_classes

@@ -190,9 +190,8 @@ def make_train_step(model: nn.Module, cfg) -> Callable:
     rank's share and the metrics are the global batch's."""
     module = model.module if isinstance(model, DistributedDataParallel) else model
     is_vis = cfg.DATASETS.TYPE == "vis"
-    if not is_vis and cfg.DATASETS.TYPE != "coco":
-        raise NotImplementedError(f"no train step for {cfg.DATASETS.TYPE!r}: "
-                                  "panoptic training is a ROADMAP item")
+    if not is_vis and cfg.DATASETS.TYPE not in ("coco", "coco_panoptic"):
+        raise ValueError(f"no train step for {cfg.DATASETS.TYPE!r}")
     mask_on = bool(cfg.MODEL.MASK_ON)
     weight_dict = build_weight_dict(cfg)
     T = cfg.MODEL.DEVIS.NUM_FRAMES

@@ -428,3 +428,87 @@ def evaluate_coco(model, dataset, cfg, evaluator=None, device=None,
             print("val losses:", {k: round(v, 4) for k, v in sorted(summary["losses"].items())
                                   if not k[-1].isdigit()})
     return summary
+
+
+def paint_panoptic(top_k: Dict[str, np.ndarray], canvas: Tuple[int, int],
+                   hw: Tuple[int, int], gt_hw: Tuple[int, int],
+                   score_threshold: float = 0.5, min_pixels: int = 4):
+    """One image's panoptic prediction from its fetched `top_k` (scores
+    (K,), labels (K,), masks (K, h', w') logits; numpy), the mask-wise rule
+    of `devis_tpu/inference.py:577-600`: in descending score order each mask
+    at or above `score_threshold` is upsampled to the `canvas` (bilinear f32,
+    cv2's INTER_LINEAR rule), thresholded at logit 0, cropped to the image's
+    `hw`, nearest-resized to the ground truth's `gt_hw` (INTER_NEAREST rule)
+    and painted where no higher-scoring mask painted, unless fewer than
+    `min_pixels` pixels are left. Returns (segment-id map (oh, ow) int32, 0
+    void; segments [{"id", "category_id"}])."""
+    from .datasets.transforms import resize_linear_f32
+    Hc, Wc = canvas
+    h, w = hw
+    oh, ow = gt_hw
+    pred_ids = np.zeros((oh, ow), np.int32)
+    segments: List[Dict] = []
+    if "masks" not in top_k:
+        return pred_ids, segments
+    scores = top_k["scores"]
+    next_id = 1
+    for j in np.argsort(-scores):
+        if scores[j] < score_threshold:
+            continue
+        up = resize_linear_f32(np.asarray(top_k["masks"][j], np.float32), (Hc, Wc))
+        binm = (up > 0)[:h, :w]
+        full = resize_nearest_numpy(binm.astype(np.uint8), (oh, ow)) > 0
+        paint = full & (pred_ids == 0)
+        if paint.sum() < min_pixels:
+            continue
+        pred_ids[paint] = next_id
+        segments.append({"id": next_id, "category_id": int(top_k["labels"][j]) + 1})
+        next_id += 1
+    return pred_ids, segments
+
+
+def evaluate_panoptic(model, dataset, cfg, score_threshold: float = 0.5,
+                      min_pixels: int = 4, device=None, verbose: bool = True) -> Dict:
+    """Panoptic-quality evaluation of the image model for `DATASETS.TYPE:
+    coco_panoptic` (port of `devis_tpu/inference.py:550-611`; reference
+    engine.py:115-176). Each image is padded alone to its canvas
+    (`make_eval_buckets`), its top-k masks painted by `paint_panoptic` and
+    scored against `dataset.gt_segmentation` by the port's
+    `PanopticEvaluator`. Returns PQ, SQ, RQ, PQ_th and PQ_st (in percent)
+    and `segments`, the count of segments painted over the dataset. Runs on
+    the GPU unless ``device`` says otherwise."""
+    from .evaluation.panoptic_eval import PanopticEvaluator
+    device = resolve_device(device)
+    if next(model.parameters()).device.type != device.type:
+        raise ValueError(f"model lies on {next(model.parameters()).device}, not {device}")
+    buckets = make_eval_buckets(cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    evaluator = PanopticEvaluator(dataset.gt_dict().get("categories", []))
+    model.eval()
+    n_segments = 0
+    for idx in range(len(dataset)):
+        sample = dataset[idx]
+        img = sample["image"]
+        h, w = img.shape[:2]
+        Hc, Wc = pick_canvas(h, w, buckets)
+        images = np.zeros((1, Hc, Wc, 3), np.float32)
+        pad_mask = np.ones((1, Hc, Wc), bool)
+        images[0, :h, :w] = img
+        pad_mask[0, :h, :w] = False
+        with torch.inference_mode():
+            out = model(torch.from_numpy(images).to(device),
+                        torch.from_numpy(pad_mask).to(device), train=False)
+        tk = {k: (v.float() if v.is_floating_point() else v)[0].cpu().numpy()
+              for k, v in out["top_k"].items()} if isinstance(out, dict) else {}
+        gt_ids, gt_segments = dataset.gt_segmentation(idx)
+        pred_ids, segments = paint_panoptic(tk, (Hc, Wc), (h, w), gt_ids.shape,
+                                            score_threshold, min_pixels)
+        n_segments += len(segments)
+        evaluator.update(gt_ids, gt_segments, pred_ids, segments)
+        if verbose and (idx + 1) % 50 == 0:
+            print(f"panoptic eval {idx + 1}/{len(dataset)}", flush=True)
+    summary = evaluator.summarize()
+    if verbose:
+        print("PQ {PQ:.1f} SQ {SQ:.1f} RQ {RQ:.1f} "
+              "PQ_th {PQ_th:.1f} PQ_st {PQ_st:.1f}".format(**summary))
+    summary["segments"] = n_segments
+    return summary

@@ -5,11 +5,13 @@
         [--eval-only] [--resume OUTPUT_DIR/checkpoint] [KEY VALUE ...]
 
 The flow: the config file and the overrides (read by the port's own YAML
-reader), seeding, the datasets of `DATASETS.TYPE` (`coco` or `vis`), the
+reader), seeding, the datasets of `DATASETS.TYPE` (`coco`, `coco_panoptic`
+or `vis`), the
 model with its initial weights (`MODEL.WEIGHTS`: a reference `.pth`, with the
 weight surgery, or a checkpoint directory), then either
 
-  * `--eval-only`: the COCO evaluation (`evaluate_coco`) or video in, tracks
+  * `--eval-only`: the COCO evaluation (`evaluate_coco`), the panoptic one
+    (`evaluate_panoptic`: PQ, SQ, RQ, PQ_th, PQ_st) or video in, tracks
     out with TrackMAP (`build_tracker` + `inference_vis`), of the loaded
     weights or, with `TEST.INPUT_FOLDER`, of each
     `checkpoint_epoch_{e}` there for e in `TEST.EPOCHS_TO_EVAL`; or
@@ -32,8 +34,8 @@ and the checkpoints, from the unwrapped module, so their names are the
 reference's and a checkpoint resumes at any world size. The evaluations
 shard their videos or images over the ranks and gather the results
 (`inference_vis`, `evaluate_coco`). The entry point uses the GPU unless the
-caller of `main` names another device. `coco_panoptic` raises, naming its
-ROADMAP.md item.
+caller of `main` names another device. `coco_panoptic` trains as the image
+model does (`TrainLoader`'s image batches).
 """
 from __future__ import annotations
 
@@ -83,9 +85,8 @@ def seed_everything(seed: int) -> None:
 
 def load_initial_weights(cfg, model) -> None:
     """MODEL.WEIGHTS into `model`: a checkpoint directory of the port, or a
-    reference `.pth` through the weight surgery (reference main.py:269-328
-    and weights_loading_utils.py). Parameters the file lacks keep their
-    seeded values."""
+    reference `.pth` through the weight surgery (`reference_state`).
+    Parameters the file lacks keep their seeded values."""
     from .util import checkpoint as ckpt_lib
 
     path = cfg.MODEL.WEIGHTS
@@ -94,7 +95,19 @@ def load_initial_weights(cfg, model) -> None:
     if os.path.isdir(path):
         model.load_state_dict(ckpt_lib.load_checkpoint(path)["model"], strict=True)
         return
-    state = ckpt_lib.load_torch_checkpoint(path)
+    missing, _ = ckpt_lib.load_state_into(model, reference_state(cfg, model), verbose=True)
+    if missing:
+        print(f"{len(missing)} tensors initialized from scratch")
+
+
+def reference_state(cfg, model) -> Dict[str, np.ndarray]:
+    """The reference `.pth` at MODEL.WEIGHTS through the weight surgery
+    (reference main.py:269-328 and weights_loading_utils.py): the class
+    neurons shifted, the `def_detr.` prefix, the DeVIS adaptation to
+    `model`'s shapes."""
+    from .util import checkpoint as ckpt_lib
+
+    state = ckpt_lib.load_torch_checkpoint(cfg.MODEL.WEIGHTS)
     if cfg.MODEL.SHIFT_CLASS_NEURON:
         state = ckpt_lib.shift_class_neurons(state)
     if cfg.MODEL.MASK_ON and not any(k.startswith("def_detr") for k in state):
@@ -112,20 +125,21 @@ def load_initial_weights(cfg, model) -> None:
             enc_temporal_window=da.ENC_TEMPORAL_WINDOW,
             enc_n_temporal_points=da.ENC_N_POINTS_TEMPORAL_FRAME,
             dec_n_temporal_points=da.DEC_N_POINTS_TEMPORAL_FRAME)
-    missing, _ = ckpt_lib.load_state_into(model, state, verbose=True)
-    if missing:
-        print(f"{len(missing)} tensors initialized from scratch")
+    return state
 
 
 def _evaluate(cfg, model, dataset, device, output_dir: Optional[str] = None,
               selected_videos: Optional[List[str]] = None):
     """(key, the stat the best checkpoint is kept by, the full result)."""
-    from .inference import build_tracker, evaluate_coco, inference_vis
+    from .inference import build_tracker, evaluate_coco, evaluate_panoptic, inference_vis
     if cfg.DATASETS.TYPE == "vis":
         out = inference_vis(build_tracker(cfg, model, device=device), dataset,
                             output_dir=output_dir, selected_videos=selected_videos)
         ev = {k: v for k, v in out.get("eval", {}).items() if isinstance(v, float)}
         return "vis_ap", ev.get("AP", 0.0), {"eval": ev, "fps": out["fps"]}
+    if cfg.DATASETS.TYPE == "coco_panoptic":
+        stats = evaluate_panoptic(model, dataset, cfg, device=device)
+        return "pq", stats["PQ"], stats
     stats = evaluate_coco(model, dataset, cfg, device=device)
     return "coco_ap", stats["bbox"]["AP"], stats
 
@@ -188,9 +202,6 @@ def _main(args, cfg, device, max_steps: Optional[int]) -> Dict:
     from .util import checkpoint as ckpt_lib
     from .util.logging_utils import build_metrics, build_visdom, device_memory_stats
 
-    if cfg.DATASETS.TYPE not in ("coco", "vis"):
-        raise NotImplementedError(f"DATASETS.TYPE {cfg.DATASETS.TYPE!r}: panoptic "
-                                  "segmentation is ROADMAP.md queue A item 5 of the port")
     main_rank = is_main_process()
     output_dir = cfg.OUTPUT_DIR
     os.makedirs(output_dir, exist_ok=True)

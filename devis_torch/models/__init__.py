@@ -138,10 +138,8 @@ def build_model(num_classes: int, cfg, device=None, seed: int = 0) -> nn.Module:
     `device` (the GPU unless the caller passes another; without a GPU the
     caller must pass ``device="cpu"``)."""
     device = resolve_device(device)
-    if cfg.DATASETS.TYPE not in ("vis", "coco"):
-        raise NotImplementedError(f"DATASETS.TYPE {cfg.DATASETS.TYPE!r}: the "
-                                  "panoptic model is ROADMAP.md queue A item 5 "
-                                  "of the port")
+    if cfg.DATASETS.TYPE not in ("vis", "coco", "coco_panoptic"):
+        raise ValueError(f"DATASETS.TYPE {cfg.DATASETS.TYPE!r}")
     if cfg.MODEL.WITH_REF_POINT_REFINE and cfg.MODEL.WITH_BBX_REFINE:
         raise ValueError("WITH_REF_POINT_REFINE requires WITH_BBX_REFINE=False")
     is_vis = cfg.DATASETS.TYPE == "vis"

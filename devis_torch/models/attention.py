@@ -13,6 +13,11 @@
     joint softmax run inside it.
   * `TemporalMSDeformAttnDecoder`: instance-aware temporal attention; the
     locations and the joint softmax are built here and sampled by K3.
+  * Both temporal modules with unequal current and temporal point counts
+    (the JAX form, `devis_tpu/models/attention.py:341-381,585-590`): one
+    pass of the q-major op over the current frame's L levels and one over
+    the W-stacked temporal values (W * L levels, in groups of at most 16 on
+    the card), summed before `output_proj`.
   * `MultiHeadAttention`: the decoder's query self-attention, with the packed
     `in_proj_*` parameters of `torch.nn.MultiheadAttention` and dropout on
     the attention weights.
@@ -142,20 +147,16 @@ class TemporalMSDeformAttnBase(nn.Module):
                  t_window: int = 2, n_heads: int = 8, n_curr_points: int = 4,
                  n_temporal_points: int = 4, dtype=torch.float32):
         super().__init__()
-        if n_curr_points != n_temporal_points:
-            raise NotImplementedError(
-                "current and temporal point counts must match (the fused "
-                "level stack of K1/K3); unequal counts are a ROADMAP item")
         self.n_frames, self.d_model, self.n_levels = n_frames, d_model, n_levels
         self.t_window, self.n_heads = t_window, n_heads
-        self.n_points = n_curr_points
-        M, L, W, P = n_heads, n_levels, t_window, n_curr_points
+        self.n_points, self.n_temporal_points = n_curr_points, n_temporal_points
+        M, L, W, P, Pt = n_heads, n_levels, t_window, n_curr_points, n_temporal_points
         self.value_proj = Linear(d_model, d_model, dtype=dtype)
         self.sampling_offsets = Linear(d_model, M * L * P * 2, dtype=dtype)
-        self.temporal_sampling_offsets = Linear(d_model, M * L * W * P * 2,
+        self.temporal_sampling_offsets = Linear(d_model, M * L * W * Pt * 2,
                                                 dtype=dtype)
         self.attention_weights = Linear(d_model, M * L * P, dtype=dtype)
-        self.temporal_attention_weights = Linear(d_model, M * L * W * P,
+        self.temporal_attention_weights = Linear(d_model, M * L * W * Pt,
                                                  dtype=dtype)
         self.output_proj = Linear(d_model, d_model, dtype=dtype)
 
@@ -163,7 +164,8 @@ class TemporalMSDeformAttnBase(nn.Module):
     def reset_offsets(self):
         """The reference init: zero offset and logit weights, directional
         offset biases, zero logit biases."""
-        M, L, W, P = self.n_heads, self.n_levels, self.t_window, self.n_points
+        M, L, W = self.n_heads, self.n_levels, self.t_window
+        P, Pt = self.n_points, self.n_temporal_points
         for lin in (self.sampling_offsets, self.temporal_sampling_offsets,
                     self.attention_weights, self.temporal_attention_weights):
             lin.weight.zero_()
@@ -171,7 +173,38 @@ class TemporalMSDeformAttnBase(nn.Module):
         self.sampling_offsets.bias.copy_(torch.from_numpy(
             sampling_offsets_bias_init(M, L, P)))
         self.temporal_sampling_offsets.bias.copy_(torch.from_numpy(
-            temporal_sampling_offsets_bias_init(M, L, W, P)))
+            temporal_sampling_offsets_bias_init(M, L, W, Pt)))
+
+    @property
+    def fused(self) -> bool:
+        """Equal point counts: one level stack, one K1 / K3 launch."""
+        return self.n_points == self.n_temporal_points
+
+    def _joint_weights(self, query, W: int):
+        """The joint softmax of the current and temporal logits (f32):
+        att_c (T, Lq, M, L, P), att_t (T, Lq, M, W * L, Pt)."""
+        T, Lq = query.shape[:2]
+        M, L, P, Pt = self.n_heads, self.n_levels, self.n_points, self.n_temporal_points
+        logits = torch.cat([
+            self.attention_weights(query).reshape(T, Lq, M, L * P),
+            self.temporal_attention_weights(query).reshape(T, Lq, M, W * L * Pt)], dim=-1)
+        att = torch.softmax(logits.float(), dim=-1)
+        return (att[..., :L * P].reshape(T, Lq, M, L, P),
+                att[..., L * P:].reshape(T, Lq, M, W * L, Pt))
+
+    def _two_passes(self, value, spatial_shapes, loc_c, att_c, loc_t, att_t, table):
+        """Unequal point counts (the JAX form): the q-major op over the
+        current frame's levels, then over the temporal values stacked W
+        frames deep (`table` (T, W) their frames), the two summed in the
+        value's dtype."""
+        T, S, M, D = value.shape
+        W = table.shape[1]
+        t_value = value[torch.as_tensor(table, device=value.device)].reshape(T, W * S, M, D)
+        out_c = msda_taps(value, spatial_shapes, loc_c.float().contiguous(),
+                          att_c.contiguous())
+        out_t = msda_taps(t_value, make_temporal_shapes(spatial_shapes, W),
+                          loc_t.float().contiguous(), att_t.contiguous())
+        return out_c + out_t
 
     def _value(self, input_flatten, padding_mask):
         T, S = input_flatten.shape[:2]
@@ -198,6 +231,9 @@ class TemporalMSDeformAttnEncoder(TemporalMSDeformAttnBase):
         rule = temporal_frame_rule(self.n_frames, self.t_window,
                                    self.connect_all)
         value = self._value(input_flatten, padding_mask).contiguous()
+        if not self.fused:
+            return self.output_proj(self._unequal(query, reference_points, value,
+                                                  spatial_shapes, rule))
         out = msda_temporal_proj(
             value, normalize_shapes(spatial_shapes),
             reference_points.float().contiguous(),
@@ -206,6 +242,25 @@ class TemporalMSDeformAttnEncoder(TemporalMSDeformAttnBase):
             self.attention_weights(query).contiguous(),
             self.temporal_attention_weights(query).contiguous(), rule)
         return self.output_proj(out)
+
+    def _unequal(self, query, reference_points, value, spatial_shapes, rule):
+        """The two passes, the temporal taps around the level-0 reference
+        point (reference L447)."""
+        T, Lq = query.shape[:2]
+        M, L, P, Pt = self.n_heads, self.n_levels, self.n_points, self.n_temporal_points
+        spatial_shapes = normalize_shapes(spatial_shapes)
+        table = temporal_frame_table(rule, T)
+        W = table.shape[1]
+        att_c, att_t = self._joint_weights(query, W)
+        ref = reference_points.float()
+        loc_c = compute_sampling_locations(
+            ref, self.sampling_offsets(query).float().reshape(T, Lq, M, L, P, 2),
+            spatial_shapes, P)
+        loc_t = compute_sampling_locations(
+            ref[:, :, :1].expand(T, Lq, W * L, 2),
+            self.temporal_sampling_offsets(query).float().reshape(T, Lq, M, W * L, Pt, 2),
+            make_temporal_shapes(spatial_shapes, W), Pt)
+        return self._two_passes(value, spatial_shapes, loc_c, att_c, loc_t, att_t, table)
 
 
 class TemporalMSDeformAttnDecoder(TemporalMSDeformAttnBase):
@@ -232,7 +287,7 @@ class TemporalMSDeformAttnDecoder(TemporalMSDeformAttnBase):
         (1, T*Lq, C)."""
         T = self.n_frames
         W = T - 1
-        M, L, P = self.n_heads, self.n_levels, self.n_points
+        M, L, P, Pt = self.n_heads, self.n_levels, self.n_points, self.n_temporal_points
         spatial_shapes = normalize_shapes(spatial_shapes)
         C = query.shape[-1]
         Lq = query.shape[1] // T
@@ -241,28 +296,28 @@ class TemporalMSDeformAttnDecoder(TemporalMSDeformAttnBase):
         value = self._value(input_flatten, padding_mask).contiguous()
 
         c_off = self.sampling_offsets(query).reshape(T, Lq, M, L, P, 2)
-        t_off = self.temporal_sampling_offsets(query).reshape(T, Lq, M, W * L, P, 2)
-        logits = torch.cat([
-            self.attention_weights(query).reshape(T, Lq, M, L * P),
-            self.temporal_attention_weights(query).reshape(T, Lq, M, W * L * P)],
-            dim=-1)
-        att = torch.softmax(logits.float(), dim=-1).reshape(T, Lq, M, (1 + W) * L, P)
+        t_off = self.temporal_sampling_offsets(query).reshape(T, Lq, M, W * L, Pt, 2)
+        att_c, att_t = self._joint_weights(query, W)
 
         loc_c = compute_sampling_locations(ref, c_off, spatial_shapes, P)
         t_shapes = make_temporal_shapes(spatial_shapes, W)
         rdim = ref.shape[-1]
+        table = temporal_frame_table(("all",), T)
         if self.instance_aware:
-            table = torch.as_tensor(temporal_frame_table(("all",), T),
-                                    device=ref.device)
-            t_ref = ref[table].permute(0, 2, 1, 3, 4).reshape(T, Lq, W * L, rdim)
+            t_ref = ref[torch.as_tensor(table, device=ref.device)].permute(
+                0, 2, 1, 3, 4).reshape(T, Lq, W * L, rdim)
         else:
             t_ref = ref.repeat(1, 1, W, 1)
-        loc_t = compute_sampling_locations(t_ref, t_off, t_shapes, P)
+        loc_t = compute_sampling_locations(t_ref, t_off, t_shapes, Pt)
         if self.capture is not None:
-            self.capture.append(dict(loc_c=loc_c.detach(), att_c=att[:, :, :, :L].detach(),
-                                     loc_t=loc_t.detach(), att_t=att[:, :, :, L:].detach()))
+            self.capture.append(dict(loc_c=loc_c.detach(), att_c=att_c.detach(),
+                                     loc_t=loc_t.detach(), att_t=att_t.detach()))
+        if not self.fused:
+            out = self._two_passes(value, spatial_shapes, loc_c, att_c, loc_t, att_t, table)
+            return self.output_proj(out).reshape(1, T * Lq, C)
         loc = torch.cat([loc_c, loc_t], dim=3).float().contiguous()
-        out = msda_temporal(value, spatial_shapes, loc, att.contiguous(), ("all",))
+        att = torch.cat([att_c, att_t], dim=3).contiguous()
+        out = msda_temporal(value, spatial_shapes, loc, att, ("all",))
         return self.output_proj(out).reshape(1, T * Lq, C)
 
 

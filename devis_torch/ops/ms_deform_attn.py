@@ -103,14 +103,19 @@ def sample_level(v_l: torch.Tensor, loc: torch.Tensor, att: torch.Tensor,
 
 
 def _ms_deform_attn_f32(value, spatial_shapes: Shapes, loc, att) -> torch.Tensor:
-    """Level-by-level sum → (B, M, Q, D) float32."""
+    """Level-by-level sum → (B, MG, Q, D) float32. loc and att may carry G
+    heads a value head (MG = G * M, head mg reading value head mg // G): the
+    value heads are repeated G times."""
     B, S, M, D = value.shape
-    Q = loc.shape[1]
+    Q, MG = loc.shape[1], loc.shape[2]
     assert loc.shape[3] == len(spatial_shapes)
     assert S == sum(h * w for h, w in spatial_shapes)
+    assert MG % M == 0, (MG, M)
     value_hm = value.permute(0, 2, 1, 3)                   # (B, M, S, D)
+    if MG != M:
+        value_hm = value_hm.repeat_interleave(MG // M, dim=1)
     starts = level_start_index(spatial_shapes)
-    out = value.new_zeros((B, M, Q, D), dtype=torch.float32)
+    out = value.new_zeros((B, MG, Q, D), dtype=torch.float32)
     for lvl, (h, w) in enumerate(spatial_shapes):
         out += sample_level(value_hm[:, :, starts[lvl]:starts[lvl] + h * w],
                             loc[:, :, :, lvl], att[:, :, :, lvl], h, w)

@@ -803,8 +803,9 @@ msda_tap_window.launches = 0
 msda_tap_window.plain_calls = 0
 
 
-def _check_rows(name, value, spatial_shapes, loc, att, n_levels):
-    """Shapes and types shared by K3, K5, K6 and K7."""
+def _check_rows(name, value, spatial_shapes, loc, att, n_levels, groups=1):
+    """Shapes and types shared by K3, K5, K6 and K7; loc and att with
+    `groups` heads a value head."""
     B, S, M, D = value.shape
     Q, P = loc.shape[1], loc.shape[4]
     _check_cuda(name, value.device, (value,), value.dtype)
@@ -812,8 +813,8 @@ def _check_rows(name, value, spatial_shapes, loc, att, n_levels):
     if value.dtype not in _DTYPES:
         raise ValueError(f"{name}: unsupported dtype {value.dtype}")
     if (S != sum(h * w for h, w in spatial_shapes)
-            or tuple(loc.shape) != (B, Q, M, n_levels, P, 2)
-            or tuple(att.shape) != (B, Q, M, n_levels, P)):
+            or tuple(loc.shape) != (B, Q, M * groups, n_levels, P, 2)
+            or tuple(att.shape) != (B, Q, M * groups, n_levels, P)):
         raise ValueError(f"{name}: inconsistent shapes")
     return B, Q, S, M, D, P
 
@@ -984,18 +985,25 @@ def rows_plan(head_dim: int, dtype, aligned: bool, n_heads: int, n_levels: int,
 
 
 def _launch_rows(value, spatial_shapes, loc, att):
+    """One K6 launch; loc and att may carry G = MG / M heads a value head
+    (head mg reads value head mg // G, the JAX grid's `bm // groups`).
+    Returns (B, Q, MG * D)."""
     L = len(spatial_shapes)
     if L > _MAX_LEVELS:
         raise ValueError(f"msda_rows: at most {_MAX_LEVELS} levels")
-    B, Q, S, M, D, P = _check_rows("msda_rows", value, spatial_shapes, loc, att, L)
+    MG, M = loc.shape[2], value.shape[2]
+    if MG % M:
+        raise ValueError(f"msda_rows: {MG} query heads for {M} value heads")
+    G = MG // M
+    B, Q, S, M, D, P = _check_rows("msda_rows", value, spatial_shapes, loc, att, L, G)
     if loc.data_ptr() % 8:          # the kernel reads a tap's (x, y) as one float2
         loc = loc.clone()
-    plan = rows_plan(D, value.dtype, value.data_ptr() % 16 == 0, M, L, P, B * Q)
-    out = torch.empty((B, Q, M * D), dtype=value.dtype, device=value.device)
-    fn = _function(f"msda_rows_{_DTYPES[value.dtype]}", 4, 13)
+    plan = rows_plan(D, value.dtype, value.data_ptr() % 16 == 0, MG, L, P, B * Q)
+    out = torch.empty((B, Q, MG * D), dtype=value.dtype, device=value.device)
+    fn = _function(f"msda_rows_{_DTYPES[value.dtype]}", 4, 14)
     with torch.cuda.device(value.device):
         _build.check(fn(value.data_ptr(), loc.data_ptr(), att.data_ptr(),
-                        out.data_ptr(), B, Q, S, M, D, P, int(plan.vec), plan.lanes,
+                        out.data_ptr(), B, Q, S, M, G, D, P, int(plan.vec), plan.lanes,
                         plan.groups, plan.slices, plan.chunks, plan.units, plan.threads,
                         _levels(spatial_shapes), L, _stream(value)), "msda_rows")
     msda_rows.launches += 1
@@ -1407,16 +1415,41 @@ class MSDATapsFunction(torch.autograd.Function):
         return (g_value if ctx.needs_input_grad[0] else None, *g_rows, None)
 
 
+def level_groups(n_levels: int, most: int = _MAX_LEVELS):
+    """[(l0, l1), ...]: consecutive runs of at most `most` levels."""
+    return [(l0, min(l0 + most, n_levels)) for l0 in range(0, n_levels, most)]
+
+
+def by_level_groups(fn, value, spatial_shapes, loc, att):
+    """`fn(value, shapes, loc, att)` over the level groups of
+    `level_groups`, the outputs summed in their dtype (the sum over levels
+    split: `ms_deform_attn_pallas_auto`, devis_tpu/ops/ms_deform_attn_pallas.py
+    :2494-2512)."""
+    spatial_shapes = normalize_shapes(spatial_shapes)
+    groups = level_groups(len(spatial_shapes))
+    if len(groups) == 1:
+        return fn(value, spatial_shapes, loc, att)
+    starts = list(level_start_index(spatial_shapes)) + [value.shape[1]]
+    out = None
+    for l0, l1 in groups:
+        o = fn(value[:, starts[l0]:starts[l1]].contiguous(), spatial_shapes[l0:l1],
+               loc[:, :, :, l0:l1].contiguous(), att[:, :, :, l0:l1].contiguous())
+        out = o if out is None else out + o
+    return out
+
+
 def msda_taps(value, spatial_shapes, loc, att):
     """The generic q-major attention `ms_deform_attn(value, shapes, loc, att)`
     of the JAX package's Pallas route: K6 forward, K9 backward. loc
-    (B, Q, M, L, P, 2) f32, att (B, Q, M, L, P) f32 with the value's M heads
-    (K6 has no grouped heads; K9 alone takes them). Returns (B, Q, M*D)."""
+    (B, Q, MG, L, P, 2) f32, att (B, Q, MG, L, P) f32 with G = MG / M heads a
+    value head (`_launch_rows`). More than 16 levels run as level groups
+    (`by_level_groups`), a K6 launch each. Returns (B, Q, MG*D)."""
     spatial_shapes = normalize_shapes(spatial_shapes)
     if not value.is_cuda:
         msda_taps.plain_calls += 1
         return ms_deform_attn(value, spatial_shapes, loc, att)
-    return MSDATapsFunction.apply(value, loc, att, spatial_shapes)
+    return by_level_groups(lambda v, s, lo, a: MSDATapsFunction.apply(v, lo, a, s),
+                           value, spatial_shapes, loc, att)
 
 
 msda_taps.plain_calls = 0     # its launches count as K6's (`msda_rows`) and K9's

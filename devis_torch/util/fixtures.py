@@ -18,6 +18,15 @@ YouTube-VIS 2021 (`version="2021"`): the same under `Youtube_VIS-2021/`, with
 `{train,valid}/instances.json` (`datasets/vis.py`'s `yt_vis_*_21`); its
 validation videos can be given names (the visualization config's
 `TEST.VIZ.VIDEO_NAMES`).
+
+COCO panoptic (`write_coco_panoptic_tree`, the layout of
+`devis_tpu/datasets/coco_panoptic.py:93-110`): `COCO/{train,val}2017/*.jpg`
+(JPEG, through Pillow; the json names them `.png`, which the dataset reads as
+`.jpg`), `coco_panoptic/panoptic_{train,val}2017/*.png` (RGB segment maps, id
+R + 256 G + 65536 B) and `coco_panoptic/annotations/panoptic_{train,val}
+2017.json`. Each image: two stuff segments (the upper and the lower part),
+three thing segments on top, one of them a crowd, and a band of void pixels
+(id 0) at the left edge.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..datasets.image_io import encode_png
+from ..datasets.image_io import encode_jpeg, encode_png
 from ..evaluation import rle as rle_lib
 
 COCO_CATEGORIES = (1, 3, 18, 44, 62, 90)        # ids from the 91-slot COCO table
@@ -178,6 +187,71 @@ def write_vis_tree(root: str, seed: int = 0, n_train: int = 2, n_val: int = 2,
     _vis_split(root, folder, "train", train_json, n_train, n_frames, size, rs, 1)
     _vis_split(root, folder, "valid", val_json, n_val, n_frames, size, rs, 1 + n_train,
                val_names)
+    return root
+
+
+PANOPTIC_THINGS = (1, 3, 18)                    # COCO thing ids
+PANOPTIC_STUFF = (184, 190, 200)                # COCO panoptic stuff ids
+
+
+def _panoptic_split(root: str, split: str, sizes: Sequence[Tuple[int, int]], n: int,
+                    rs: np.random.RandomState) -> None:
+    images, annotations = [], []
+    seg_dir = os.path.join(root, "coco_panoptic", f"panoptic_{split}2017")
+    img_dir = os.path.join(root, "COCO", f"{split}2017")
+    os.makedirs(seg_dir, exist_ok=True)
+    os.makedirs(img_dir, exist_ok=True)
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        image_id = 2000 + i
+        img = _background(rs, h, w)
+        ids = np.zeros((h, w), np.int64)
+        infos = []
+
+        def segment(m, cat, crowd, colour):
+            sid = int(rs.randint(1, 1 << 24))
+            ids[m] = sid
+            img[m] = colour
+            infos.append({"id": sid, "category_id": int(cat), "iscrowd": int(crowd),
+                          "area": int(m.sum()), "bbox": _bbox(m)})
+
+        split_row = int(rs.randint(h // 3, 2 * h // 3))
+        for k, (y0, y1) in enumerate(((0, split_row), (split_row, h))):
+            m = np.zeros((h, w), bool)
+            m[y0:y1] = True
+            segment(m, PANOPTIC_STUFF[rs.randint(len(PANOPTIC_STUFF))], 0,
+                    rs.randint(0, 255, 3))
+        for k in range(3):
+            m = _mask_of(*_shape(rs, h, w), h, w) > 0
+            segment(m, PANOPTIC_THINGS[rs.randint(len(PANOPTIC_THINGS))], k == 2,
+                    rs.randint(0, 255, 3))
+        ids[:, :max(2, w // 32)] = 0                       # void band
+        infos = [dict(s, area=int((ids == s["id"]).sum())) for s in infos
+                 if (ids == s["id"]).any()]
+        stem = f"{image_id:012d}"
+        with open(os.path.join(img_dir, stem + ".jpg"), "wb") as f:
+            f.write(encode_jpeg(img, quality=90))
+        rgb = np.stack([ids % 256, ids // 256 % 256, ids // 65536], -1).astype(np.uint8)
+        _write_png(os.path.join(seg_dir, stem + ".png"), rgb)
+        images.append({"id": image_id, "file_name": stem + ".png", "height": h, "width": w})
+        annotations.append({"image_id": image_id, "file_name": stem + ".png",
+                            "segments_info": infos})
+    ann_dir = os.path.join(root, "coco_panoptic", "annotations")
+    os.makedirs(ann_dir, exist_ok=True)
+    cats = ([{"id": c, "name": f"thing{c}", "isthing": 1} for c in PANOPTIC_THINGS]
+            + [{"id": c, "name": f"stuff{c}", "isthing": 0} for c in PANOPTIC_STUFF])
+    with open(os.path.join(ann_dir, f"panoptic_{split}2017.json"), "w") as f:
+        json.dump({"images": images, "annotations": annotations, "categories": cats}, f)
+
+
+def write_coco_panoptic_tree(root: str, seed: int = 0, n_train: int = 4, n_val: int = 4,
+                             sizes: Sequence[Tuple[int, int]] = ((480, 640), (640, 480))
+                             ) -> str:
+    """Writes the COCO panoptic tree under `root` (module docstring); returns
+    `root`."""
+    rs = np.random.RandomState(seed)
+    _panoptic_split(root, "train", sizes, n_train, rs)
+    _panoptic_split(root, "val", sizes, n_val, rs)
     return root
 
 

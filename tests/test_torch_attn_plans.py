@@ -146,6 +146,29 @@ def test_rows_plan_writes_every_channel_once(D, dtype, aligned, M, L, P, B, Q):
     _check_rows_plan(plan, B, Q, M, D, L, P, dtype)
 
 
+def _value_head(item, M, G, Q):
+    """`msda_rows_kernel`'s decode of a unit's item (b * Q + q) * M * G + mg
+    into its batch entry and value head."""
+    return item // (M * G * Q), (item % (M * G)) // G
+
+
+@pytest.mark.parametrize("G,M,D,P", [(2, 1, 32, 2), (4, 1, 16, 1), (4, 2, 264, 1),
+                                     (2, 8, 32, 4)])
+def test_rows_plan_with_grouped_heads(G, M, D, P):
+    """Grouped heads (MG = G * M query heads): the plan and the write
+    coverage are those of MG heads; each unit reads value head mg // G of
+    its own batch entry, as the plain version's repeated heads do."""
+    B, Q, Lv = 2, 23, 3
+    plan = K.rows_plan(D, torch.bfloat16, True, M * G, Lv, P, B * Q)
+    _check_rows_plan(plan, B, Q, M * G, D, Lv, P, torch.bfloat16)
+    item = np.arange(B * Q * M * G)
+    b, m = _value_head(item, M, G, Q)
+    bq, mg = item // (M * G), item % (M * G)
+    assert (b == bq // Q).all() and (m == mg // G).all() and (m < M).all()
+    plain = torch.arange(M).repeat_interleave(G)           # ms_deform_attn's repeat
+    assert (plain[torch.from_numpy(mg)].numpy() == m).all()
+
+
 CLIP_DCN = (("lay1", 264, 12, 20), ("lay2", 128, 12, 20), ("lay3", 64, 24, 40),
             ("lay4", 32, 48, 80), ("lay5", 16, 96, 160), ("out_lay", 1, 96, 160))
 COCO_DCN = (("lay1", 264, 26, 42), ("lay2", 128, 26, 42), ("lay3", 64, 52, 84),

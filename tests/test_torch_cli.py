@@ -1,7 +1,8 @@
 """The port's command line (`devis_torch.main.main`) on the CPU, end to end
 from files: `configs/synthetic_smoke.yaml` (the synthetic YouTube-VIS
-splits) and the COCO mask-head config over a seeded COCO tree on disk
-(`devis_torch.util.fixtures`), both at narrow widths:
+splits), the COCO mask-head config over a seeded COCO tree on disk
+(`devis_torch.util.fixtures`), the same config as COCO panoptic and the
+YT-19 config with COCO joint training, all at narrow widths:
 
 - train one epoch, capped to a few steps: finite losses, `config.yaml`,
   `checkpoint/` with `meta.json`, `checkpoint_epoch_{e}/`, and
@@ -124,16 +125,48 @@ def test_coco_from_files_trains_evaluates_and_resumes(tmp_path):
 
 
 def test_unported_types_name_their_roadmap_items(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        main(["DATASETS.TYPE", "coco_panoptic", "OUTPUT_DIR", str(tmp_path)], device="cpu")
+    """The two dataset types that once raised train and evaluate through the
+    CLI: COCO panoptic (one epoch of 2 steps on the panoptic fixture tree,
+    the periodic PQ evaluation, then `--eval-only` of the checkpoint) and
+    COCO joint training (a YT-19 tree and a COCO tree under one root, one
+    step; the joint set's clips follow the videos' in the loader's order)."""
+    from devis_torch.util.fixtures import write_coco_panoptic_tree
+    data = write_coco_panoptic_tree(str(tmp_path / "pan"), seed=1, n_train=4, n_val=2,
+                                    sizes=((48, 64), (64, 48)))
+    out = str(tmp_path / "out")
+    cfg_file = os.path.join(ROOT, "configs", "deformable_mask_head",
+                            "deformable_mask_head_R_50.yaml")
+    opts = NARROW + ["DATASETS.TYPE", "coco_panoptic", "MODEL.WEIGHTS", "",
+                     "DATASETS.DATA_PATH", data, "OUTPUT_DIR", out, "MODEL.NUM_QUERIES", "12",
+                     "MODEL.TRANSFORMER.ENCODER_LAYERS", "1",
+                     "MODEL.TRANSFORMER.DECODER_LAYERS", "2", "MODEL.LOSS.MASK_AUX_LOSS", "[0]",
+                     "TEST.NUM_OUT", "5", "INPUT.SCALE_FACTOR_TRAIN", "0.125",
+                     "INPUT.MIN_SIZE_TEST", "64", "INPUT.MAX_SIZE_TEST", "96",
+                     "SOLVER.EPOCHS", "1", "SOLVER.BATCH_SIZE", "2"]
+    run = main(["--config-file", cfg_file] + opts, device="cpu")
+    epoch = run["epochs"][0]
+    assert epoch["step"] == 2 and _finite(epoch["train"])
+    keys = {"PQ", "SQ", "RQ", "PQ_th", "PQ_st", "segments"}
+    assert set(epoch["eval"]) == keys and _finite(epoch["eval"])
+    assert run["best_stats"] == {"pq": epoch["eval"]["PQ"]}
+    assert os.path.exists(os.path.join(out, "checkpoint_best_pq", ckpt.STATE_FILE))
+    res = main(["--config-file", cfg_file, "--eval-only"] + opts
+               + ["MODEL.WEIGHTS", os.path.join(out, "checkpoint")], device="cpu")
+    assert set(res["eval"]) == keys and _finite(res["eval"])
+    assert res["eval"] == epoch["eval"]
+
     data = write_vis_tree(str(tmp_path / "data"), n_train=1, n_val=1, n_frames=3, size=(32, 48))
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        main(["--config-file", os.path.join(ROOT, "configs", "devis", "YT-19",
-                                            "devis_R_50_YT-19.yaml"),
-              "DATASETS.DEVIS.COCO_JOINT_TRAINING", "True", "MODEL.WEIGHTS", "",
-              "DATASETS.DATA_PATH", data, "OUTPUT_DIR", str(tmp_path / "o"),
-              "MODEL.TRANSFORMER.ENCODER_LAYERS", "1", "MODEL.TRANSFORMER.DECODER_LAYERS", "1"]
-             + NARROW, device="cpu")
+    write_coco_tree(data, seed=2, n_train=3, n_val=1, sizes=((40, 56),))
+    run = main(["--config-file", os.path.join(ROOT, "configs", "devis", "YT-19",
+                                              "devis_R_50_YT-19.yaml"),
+                "DATASETS.DEVIS.COCO_JOINT_TRAINING", "True", "MODEL.WEIGHTS", "",
+                "DATASETS.DATA_PATH", data, "OUTPUT_DIR", str(tmp_path / "o"),
+                "MODEL.NUM_QUERIES", "6", "MODEL.DEVIS.NUM_FRAMES", "3",
+                "INPUT.SCALE_FACTOR_TRAIN", "0.125", "SOLVER.EPOCHS", "1",
+                "TEST.START_EVAL_EPOCH", "2", "MODEL.LOSS.MASK_AUX_LOSS", "[]",
+                "MODEL.TRANSFORMER.ENCODER_LAYERS", "1", "MODEL.TRANSFORMER.DECODER_LAYERS", "1"]
+               + NARROW, device="cpu", max_steps=1)
+    assert run["epochs"][0]["step"] == 1 and _finite(run["epochs"][0]["train"])
 
 
 def test_logging_and_metric_helpers(tmp_path, monkeypatch):
@@ -246,3 +279,19 @@ def test_swin_with_recomputation_resumes_to_the_bit(tmp_path, monkeypatch):
             torch.testing.assert_close(b["optimizer"]["state"][i][k], v, rtol=0, atol=0)
     assert torch.equal(a["rng"]["dropout"], b["rng"]["dropout"])
     assert a["rng"]["data"] == b["rng"]["data"]
+
+
+def test_accuracy_gate_smoke_exits_zero(capsys):
+    """`python -m devis_torch.accuracy_gate --smoke` on the CPU: a synthetic
+    reference-format image checkpoint through the loading chain into the
+    DeVIS model (strictly), TrackMAP on the synthetic VIS set, exit code 0;
+    without a benchmark the gate prints its usage and exits 2."""
+    from devis_torch import accuracy_gate
+    assert accuracy_gate.main(["--smoke", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "initialized from scratch" in out and accuracy_gate.BAND_NOTE in out
+    assert "== accuracy gate ==" in out and "smoke: PASS" in out
+    assert accuracy_gate.main([]) == 2
+    assert set(accuracy_gate.BENCHMARKS) == {"coco_r50", "coco_r101", "coco_swinl", "yt19_r50",
+                                             "yt19_swinl", "yt21_r50", "yt21_swinl",
+                                             "ovis_r50", "ovis_swinl"}

@@ -142,8 +142,25 @@ def test_jpeg_without_pillow_raises_naming_it(tmp_path, monkeypatch):
             raise ImportError(name)
         return real(name, *a, **k)
     monkeypatch.setattr(builtins, "__import__", no_pil)
-    with pytest.raises(ImportError, match="Pillow.*ROADMAP.md queue A item 3"):
+    with pytest.raises(ImportError, match="x.jpg: JPEG needs Pillow"):
         image_io.read_image(path)
+    with pytest.raises(ImportError, match="JPEG needs Pillow"):
+        image_io.encode_jpeg(np.zeros((4, 4, 3), np.uint8))
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_jpeg_exif_orientation_matches_cv2(tmp_path, orientation):
+    """cv2.imread(IMREAD_COLOR) applies the EXIF orientation; so does the
+    port. Tolerance 0: the arrays are equal."""
+    img = np.random.RandomState(orientation).randint(0, 256, (24, 40, 3)).astype(np.uint8)
+    img = cv2.GaussianBlur(img, (5, 5), 0)
+    path = str(tmp_path / "o.jpg")
+    with open(path, "wb") as f:
+        f.write(image_io.encode_jpeg(img, quality=90, orientation=orientation))
+    want = _cv2_rgb(path)
+    assert want.shape == ((40, 24, 3) if orientation >= 5 else (24, 40, 3))
+    got = image_io.read_image(path)
+    assert got.shape == want.shape and np.array_equal(got, want)
 
 
 def _random_polygons(rs, h, w, off, n_parts):

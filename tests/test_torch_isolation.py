@@ -35,7 +35,10 @@ PORT_MODULES = ("devis_torch", "devis_torch.config", "devis_torch.models",
                 "devis_torch.util.fixtures", "devis_torch.parallel",
                 "devis_torch.parallel.mesh", "devis_torch.parallel.multihost",
                 "devis_torch.overfit_synthetic", "devis_torch.util.visualization",
-                "devis_torch.visualize_att_maps", "devis_torch.visualize_dataset")
+                "devis_torch.visualize_att_maps", "devis_torch.visualize_dataset",
+                "devis_torch.evaluation.panoptic_eval", "devis_torch.datasets.coco_panoptic",
+                "devis_torch.datasets.coco_joint_vis", "devis_torch.datasets.warp",
+                "devis_torch.accuracy_gate")
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -63,7 +66,7 @@ def test_import_leaves_jax_out_of_sys_modules():
 def test_no_module_of_the_port_names_a_forbidden_import():
     """Covers imports inside functions too. The config files are read by the
     port's own YAML reader. Pillow is imported only in `datasets/image_io.py`,
-    inside the function that decodes a JPEG; cv2 only in
+    inside functions (the JPEG decode and encode); cv2 only in
     `util/visualization.py`, inside a function (the renders draw with it)."""
     offenders = []
     for dirpath, _, files in os.walk(os.path.join(ROOT, "devis_torch")):
@@ -84,7 +87,8 @@ def test_no_module_of_the_port_names_a_forbidden_import():
                     if top in FORBIDDEN and not lazy_cv2:
                         offenders.append(f"{path}: {n}")
                     elif top == "PIL" and not (f == "image_io.py" and node.col_offset > 0):
-                        offenders.append(f"{path}: {n} (PIL only lazily, in image_io.py)")
+                        offenders.append(f"{path}: {n} (PIL only inside functions of "
+                                         "image_io.py)")
     assert offenders == []
 
 
@@ -154,10 +158,16 @@ def test_image_entry_points_need_an_explicit_cpu(monkeypatch):
 
 
 def test_other_model_families_name_their_roadmap_item():
+    """Every model family builds: `coco_panoptic` the image model (as the
+    JAX `is_vis = TYPE == "vis"` does), shared heads, reference-point
+    refinement and the Swin backbones."""
     from devis_torch.models import build_model
     cfg = _small_cfg()
     cfg.DATASETS.TYPE = "coco_panoptic"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.MODEL.MASK_ON = True
+    assert type(build_model(250, cfg, device="cpu")).__name__ == "DeformableDETRSegm"
+    cfg.DATASETS.TYPE = "kinetics"
+    with pytest.raises(ValueError, match="kinetics"):
         build_model(91, cfg, device="cpu")
     # shared heads and reference-point refinement are ported: both build,
     # and reference-point refinement asks for shared heads, as the config's

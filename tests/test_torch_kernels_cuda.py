@@ -377,6 +377,29 @@ def test_rows_kernels(dev, dtype, M, D, Q, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,M,D,P", [(2, 1, 32, 2), (4, 2, 16, 1), (2, 1, 264, 1),
+                                     (4, 1, 5, 3)])
+def test_rows_grouped_heads(dev, dtype, G, M, D, P):
+    """K6 with G query heads a value head against the plain version (the
+    value heads repeated), and its backward (K9) against autograd of the
+    plain version; at the gates of the kernel tests."""
+    value, loc, att, _ = _rows_inputs(dev, dtype, 2, 37, M * G, D, P, L)
+    value = value[:, :, :M].contiguous()
+    out = K.msda_taps(value, SHAPES, loc, att)
+    assert out.shape == (2, 37, M * G * D) and out.dtype == dtype
+    _close(out, ms_deform_attn(value, SHAPES, loc, att), dtype)
+    rep = value.repeat_interleave(G, dim=2)
+    _close(out, ms_deform_attn(rep, SHAPES, loc, att), dtype)
+    vg, lg, ag = (t.detach().clone().requires_grad_() for t in (value, loc, att))
+    grad = torch.randn_like(out)
+    torch.autograd.backward(K.msda_taps(vg, SHAPES, lg, ag), grad)
+    vp, lp, ap = (t.detach().clone().requires_grad_() for t in (value, loc, att))
+    torch.autograd.backward(ms_deform_attn(vp, SHAPES, lp, ap), grad)
+    for got, want in ((vg.grad, vp.grad), (ag.grad, ap.grad)):
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rows_and_proj_launchers_refuse_misaligned_vector_access(dev, dtype):
     """The C launchers return an error, and do not launch, where a plan of
     16-byte access meets a value off 16 bytes."""
@@ -385,9 +408,9 @@ def test_rows_and_proj_launchers_refuse_misaligned_vector_access(dev, dtype):
     plan = K.rows_plan(16, dtype, True, 1, L, 1, 96)
     assert plan.vec
     out = torch.empty((2, 48, 16), dtype=dtype, device=dev)
-    fn = K._function(f"msda_rows_{K._DTYPES[dtype]}", 4, 13)
+    fn = K._function(f"msda_rows_{K._DTYPES[dtype]}", 4, 14)
     status = fn(shifted.data_ptr(), loc.data_ptr(), att.data_ptr(), out.data_ptr(), 2, 48, S,
-                1, 16, 1, 1, plan.lanes, plan.groups, plan.slices, plan.chunks, plan.units,
+                1, 1, 16, 1, 1, plan.lanes, plan.groups, plan.slices, plan.chunks, plan.units,
                 plan.threads, K._levels(SHAPES), L, K._stream(value))
     assert status != 0
     a = _proj_single(dev, Q=20, M=8, D=32, P=4, dtype=dtype)
