@@ -194,11 +194,13 @@
    run.
 13. Determinism (after the kernel phases, `determinism_phase`): K5, K7 and
    K9 `REPEATS` times each on the same inputs at the paths' shapes (K5 at
-   the clip encoder and decoder and at W = 35, L = 1; K7 at the clip mask
-   head's six layers, the image mask head's six at 50 masks and the image
-   encoder; K9 at the image decoder): every run's gradients equal the
-   first's bit for bit and agree with the plain version; device time beside
-   the bound.
+   the clip encoder, at its shape under the window rule (-1, 1) whose frame
+   table repeats a frame at the clip's edges, at the decoder and at W = 35,
+   L = 1; K7 at the clip mask head's six layers, the image mask head's six
+   at 50 masks and the image encoder; K9 at the image decoder): every run's
+   gradients equal the first's bit for bit and agree with the plain
+   version; device time beside the bound, and its split by stage (entries,
+   sort, bounds, gather, tap gradients, memsets).
 14. The visualizers (`viz_phase`): the visualization config from its own
    file through `devis_torch.main --eval-only` on a YouTube-VIS 2021 tree
    whose two validation videos carry its `VIDEO_NAMES`, at full width
@@ -890,15 +892,60 @@ BWD_TAGS = {"K5": "k5_bwd", "K7": "k7_bwd", "K9": "k9_bwd"}
 
 def bwd_times(torch, key, op, iters=10):
     """Times of a backward op (K5, K7, K9: csrc/msda_bwd.cuh) on its bf16
-    inputs: `ms` the device time of its kernels a call (entries, the radix
-    sort's passes, bounds, gather, tap gradients: the kernels whose name
-    holds its tag), `kernels` their launches a call, `device_ms` every
-    kernel and memset of a call (the zeroed segment bounds among them),
+    inputs: `ms` the device time of its kernels a call (entries, the sort's
+    passes, bounds, gather, tap gradients: the kernels whose name holds its
+    tag), `kernels` their launches a call, `device_ms` every kernel and
+    memset of a call (the global route's zeroed segment bounds among them),
     `op_ms` the op a call by CUDA events."""
     ms, n, _ = device_profile(op, iters, BWD_TAGS[key])
     dev_ms, launches, _ = device_profile(op, iters)
     return dict(ms=ms, kernels=n, device_ms=dev_ms, device_launches=launches,
                 op_ms=cuda_time(op, iters))
+
+
+# The stages of K5, K7 and K9 (csrc/msda_bwd.cuh) by kernel name: the rest
+# of a call's device work is its memsets and fills ("other").
+BWD_STAGES = (("entries", ("bwd_entries_kernel", "taps_entries_kernel")),
+              ("sort", ("radix_hist_kernel", "scan_tiles_kernel", "scan_add_kernel",
+                        "radix_scatter_kernel", "run_sort_kernel")),
+              ("bounds", ("bounds_kernel",)),
+              ("gather", ("bwd_gather_kernel", "run_gather_kernel")),
+              ("tap grads", ("bwd_tap_grads_kernel",)))
+
+
+def device_stages(fn, iters: int = 10):
+    """Device ms a call of every kernel and memset `fn` launches, split by
+    `BWD_STAGES` (torch.profiler, a warm-up window, then the kept one, as
+    `device_profile`), with each stage's launches a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    kept = []
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kept.extend(p.key_averages())) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out = {name: dict(ms=0.0, launches=0.0) for name, _ in BWD_STAGES + (("other", ()),)}
+    for e in kept:
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        stage = next((name for name, kernels in BWD_STAGES
+                      if any(k in e.key for k in kernels)), "other")
+        out[stage]["ms"] += us / 1e3 / iters
+        out[stage]["launches"] += e.count / iters
+    if not any(v["launches"] for v in out.values()):
+        raise AssertionError("no kernel in the profiler's window")
+    return out
+
+
+def stages_line(stages) -> str:
+    return ", ".join(f"{k} {v['ms']:.4f}" for k, v in stages.items() if v["launches"])
 
 
 def bwd_compare(torch, label, bwd, plain, args32, args16):
@@ -987,21 +1034,25 @@ REPEATS = 5                    # runs of a backward on the same inputs, bits com
 
 def determinism_phase(torch, dev, gen, results):
     """K5, K7 and K9 each `REPEATS` times on the same bf16 inputs at the
-    paths' shapes: K5 at the clip encoder (raster references, K1's inputs)
-    and decoder (Q 10) and at W = 35, L = 1 (ablation 0's encoder layer 0:
-    36 frames of the 10x18 level); K7 at the clip mask head's six layers
-    (D 264 down to out_lay's D 1), the image mask head's six at 50 masks
-    and the image encoder (2 images, Q = S); K9 at the image decoder (2
-    images, Q 300). Every run's gradients must equal the first's bit for bit
-    (`torch.equal`: grad_value, grad_loc, grad_att; K9's grad_value, grad_wt)
-    and the first agree with the plain version on the inputs upcast to f32
-    (value 1e-2, the others 1e-4, as `bwd_compare`; the image mask head at
-    `COCO_MASK_CMP_B` masks where the plain version's f32 copy of U passes
-    1.5 GB). Logs each case's device time (its kernels, `device_profile`)
-    beside its bound; adds `determinism` and `repeat_equal` to
-    results["K5"], ["K7"], ["K9"]."""
+    paths' shapes: K5 at the clip encoder (raster references, K1's inputs),
+    at the clip encoder's shape under the window rule (-1, 1), whose frame
+    table names frame 1 twice for frame 0 and frame 4 twice for frame 5
+    (random locations), at the decoder (Q 10) and at W = 35, L = 1
+    (ablation 0's encoder layer 0: 36 frames of the 10x18 level); K7 at the
+    clip mask head's six layers (D 264 down to out_lay's D 1), the image mask
+    head's six at 50 masks and the image encoder (2 images, Q = S); K9 at
+    the image decoder (2 images, Q 300). Every run's gradients must equal
+    the first's bit for bit (`torch.equal`: grad_value, grad_loc, grad_att;
+    K9's grad_value, grad_wt) and the first agree with the plain version on
+    the inputs upcast to f32 (value 1e-2, the others 1e-4, as `bwd_compare`;
+    the image mask head at `COCO_MASK_CMP_B` masks where the plain version's
+    f32 copy of U passes 1.5 GB). Logs each case's device time (its kernels,
+    `device_profile`) beside its bound and the split of its device work by
+    stage (`device_stages`: entries, sort, bounds, gather, tap gradients,
+    memsets); adds `determinism` and `repeat_equal` to results["K5"],
+    ["K7"], ["K9"]."""
     from devis_torch.ops import ms_deform_attn_cuda as K
-    from devis_torch.ops.ms_deform_attn import temporal_frame_table
+    from devis_torch.ops.ms_deform_attn import rule_window, temporal_frame_table
 
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
@@ -1020,22 +1071,25 @@ def determinism_phase(torch, dev, gen, results):
         if not equal:
             raise AssertionError(f"{key} ({name}): {REPEATS} runs on the same inputs differ")
         ms, n, _ = device_profile(op, 5, BWD_TAGS[key])
+        stages = device_stages(op, 5)
         nbytes, flops = cost
         bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
         log(f"    {key} {name}: {REPEATS} runs equal bit for bit; {ms:.4f} ms of device time in "
-            f"{n:.0f} launches, bound {bound:.5f} ms; error {errs[0]:.3e}")
+            f"{n:.0f} launches, bound {bound:.5f} ms; by stage {stages_line(stages)}; error "
+            f"{errs[0]:.3e}")
         out[key][name] = dict(repeat_equal=True, repeats=REPEATS, max_abs_err=errs[0],
-                              ms=ms, kernels=n, bound_ms=bound)
+                              ms=ms, kernels=n, bound_ms=bound, stages=stages)
         torch.cuda.empty_cache()
 
     log(f"determinism: K5, K7 and K9 {REPEATS} times each on the same inputs")
     L = len(SHAPES)
     S = sum(h * w for h, w in SHAPES)
-    for name, Tn, shapes, Q in (("clip encoder", T, SHAPES, S),
-                                ("clip decoder", T, SHAPES, NQ // T),
-                                ("W=35 L=1", 36, ((10, 18),), 180)):
-        W, Ln, Sn = Tn - 1, len(shapes), sum(h * w for h, w in shapes)
-        rule = ("all",)
+    for name, Tn, shapes, Q, rule in (("clip encoder", T, SHAPES, S, ("all",)),
+                                      ("clip encoder window (-1, 1)", T, SHAPES, S,
+                                       ("window", (-1, 1))),
+                                      ("clip decoder", T, SHAPES, NQ // T, ("all",)),
+                                      ("W=35 L=1", 36, ((10, 18),), 180, ("all",))):
+        W, Ln, Sn = rule_window(rule, Tn), len(shapes), sum(h * w for h, w in shapes)
         if name == "clip encoder":
             a = encoder_inputs(torch, dev, gen, "raster")
             value = a[0]

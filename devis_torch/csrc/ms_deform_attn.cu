@@ -873,24 +873,31 @@ static int launch_temporal(void* value, void* loc, void* att, void* out, int T, 
 }
 
 // `lanes`, `per` and `vec` (the gather's split of D) come from the wrapper's
-// `taps_plan`; scratch as `BwdScratch` says, with wts and dots of 4 floats a
-// tap.
+// `taps_plan`; `bucket` is the route (`bwd_route`: -1 the global sort, with
+// scratch as `BwdScratch` says; else the run-wise sort, `RunScratch`, with
+// buckets of about that many entries, 0 for RUN_BUCKET) and `max_feeds` the
+// most runs a value frame is read by (`run_feeds`); wts and dots hold 4
+// floats a tap.
 template <typename scalar_t>
 static int launch_temporal_bwd(void* value, void* loc, void* att, void* grad_out,
                                void* grad_value, void* grad_loc, void* grad_att, void* keys0,
                                void* keys1, void* vals0, void* vals1, void* wts, void* dots,
-                               void* begin, void* end, void* hist, void* sums, void* top, int T,
-                               int Q, int S, int M, int D, int P, int lanes, int per, int vec,
-                               int gpr, const int* levels, int L, int rule_all,
-                               const int* offsets, int W, void* stream) {
+                               void* begin, void* end, void* hist, void* sums, void* top,
+                               void* pairs, void* tmp, void* offs, void* feed_ptr,
+                               void* feed, int T, int Q, int S, int M, int D, int P, int lanes,
+                               int per, int vec, int gpr, int bucket, int max_feeds,
+                               const int* levels, int L, int rule_all, const int* offsets, int W,
+                               void* stream) {
   if (L < 1 || L > MAX_LEVELS || !rule_ok(rule_all, W)) return (int)cudaErrorInvalidValue;
   const BwdScratch s{{(unsigned*)keys0, (unsigned*)keys1}, {(unsigned*)vals0, (unsigned*)vals1},
                      (int*)begin, (int*)end, (int*)hist, (int*)sums, (int*)top};
+  const RunScratch rs{(uint2*)pairs, (uint2*)tmp, (int*)offs, (const int*)feed_ptr,
+                      (const int*)feed};
   return bwd_run<k5_bwd, scalar_t>(
       value, (const float*)loc, (const float*)att, grad_out, grad_value, (float*)grad_loc,
-      (float*)grad_att, (float*)wts, (float*)dots, s, T, T, Q, S, M, D, (1 + W) * L, P, lanes,
-      per, vec, gpr, make_pyramid(levels, L), SlotFrame{make_rule(rule_all, offsets, W), T},
-      (cudaStream_t)stream);
+      (float*)grad_att, (float*)wts, (float*)dots, s, rs, T, T, Q, S, M, D, (1 + W) * L, P,
+      lanes, per, vec, gpr, bucket, max_feeds, make_pyramid(levels, L),
+      SlotFrame{make_rule(rule_all, offsets, W), T}, (cudaStream_t)stream);
 }
 
 extern "C" {
@@ -946,25 +953,29 @@ int msda_temporal_bf16(void* value, void* loc, void* att, void* out, int T, int 
 int msda_temporal_bwd_f32(void* value, void* loc, void* att, void* grad_out, void* grad_value,
                           void* grad_loc, void* grad_att, void* keys0, void* keys1, void* vals0,
                           void* vals1, void* wts, void* dots, void* begin, void* end, void* hist,
-                          void* sums, void* top, int T, int Q, int S, int M, int D, int P,
-                          int lanes, int per, int vec, int gpr, const int* levels, int L,
-                          int rule_all, const int* offsets, int W, void* stream) {
+                          void* sums, void* top, void* pairs, void* tmp, void* offs,
+                          void* feed_ptr, void* feed, int T, int Q, int S, int M, int D, int P,
+                          int lanes, int per, int vec, int gpr, int bucket, int max_feeds,
+                          const int* levels, int L, int rule_all, const int* offsets, int W,
+                          void* stream) {
   return launch_temporal_bwd<float>(
       value, loc, att, grad_out, grad_value, grad_loc, grad_att, keys0, keys1, vals0, vals1, wts,
-      dots, begin, end, hist, sums, top, T, Q, S, M, D, P, lanes, per, vec, gpr, levels, L,
-      rule_all, offsets, W, stream);
+      dots, begin, end, hist, sums, top, pairs, tmp, offs, feed_ptr, feed, T, Q, S, M, D, P,
+      lanes, per, vec, gpr, bucket, max_feeds, levels, L, rule_all, offsets, W, stream);
 }
 
 int msda_temporal_bwd_bf16(void* value, void* loc, void* att, void* grad_out, void* grad_value,
                            void* grad_loc, void* grad_att, void* keys0, void* keys1, void* vals0,
                            void* vals1, void* wts, void* dots, void* begin, void* end, void* hist,
-                           void* sums, void* top, int T, int Q, int S, int M, int D, int P,
-                           int lanes, int per, int vec, int gpr, const int* levels, int L,
-                           int rule_all, const int* offsets, int W, void* stream) {
+                           void* sums, void* top, void* pairs, void* tmp, void* offs,
+                           void* feed_ptr, void* feed, int T, int Q, int S, int M, int D, int P,
+                           int lanes, int per, int vec, int gpr, int bucket, int max_feeds,
+                           const int* levels, int L, int rule_all, const int* offsets, int W,
+                           void* stream) {
   return launch_temporal_bwd<__nv_bfloat16>(
       value, loc, att, grad_out, grad_value, grad_loc, grad_att, keys0, keys1, vals0, vals1, wts,
-      dots, begin, end, hist, sums, top, T, Q, S, M, D, P, lanes, per, vec, gpr, levels, L,
-      rule_all, offsets, W, stream);
+      dots, begin, end, hist, sums, top, pairs, tmp, offs, feed_ptr, feed, T, Q, S, M, D, P,
+      lanes, per, vec, gpr, bucket, max_feeds, levels, L, rule_all, offsets, W, stream);
 }
 
 }  // extern "C"

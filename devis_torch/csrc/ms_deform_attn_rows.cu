@@ -260,22 +260,28 @@ static int launch_rows(void* value, void* loc, void* att, void* out, int B, int 
 // value (B, S, M, D); loc (B, Q, M, L, P, 2) f32; att (B, Q, M, L, P) f32;
 // grad_out (B, Q, M*D) -> grad_value (B, S, M, D) in the value's type;
 // grad_loc like loc; grad_att like att. `lanes`, `per` and `vec` come from
-// the wrapper's `taps_plan`; scratch as `BwdScratch` says, with wts and dots
-// of 4 floats a tap.
+// the wrapper's `taps_plan`; `bucket` is the route (`bwd_route`: -1 the
+// global sort, scratch as `BwdScratch` says; else the run-wise sort,
+// `RunScratch`, with buckets of about that many entries, 0 for RUN_BUCKET;
+// a value row is read by its own frame's runs alone); wts and dots hold 4
+// floats a tap.
 template <typename scalar_t>
 static int launch_rows_bwd(void* value, void* loc, void* att, void* grad_out, void* grad_value,
                            void* grad_loc, void* grad_att, void* keys0, void* keys1, void* vals0,
                            void* vals1, void* wts, void* dots, void* begin, void* end, void* hist,
-                           void* sums, void* top, int B, int Q, int S, int M, int D, int P,
-                           int lanes, int per, int vec, int gpr, const int* levels, int L,
-                           void* stream) {
+                           void* sums, void* top, void* pairs, void* tmp, void* offs,
+                           void* feed_ptr, void* feed, int B, int Q, int S, int M, int D, int P,
+                           int lanes, int per, int vec, int gpr, int bucket, const int* levels,
+                           int L, void* stream) {
   if (L < 1 || L > MAX_LEVELS) return (int)cudaErrorInvalidValue;
   const BwdScratch s{{(unsigned*)keys0, (unsigned*)keys1}, {(unsigned*)vals0, (unsigned*)vals1},
                      (int*)begin, (int*)end, (int*)hist, (int*)sums, (int*)top};
+  const RunScratch rs{(uint2*)pairs, (uint2*)tmp, (int*)offs, (const int*)feed_ptr,
+                      (const int*)feed};
   return bwd_run<k7_bwd, scalar_t>(
       value, (const float*)loc, (const float*)att, grad_out, grad_value, (float*)grad_loc,
-      (float*)grad_att, (float*)wts, (float*)dots, s, B, B, Q, S, M, D, L, P, lanes, per, vec,
-      gpr, make_pyramid(levels, L), SameFrame{}, (cudaStream_t)stream);
+      (float*)grad_att, (float*)wts, (float*)dots, s, rs, B, B, Q, S, M, D, L, P, lanes, per,
+      vec, gpr, bucket, 0, make_pyramid(levels, L), SameFrame{}, (cudaStream_t)stream);
 }
 
 // C entry points. Pointers and the stream arrive as void*; `levels` is
@@ -299,22 +305,28 @@ int msda_rows_bf16(void* value, void* loc, void* att, void* out, int B, int Q, i
 int msda_rows_bwd_f32(void* value, void* loc, void* att, void* grad_out, void* grad_value,
                       void* grad_loc, void* grad_att, void* keys0, void* keys1, void* vals0,
                       void* vals1, void* wts, void* dots, void* begin, void* end, void* hist,
-                      void* sums, void* top, int B, int Q, int S, int M, int D, int P, int lanes,
-                      int per, int vec, int gpr, const int* levels, int L, void* stream) {
+                      void* sums, void* top, void* pairs, void* tmp, void* offs,
+                      void* feed_ptr, void* feed, int B, int Q, int S, int M, int D, int P,
+                      int lanes, int per, int vec, int gpr, int bucket, const int* levels, int L,
+                      void* stream) {
   return launch_rows_bwd<float>(value, loc, att, grad_out, grad_value, grad_loc, grad_att, keys0,
-                                keys1, vals0, vals1, wts, dots, begin, end, hist, sums, top, B, Q,
-                                S, M, D, P, lanes, per, vec, gpr, levels, L, stream);
+                                keys1, vals0, vals1, wts, dots, begin, end, hist, sums, top,
+                                pairs, tmp, offs, feed_ptr, feed, B, Q, S, M, D, P, lanes, per,
+                                vec, gpr, bucket, levels, L, stream);
 }
 
 int msda_rows_bwd_bf16(void* value, void* loc, void* att, void* grad_out, void* grad_value,
                        void* grad_loc, void* grad_att, void* keys0, void* keys1, void* vals0,
                        void* vals1, void* wts, void* dots, void* begin, void* end, void* hist,
-                       void* sums, void* top, int B, int Q, int S, int M, int D, int P, int lanes,
-                       int per, int vec, int gpr, const int* levels, int L, void* stream) {
+                       void* sums, void* top, void* pairs, void* tmp, void* offs,
+                       void* feed_ptr, void* feed, int B, int Q, int S, int M, int D, int P,
+                       int lanes, int per, int vec, int gpr, int bucket, const int* levels,
+                       int L, void* stream) {
   return launch_rows_bwd<__nv_bfloat16>(value, loc, att, grad_out, grad_value, grad_loc,
                                         grad_att, keys0, keys1, vals0, vals1, wts, dots, begin,
-                                        end, hist, sums, top, B, Q, S, M, D, P, lanes, per, vec,
-                                        gpr, levels, L, stream);
+                                        end, hist, sums, top, pairs, tmp, offs, feed_ptr, feed, B,
+                                        Q, S, M, D, P, lanes, per, vec, gpr, bucket, levels, L,
+                                        stream);
 }
 
 }  // extern "C"

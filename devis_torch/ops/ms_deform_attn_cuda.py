@@ -33,13 +33,16 @@ and `plain_calls` CPU dispatches, per op.
     computed once, chunks of channels over the threads, taps over groups of
     threads where the launch is too small to fill the card.
   * K5, K7 and K9 share one backward in a fixed order (`csrc/msda_bwd.cuh`):
-    the corners' entries (value row, weight) are sorted by value row with a
-    stable radix sort, one warp a value row sums its entries in a fixed
-    order and writes the row once in the value's dtype, and each entry's
-    dot g . row gives the weight and location gradients (K9: grad_wt).
-    Equal inputs give equal bits on every run, as the JAX kernels' one
+    the corners' entries (value row, weight) are sorted by value row, stably,
+    one warp a value row sums its entries in entry order and writes the row
+    once in the value's dtype, and each entry's dot g . row gives the weight
+    and location gradients (K9: grad_wt). The sort is a global radix sort
+    (K9, and K5/K7 where `bwd_route` says) or, for K5 and K7, a sort of each
+    run of one (head, stage, query frame) on its level's pixels alone, a row
+    then walking its frame's runs in run order: the same order, the same
+    bits. Equal inputs give equal bits on every run, as the JAX kernels' one
     owner a value tile does. `msda_bwd_mirror` and `msda_taps_bwd_mirror`
-    repeat that order on the CPU, tile and row order as arguments.
+    repeat that order on the CPU, tile, run and row order as arguments.
   * K8 `msda_proj` (replaces `_fwd_kernel_proj`): single-frame attention
     from the raw projections, the image model's encoder and first decoder
     layer: value (B, S, M, D), references (B, Q, L, 2), offsets
@@ -409,33 +412,198 @@ def bwd_groups(plan, n_entries: int, n_rows: int) -> int:
     return g
 
 
+# The run-wise route of K5 and K7 (csrc/msda_bwd.cuh `run_sort_kernel`,
+# `run_gather_kernel`): the entries of one (head m, stage s = j * L + l,
+# query frame n) lie together, a run R = ((m * J + j) * L + l) * N + n of
+# E = Q * P * 4; each run is sorted stably on its level's pixels within its
+# own range, and a value row takes its frame's runs' segments in run order.
+RUN_DEAD = -1                 # a corner outside its level, as a local key (csrc RUN_DEAD)
+
+
+class RunPlan(collections.namedtuple("RunPlan", "E N J M hw lb nb zoff Z")):
+    """csrc `RunPlan`: per level its pixels `hw`, a bucket's pixels 2^lb,
+    its buckets `nb` and where its runs start in the offs table (hw + 1 ints
+    a run); two passes where any level has more than one bucket, the first
+    packing a run-local entry index of `ebits` bits and the pixel's low bits
+    above it."""
+
+    @property
+    def ebits(self) -> int:
+        return max(1, (self.E - 1).bit_length())
+
+    @property
+    def two(self) -> bool:
+        return max(self.nb) > 1
+
+    @property
+    def runs(self) -> int:
+        return self.M * self.J * len(self.hw) * self.N
+
+    @property
+    def offs_size(self) -> int:
+        return self.M * self.J * self.N * self.Z
+
+    @property
+    def bkt_size(self) -> int:
+        """The first pass's bucket table: nb_max + 1 ints a run."""
+        return self.runs * (max(self.nb) + 1) if self.two else 0
+
+    def coords(self, R: int):
+        """(m, j, l, n) of run R."""
+        L = len(self.hw)
+        return R // (self.N * L * self.J), R // (self.N * L) % self.J, R // self.N % L, R % self.N
+
+    def table(self, m: int, j: int, l: int, n: int) -> int:
+        """Where run (m, j, l, n)'s part of the offs table starts."""
+        return ((m * self.J + j) * self.Z + self.zoff[l]) * self.N + n * (self.hw[l] + 1)
+
+    def passes(self):
+        """(mode, blocks, bins, warps, shared-memory bytes) of each launch of
+        the sort (`run_sort_launch`): the counters, and the first of two
+        passes' staged rounds or the second's staged bucket."""
+        if not self.two:
+            launches = [("one", self.runs, max(self.hw), _bwd_define("RUN_MAX_WARPS"), 0)]
+        else:
+            cache = _bwd_define("RUN_CACHE") * 8
+            launches = [("high", self.runs, max(self.nb), _bwd_define("RUN_HIGH_WARPS"), 0),
+                        ("low", self.runs * max(self.nb),
+                         max(min(1 << lb, hw) for lb, hw in zip(self.lb, self.hw)),
+                         _bwd_define("RUN_LOW_WARPS"), cache)]
+        out = []
+        for mode, blocks, bins, most, extra in launches:
+            nw = run_warps(bins, most)
+            ints = ((2 * nw + 1) * bins + 3 * 32 * _bwd_define("RUN_UNROLL") * nw
+                    if mode == "high" else -(-(nw + 1) * bins // 2) * 2)
+            out.append((mode, blocks, bins, nw, 4 * ints + extra))
+        return out
+
+
+def run_warps(bins: int, most: int) -> int:
+    """Warps a block of the run-wise sort takes (csrc `run_warps`)."""
+    nw = most
+    while nw > 1 and nw * bins > _bwd_define("RUN_SMEM_INTS"):
+        nw >>= 1
+    return nw
+
+
+def run_plan(spatial_shapes, Q: int, P: int, N: int, J: int, M: int, bucket: int = 0,
+             strict: bool = True):
+    """The run-wise sort's plan (csrc `make_run_plan`), buckets of about
+    `bucket` entries (0: RUN_BUCKET): a level's buckets hold 2^lb pixels, lb
+    the largest (at most log2 RUN_BINS) with E * 2^lb / hw at most `bucket`.
+    Where the kernels would refuse it: raises, or with `strict` False
+    returns None."""
+    bins = _bwd_define("RUN_BINS")
+    bucket = bucket or _bwd_define("RUN_BUCKET")
+    E = 4 * Q * P
+    hw = tuple(h * w for h, w in spatial_shapes)
+    lbs = []
+    for x in hw:
+        lb = 0
+        while (2 << lb) <= x * bucket // max(E, 1) and (2 << lb) <= bins:
+            lb += 1
+        lbs.append(lb)
+    nb = tuple(-(-x // (1 << lb)) for x, lb in zip(hw, lbs))
+    zoff = tuple(sum(x + 1 for x in hw[:l]) for l in range(len(hw)))
+    plan = RunPlan(E, N, J, M, hw, tuple(lbs), nb, zoff, sum(hw) + len(hw))
+    if E < 1 or bucket < 1 or plan.offs_size >= 2 ** 31 or plan.runs * E >= 2 ** 31 or \
+            max(nb) > bins or (plan.two and plan.ebits + max(lbs) > 32):
+        if strict:
+            raise ValueError(f"run_plan: {max(nb)} buckets a level (at most {bins}), "
+                             f"{plan.offs_size} ints of tables, {plan.runs * E} entries")
+        return None
+    return plan
+
+
+def bwd_route(spatial_shapes, Q: int, P: int, N: int, J: int, M: int) -> int:
+    """The sort K5 and K7 take (the `bucket` of their C entries): 0, the
+    run-wise sort with buckets of about RUN_BUCKET entries, where a run
+    holds at least as many entries as its largest level has pixels, there
+    are at least RUN_MIN_RUNS runs (the first pass takes a block a run) and
+    `run_plan` fits; else -1, the global sort (K5 at the decoder's 10
+    queries, where the per-run tables would outweigh the entries; K7 at the
+    image encoder's 64 runs). Either gives the same bits."""
+    runs = M * J * len(spatial_shapes) * N
+    if 4 * Q * P < max(h * w for h, w in spatial_shapes) or runs < _bwd_define("RUN_MIN_RUNS"):
+        return -1
+    return -1 if run_plan(spatial_shapes, Q, P, N, J, M, strict=False) is None else 0
+
+
+def run_feeds(frames, n_frames: int):
+    """The gather's table of runs a value frame is read by: items j * N + n
+    (frame slot j of query frame n, `frames` (N, J)) whose frame is f, in
+    run order, at feed[ptr[f]:ptr[f + 1]]. Returns (ptr (F + 1,), feed
+    (N * J,)) int32."""
+    frames = torch.as_tensor(frames, dtype=torch.long)
+    flat = frames.t().reshape(-1)                       # item j * N + n
+    feed = torch.sort(flat, stable=True).indices
+    ptr = torch.zeros(n_frames + 1, dtype=torch.long)
+    ptr[1:] = torch.cumsum(torch.bincount(flat, minlength=n_frames), 0)
+    return ptr.int(), feed.int()
+
+
+@functools.lru_cache(maxsize=64)
+def _device_feeds(frames_key, n_frames: int, device):
+    """`run_feeds` on `device`, and the most runs a frame is read by."""
+    ptr, feed = run_feeds(torch.tensor(frames_key), n_frames)
+    return ptr.to(device), feed.to(device), int((ptr[1:] - ptr[:-1]).max())
+
+
+def run_scratch(n_entries: int, plan: RunPlan, device):
+    """Device scratch of one run-wise K5 or K7 launch (csrc `RunScratch`):
+    the local keys, the weights and the dots in entry order, (entry, weight)
+    pairs in the sorted order, (run-local entry and low bits, weight) pairs
+    between two passes, the first pass's bucket table, the offs table."""
+    n = max(n_entries, 1)
+    i32 = dict(dtype=torch.int32, device=device)
+    return dict(keys=torch.empty(n, **i32),
+                wts=torch.empty(n, dtype=torch.float32, device=device),
+                dots=torch.empty(n, dtype=torch.float32, device=device),
+                pairs=torch.empty(2 * n, **i32), offs=torch.empty(max(plan.offs_size, 1), **i32),
+                tmp=torch.empty(2 * n, **i32) if plan.two else None,
+                bkt=torch.empty(plan.bkt_size, **i32) if plan.two else None)
+
+
+def bwd_scratch_bytes(n_entries: int, n_rows: int, plan=None) -> int:
+    """Device bytes of the scratch of one K5 or K7 launch: the global sort's
+    (`bwd_scratch`) where `plan` is None, else the run-wise route's."""
+    if plan is None:
+        tiles = -(-n_entries // _bwd_define("BWD_TILE"))
+        hist = 256 * tiles
+        return 4 * (6 * n_entries + 2 * n_rows + hist + -(-hist // _bwd_define("BWD_SCAN_TILE"))
+                    + 1)
+    return 4 * ((5 + (2 if plan.two else 0)) * n_entries + plan.offs_size + plan.bkt_size)
+
+
 def _scratch_ptrs(sc):
     return (sc["keys"][0].data_ptr(), sc["keys"][1].data_ptr(), sc["vals"][0].data_ptr(),
             sc["vals"][1].data_ptr())
 
 
 def _tap_entries(spatial_shapes, loc, att, frames, S, M, n_rows):
-    """Step 1 of K5/K7 on the CPU: (keys (4 * taps,), weights, the taps'
-    geometry (dx, dy, live, level widths, level heights)). Entries in the
-    kernel's order (m, s, n, q, p, c) (`bwd_entries_kernel`); key the value
-    row ((f * S + s) * M + m), `n_rows` where the tap is dead or the corner
-    outside its level."""
+    """Step 1 of K5/K7 on the CPU (or wherever loc lies): (keys (4 * taps,),
+    weights, the taps' geometry (dx, dy, live, level widths, level
+    heights)). Entries in the kernel's order (m, s, n, q, p, c)
+    (`bwd_entries_kernel`); key the value row ((f * S + s) * M + m),
+    `n_rows` where the tap is dead or the corner outside its level."""
     N, Q, _, Lx, P, _ = loc.shape
     L = len(spatial_shapes)
-    starts = level_start_index(spatial_shapes)
-    s_idx = torch.arange(Lx).view(1, 1, 1, Lx, 1)
+    dev = loc.device
+    starts = torch.as_tensor(level_start_index(spatial_shapes), device=dev)
+    s_idx = torch.arange(Lx, device=dev).view(1, 1, 1, Lx, 1)
     lvl = s_idx % L
-    hs = torch.tensor([h for h, _ in spatial_shapes])[lvl]
-    ws = torch.tensor([w for _, w in spatial_shapes])[lvl]
+    hs = torch.tensor([h for h, _ in spatial_shapes], device=dev)[lvl]
+    ws = torch.tensor([w for _, w in spatial_shapes], device=dev)[lvl]
     x = loc[..., 0].float() * ws - 0.5
     y = loc[..., 1].float() * hs - 0.5
     live = (x >= -1) & (x < ws) & (y >= -1) & (y < hs)
     x0f, y0f = torch.floor(torch.where(live, x, 0.0)), torch.floor(torch.where(live, y, 0.0))
     dx, dy = x - x0f, y - y0f
     x0, y0 = x0f.long(), y0f.long()
-    frame = frames[torch.arange(N).view(N, 1, 1, 1, 1), s_idx // L]
-    m = torch.arange(M).view(1, 1, M, 1, 1)
-    base = frame * S + torch.as_tensor(starts)[lvl]
+    frame = torch.as_tensor(frames, device=dev)[torch.arange(N, device=dev).view(N, 1, 1, 1, 1),
+                                                s_idx // L]
+    m = torch.arange(M, device=dev).view(1, 1, M, 1, 1)
+    base = frame * S + starts[lvl]
     a = att.float()
     keys, wts = [], []
     for c in range(4):
@@ -448,6 +616,20 @@ def _tap_entries(spatial_shapes, loc, att, frames, S, M, n_rows):
     perm = (2, 3, 0, 1, 4, 5)
     return (torch.stack(keys, -1).permute(perm).reshape(-1),
             torch.stack(wts, -1).permute(perm).reshape(-1), (dx, dy, live, ws, hs))
+
+
+def local_keys(keys, spatial_shapes, frames, S: int, M: int, n_rows: int):
+    """The run-wise route's keys (`bwd_entries_kernel` with LOCAL): each
+    live corner's pixel in its level, RUN_DEAD for the rest, from the global
+    keys of `_tap_entries` (entry order (m, s, n, q, p, c))."""
+    N, J = frames.shape
+    L = len(spatial_shapes)
+    starts = torch.as_tensor(level_start_index(spatial_shapes))
+    s = torch.arange(J * L).view(1, J * L, 1, 1)
+    n = torch.arange(N).view(1, 1, N, 1)
+    base = frames.long()[n, s // L] * S + starts[s % L]                 # (1, Lx, N, 1)
+    k = keys.view(M, J * L, N, -1)
+    return torch.where(k < n_rows, k // M - base, RUN_DEAD).reshape(-1)
 
 
 def _radix_sort_mirror(keys, n_rows, tile_order=None):
@@ -482,6 +664,135 @@ def _radix_sort_mirror(keys, n_rows, tile_order=None):
             v_out[at] = vals[t * tile:(t + 1) * tile]
         keys, vals = k_out, v_out
     return keys, vals
+
+
+def _counting_pass(digits, bins: int, nw: int):
+    """One block of the run-wise sort on the CPU (`run_sort_kernel`): the
+    segment split into `nw` contiguous parts of whole rounds of 32, each
+    part's digit counts, every part's first position of every digit
+    (over the parts in order, then over the digits), then each entry at its
+    part's position of its digit plus its rank there in entry order. Returns
+    (position of each entry in the segment, each digit's first position and
+    the total (bins + 1,))."""
+    n = digits.numel()
+    per = -(-(-(-n // nw)) // 32) * 32
+    part = torch.arange(n) // max(per, 1)
+    counts = torch.zeros(nw, bins, dtype=torch.long)
+    counts.index_put_((part, digits), torch.ones(n, dtype=torch.long), accumulate=True)
+    totals = counts.sum(0)
+    starts = torch.zeros(bins + 1, dtype=torch.long)
+    starts[1:] = torch.cumsum(totals, 0)
+    first = starts[:bins][None] + torch.cumsum(counts, 0) - counts      # (parts, bins)
+    order = torch.sort(part * bins + digits, stable=True).indices
+    key = (part * bins + digits)[order]
+    run_start = torch.ones(n, dtype=torch.bool)
+    run_start[1:] = key[1:] != key[:-1]
+    idx = torch.arange(n)
+    rank = idx - torch.cummax(torch.where(run_start, idx, 0), 0).values
+    pos = torch.empty(n, dtype=torch.long)
+    pos[order] = first[part[order], digits[order]] + rank
+    return pos, starts
+
+
+def _run_sort_mirror(local, plan: RunPlan, run_order=None):
+    """Step 2 of the run-wise route on the CPU as the kernels run it: each
+    run (in `run_order`, any permutation of the runs) sorted stably on the
+    local pixels `local` (entry order, RUN_DEAD where a corner lies outside
+    its level), within the run's own range of positions: in one pass, or
+    first by bucket pix >> lb, then each bucket within its range by the low
+    bits. Returns (the entry at each position, -1 where none is; the offs
+    table of absolute positions)."""
+    n, E = local.numel(), plan.E
+    ids = torch.full((n,), -1, dtype=torch.long)
+    offs = torch.zeros(plan.offs_size, dtype=torch.long)
+    order = range(plan.runs) if run_order is None else list(run_order)
+    if sorted(order) != list(range(plan.runs)):
+        raise ValueError("run_order must be a permutation of the runs")
+    (_, _, _, nw_first, _), *low = plan.passes()
+    for R in order:
+        m, j, l, nn = plan.coords(R)
+        seg = local[R * E:(R + 1) * E].long()
+        live = seg != RUN_DEAD
+        ent, pix = torch.arange(R * E, (R + 1) * E)[live], seg[live]
+        base, hw, lb = plan.table(m, j, l, nn), plan.hw[l], plan.lb[l]
+        if not plan.two:
+            pos, starts = _counting_pass(pix, hw, nw_first)
+            ids[R * E + pos] = ent
+            offs[base:base + hw + 1] = R * E + starts
+            continue
+        pos, bstarts = _counting_pass(pix >> lb, plan.nb[l], nw_first)
+        tmp_e, tmp_p = torch.empty_like(ent), torch.empty_like(pix)
+        tmp_e[pos], tmp_p[pos] = ent, pix
+        for d in range(plan.nb[l]):
+            b0, b1 = int(bstarts[d]), int(bstarts[d + 1])
+            bins = min(1 << lb, hw - (d << lb))
+            pos2, starts = _counting_pass(tmp_p[b0:b1] & ((1 << lb) - 1), bins, low[0][3])
+            ids[R * E + b0 + pos2] = tmp_e[b0:b1]
+            offs[base + (d << lb):base + (d << lb) + bins] = R * E + b0 + starts[:bins]
+        offs[base + hw] = R * E + int(bstarts[-1])
+    return ids, offs
+
+
+def _run_rows_mirror(ids, offs, plan: RunPlan, feeds, spatial_shapes, S: int, n_rows: int):
+    """Step 3's walk of the run-wise route on the CPU: each value row
+    (f, sp, m) takes its frame's runs (`feeds`, `run_feeds`) in run order and
+    each run's segment at its pixel. Returns what `_radix_sort_mirror`
+    returns for the gather: (the row of each position, the entry at each
+    position), the rows' lists laid end to end in row order, then the dead
+    corners (key n_rows)."""
+    ptr, feed = (t.long() for t in feeds)
+    M, N, J = plan.M, plan.N, plan.J
+    r = torch.arange(n_rows)
+    m, sp, f = r % M, r // M % S, r // (M * S)
+    starts = torch.as_tensor(level_start_index(spatial_shapes))
+    lvl = torch.bucketize(sp, starts, right=True) - 1
+    pix = sp - starts[lvl]
+    hw = torch.as_tensor(plan.hw)
+    zoff = torch.as_tensor(plan.zoff)
+    nf = ptr[f + 1] - ptr[f]
+    pieces = []                                   # (row, feed index, position in the run's range)
+    for k in range(int(nf.max()) if n_rows else 0):
+        on = k < nf
+        item = feed[torch.where(on, ptr[f] + k, 0)]
+        j, nn = item // N, item % N
+        ob = ((m * J + j) * plan.Z + zoff[lvl]) * N + nn * (hw[lvl] + 1) + pix
+        b, e = offs[ob], offs[ob + 1]
+        length = torch.where(on, e - b, 0)
+        rows = torch.repeat_interleave(r, length)
+        within = torch.arange(int(length.sum())) - torch.repeat_interleave(
+            torch.cumsum(length, 0) - length, length)
+        pieces.append((rows, torch.full_like(rows, k),
+                       torch.repeat_interleave(b, length) + within))
+    none = torch.zeros(0, dtype=torch.long)
+    rows, ks, at = (torch.cat(x) for x in zip(*pieces)) if pieces else (none, none, none)
+    order = torch.sort(rows * (int(nf.max()) + 1) + ks, stable=True).indices
+    entries = ids[at[order]]
+    dead = torch.ones(ids.numel(), dtype=torch.bool)
+    dead[entries] = False
+    keys = torch.cat([rows[order], torch.full((int(dead.sum()),), n_rows, dtype=torch.long)])
+    return keys, torch.cat([entries, torch.nonzero(dead)[:, 0]])
+
+
+def run_walk_mirror(ids, offs, plan: RunPlan, feeds, spatial_shapes, S: int, row: int,
+                    gpr: int):
+    """The entries each of a value row's `gpr` lane groups takes in the
+    run-wise gather, in order: per segment of its frame's runs, group g
+    from (g - entries before) mod gpr in steps of gpr (`run_gather_kernel`)."""
+    ptr, feed = (t.long() for t in feeds)
+    M, N, L = plan.M, plan.N, len(plan.hw)
+    m, sp, f = row % M, row // M % S, row // (M * S)
+    starts = level_start_index(spatial_shapes)
+    lvl = max(i for i in range(L) if starts[i] <= sp)
+    pix = sp - starts[lvl]
+    groups, before = [[] for _ in range(gpr)], 0
+    for k in range(int(ptr[f]), int(ptr[f + 1])):
+        j, nn = int(feed[k]) // N, int(feed[k]) % N
+        ob = plan.table(m, j, lvl, nn) + pix
+        b, length = int(offs[ob]), int(offs[ob + 1] - offs[ob])
+        for g in range(gpr):
+            groups[g] += ids[list(range(b + (g - before) % gpr, b + length, gpr))].tolist()
+        before += length
+    return groups
 
 
 def _gather_mirror(value_rows, g_rows, wts, keys, order, n_rows, plan, row_order=None,
@@ -547,10 +858,12 @@ def _gather_mirror(value_rows, g_rows, wts, keys, order, n_rows, plan, row_order
 
 
 def msda_bwd_mirror(value, spatial_shapes, loc, att, grad_out, frames=None, plan=None,
-                    tile_order=None, row_order=None):
+                    tile_order=None, row_order=None, sort="global", run_order=None):
     """K5 and K7 on the CPU in the kernels' order (csrc/msda_bwd.cuh): the
-    corners' entries, the stable radix sort by value row (tiles in
-    `tile_order`), one warp's sums a row (rows in `row_order`) and the taps'
+    corners' entries, the stable sort by value row (`sort` "global": the
+    radix sort, tiles in `tile_order`; an int: the run-wise route with
+    buckets of about that many entries (0: RUN_BUCKET), runs in `run_order`;
+    both give the same order), one warp's sums a row (rows in `row_order`) and the taps'
     gradients from their dots. value (F, S, M, D); loc (N, Q, M, Lx, P, 2);
     frames (N, Lx / L) the value frame of each frame slot (default: frame n
     for the queries of frame n, one slot: K7). Returns (grad_value in the
@@ -562,9 +875,17 @@ def msda_bwd_mirror(value, spatial_shapes, loc, att, grad_out, frames=None, plan
         frames = torch.arange(N)[:, None]
     plan = plan or taps_plan(D, value.dtype, True)
     n_rows = F * S * M
+    frames = torch.as_tensor(frames)
     keys, wts, (dx, dy, live, ws, hs) = _tap_entries(
-        spatial_shapes, loc, att, torch.as_tensor(frames), S, M, n_rows)
-    skeys, order = _radix_sort_mirror(keys, n_rows, tile_order)
+        spatial_shapes, loc, att, frames, S, M, n_rows)
+    if sort == "global":
+        skeys, order = _radix_sort_mirror(keys, n_rows, tile_order)
+    else:
+        rp = run_plan(spatial_shapes, Q, P, N, Lx // len(spatial_shapes), M, sort)
+        ids, offs = _run_sort_mirror(local_keys(keys, spatial_shapes, frames, S, M, n_rows),
+                                     rp, run_order)
+        skeys, order = _run_rows_mirror(ids, offs, rp, run_feeds(frames, F), spatial_shapes, S,
+                                        n_rows)
     g_idx = ((torch.arange(N * Q).view(1, 1, N * Q, 1, 1) * M
               + torch.arange(M).view(M, 1, 1, 1, 1)).expand(M, Lx, N * Q, P, 4).reshape(-1))
     g_rows = grad_out.float().reshape(N * Q * M, D)[g_idx]
@@ -873,33 +1194,55 @@ def _aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch_bwd(name, value, spatial_shapes, loc, att, grad_out, dims, tail=()):
+def _launch_bwd(name, value, spatial_shapes, loc, att, grad_out, dims, frames, tail=(),
+                sort=None):
     """One K5 or K7 launch (csrc/msda_bwd.cuh `bwd_run`) into new buffers:
-    (grad_value in the value's dtype, grad_loc f32, grad_att f32)."""
+    (grad_value in the value's dtype, grad_loc f32, grad_att f32). `frames`
+    (N, J): the value frame of each frame slot (None: K7, frame n alone).
+    `sort`: the route (`bwd_route` where None; -1 the global sort; else the
+    run-wise one with buckets of about that many entries, 0 for RUN_BUCKET)."""
     value, grad_out = _aligned16(value), _aligned16(grad_out)
     if loc.data_ptr() % 8:          # the kernels read a tap's (x, y) as one float2
         loc = loc.clone()
     F, S, M, D = value.shape
+    N, Q, _, Lx, P = att.shape
+    J = Lx // len(spatial_shapes)
+    n = 4 * att.numel()
+    bucket = bwd_route(spatial_shapes, Q, P, N, J, M) if sort is None else sort
     plan = taps_plan(D, value.dtype, True)
-    gpr = bwd_groups(plan, 4 * att.numel(), F * S * M)
-    sc = bwd_scratch(4 * att.numel(), F * S * M, value.device)
+    gpr = bwd_groups(plan, n, F * S * M)
+    ptrs = lambda *ts: [None if t is None else t.data_ptr() for t in ts]  # noqa: E731
+    feeds = ()
+    if bucket < 0:
+        sc = bwd_scratch(n, F * S * M, value.device)
+        scratch = ptrs(*sc["keys"], *sc["vals"], sc["wts"], sc["dots"], sc["begin"], sc["end"],
+                       sc["hist"], sc["sums"], sc["top"]) + [None] * 5
+    else:
+        rp = run_plan(spatial_shapes, Q, P, N, J, M, bucket)
+        sc = run_scratch(n, rp, value.device)
+        ptr = feed = None
+        if frames is not None:
+            ptr, feed, most = _device_feeds(tuple(map(tuple, frames.tolist())), F, value.device)
+            feeds = (most,)
+        scratch = ptrs(sc["keys"], None, None, None, sc["wts"], sc["dots"], None, None, sc["bkt"],
+                       None, None, sc["pairs"], sc["tmp"], sc["offs"], ptr, feed)
+    if frames is not None and not feeds:
+        feeds = (0,)
     g_value = torch.empty_like(value)
     g_loc, g_att = torch.empty_like(loc), torch.empty_like(att)
-    fn = _function(f"{name}_{_DTYPES[value.dtype]}", 18, 10)
+    fn = _function(f"{name}_{_DTYPES[value.dtype]}", 23, 11 + len(feeds))
     with torch.cuda.device(value.device):
         _build.check(fn(value.data_ptr(), loc.data_ptr(), att.data_ptr(), grad_out.data_ptr(),
-                        g_value.data_ptr(), g_loc.data_ptr(), g_att.data_ptr(),
-                        *_scratch_ptrs(sc), sc["wts"].data_ptr(), sc["dots"].data_ptr(),
-                        sc["begin"].data_ptr(), sc["end"].data_ptr(), sc["hist"].data_ptr(),
-                        sc["sums"].data_ptr(), sc["top"].data_ptr(), *dims, plan.lanes,
-                        plan.per, int(plan.vec), gpr, _levels(spatial_shapes),
-                        len(spatial_shapes), *tail, _stream(value)), name)
+                        g_value.data_ptr(), g_loc.data_ptr(), g_att.data_ptr(), *scratch,
+                        *dims, plan.lanes, plan.per, int(plan.vec), gpr, bucket, *feeds,
+                        _levels(spatial_shapes), len(spatial_shapes), *tail, _stream(value)),
+                     name)
     return g_value, g_loc, g_att
 
 
-def launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule=("all",)):
+def launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule=("all",), sort=None):
     """One K5 launch: (grad_value in the value's dtype, grad_loc f32,
-    grad_att f32). Counts no launch."""
+    grad_att f32). Counts no launch. `sort` as `_launch_bwd`'s."""
     L = len(spatial_shapes)
     W = rule_window(rule, value.shape[0])
     _check_geometry("msda_temporal_bwd", spatial_shapes, value.shape[3], W, rule)
@@ -909,8 +1252,10 @@ def launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule=("all",)
     if tuple(grad_out.shape) != (T, Q, M * D):
         raise ValueError("msda_temporal_bwd: inconsistent shapes")
     rule_all, offsets = _rule_args(rule)
+    frames = torch.cat([torch.arange(T)[:, None],
+                        torch.as_tensor(temporal_frame_table(rule, T), dtype=torch.long)], 1)
     return _launch_bwd("msda_temporal_bwd", value, spatial_shapes, loc, att, grad_out,
-                       (T, Q, S, M, D, P), (rule_all, offsets, W))
+                       (T, Q, S, M, D, P), frames, (rule_all, offsets, W), sort)
 
 
 def msda_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule=("all",)):
@@ -1039,19 +1384,17 @@ msda_rows.launches = 0
 msda_rows.plain_calls = 0
 
 
-def launch_rows_bwd(value, spatial_shapes, loc, att, grad_out):
-    """One K7 launch: (grad_value in the value's dtype, grad_loc f32,
-    grad_att f32). Counts no launch."""
-    L = len(spatial_shapes)
-    if L > _MAX_LEVELS:
+def launch_rows_bwd(value, spatial_shapes, loc, att, grad_out, sort=None):
+    """One K7 launch; counts no launch. `sort` as `_launch_bwd`'s."""
+    if len(spatial_shapes) > _MAX_LEVELS:
         raise ValueError(f"msda_rows_bwd: at most {_MAX_LEVELS} levels")
     B, Q, S, M, D, P = _check_rows("msda_rows_bwd", value, spatial_shapes, loc,
-                                   att, L)
+                                   att, len(spatial_shapes))
     _check_cuda("msda_rows_bwd", value.device, (grad_out,), value.dtype)
     if tuple(grad_out.shape) != (B, Q, M * D):
         raise ValueError("msda_rows_bwd: inconsistent shapes")
     return _launch_bwd("msda_rows_bwd", value, spatial_shapes, loc, att, grad_out,
-                       (B, Q, S, M, D, P))
+                       (B, Q, S, M, D, P), None, sort=sort)
 
 
 def msda_rows_bwd(value, spatial_shapes, loc, att, grad_out):

@@ -34,8 +34,16 @@ timing code are this checkout's (`chip_smoke.py` beside this file), bf16:
   masks) and the image encoder (Q = S, 2 images). K5, K7 and K9 are timed as
   ops: every kernel and memset a call by device time (the atomic form's
   zero, kernel and cast; the fixed-order form's entries, sort, gather and
-  tap gradients), the op by CUDA events, and 5 calls checked for equal
-  bits (`repeat_equal`);
+  tap gradients), split by stage (`chip_smoke.device_stages`: entries,
+  sort, bounds, gather, tap gradients, memsets and fills), the op by CUDA
+  events, 5 calls checked for equal bits (`repeat_equal`), and a SHA-256
+  digest of each output's bytes (grad_value, grad_loc, grad_att; K9's
+  grad_value, grad_wt); the last line says, per case, whether each DIR's
+  digests equal the first DIR's. Beside K5's sort stage at the clip
+  encoder, `torch.sort(keys, stable=True)` of that case's keys (its
+  corners' value rows, `ms_deform_attn_cuda._tap_entries` on the card) is
+  timed in this checkout as the stage's yardstick (`sort_library_ms`); the
+  port never calls it;
 * K12a and K12b at `chip_smoke.BAND_SHAPES` (the JAX script's C 16 and C
   512, N 96 Wp), f32, as `chip_smoke.probe_phase` makes their inputs;
 * K12c at `chip_smoke.MMA_SHAPES` (`benchmarks/mxu_probe.py:79-86`'s eight
@@ -56,6 +64,7 @@ image mask head on its first masks as K6), K12a and K12b to 1e-5 and K12c to 2e-
 DIR, the card's name and power limit, and last one JSON object of every
 run. Needs one CUDA card.
 """
+import hashlib
 import importlib.util
 import json
 import os
@@ -195,18 +204,48 @@ def taps_tent_times(torch, cs, K, dev):
     return res
 
 
+def digest(torch, t) -> str:
+    """SHA-256 of a tensor's bytes."""
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
 def bwd_op_times(torch, cs, op, iters=10):
     """A backward op's device time a call (every kernel and memset it
     launches: the atomic form's zero, kernel and cast; the fixed-order
-    form's memsets, entries, sort, gather and tap gradients), its launches a
-    call, its CUDA-event time, and whether 5 calls give the same bits."""
+    form's memsets, entries, sort, gather and tap gradients) and its split
+    by stage, its launches a call, its CUDA-event time, whether 5 calls give
+    the same bits, and the digests of the first call's outputs."""
     first = [t.clone() for t in op()]
     same = True
     for _ in range(4):
         same &= all(torch.equal(a, b) for a, b in zip(first, op()))
     dev_ms, launches, _ = cs.device_profile(op, iters)
     return dict(ms=dev_ms, launches=launches, op_ms=cs.cuda_time(op, iters),
-                repeat_equal=bool(same))
+                stages=cs.device_stages(op, iters), repeat_equal=bool(same),
+                digests=[digest(torch, t) for t in first])
+
+
+def sort_yardstick(torch, cs):
+    """Device ms of `torch.sort(keys, stable=True)` of the clip encoder's
+    corners' value rows (raster references, K5's inputs as `bwd_times`
+    makes them): the yardstick of K5's sort stage. This checkout only."""
+    from devis_torch.ops import ms_deform_attn_cuda as K
+    from devis_torch.ops.ms_deform_attn import temporal_frame_table
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 30)
+    L, S = len(cs.SHAPES), sum(h * w for h, w in cs.SHAPES)
+    a = cs.encoder_inputs(torch, dev, gen, "raster")
+    loc = K.temporal_proj_locations(cs.SHAPES, a[2], a[3], a[4], cs.M).contiguous()
+    att = K.temporal_proj_weights(a[5], a[6], cs.M, L).contiguous()
+    del a
+    frames = torch.cat([torch.arange(cs.T)[:, None],
+                        torch.as_tensor(temporal_frame_table(("all",), cs.T))], 1)
+    n_rows = cs.T * S * cs.M
+    keys = K._tap_entries(cs.SHAPES, loc, att, frames, S, cs.M, n_rows)[0].int()
+    del loc, att
+    ms, launches, _ = cs.device_profile(lambda: torch.sort(keys, stable=True), 5)
+    return dict(ms=ms, launches=launches, entries=keys.numel(), rows=n_rows)
 
 
 def bwd_times(torch, cs, K, dev):
@@ -356,10 +395,24 @@ def main() -> int:
                                    path], stdout=subprocess.PIPE, text=True, check=True)
             print(done.stdout, end="", flush=True)
             runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
+    yardstick = sort_yardstick(torch, cs)
     card = cs.card_line()
     print(card)
-    print(json.dumps({"card": card, "runs": runs}))
+    print(json.dumps({"card": card, "runs": runs, "sort_library_ms": yardstick,
+                      "digests_equal": digests_equal(runs)}))
     return 0
+
+
+def digests_equal(runs):
+    """Per DIR, per backward op and case, whether its digests equal the
+    first DIR's; "all" per DIR."""
+    out = []
+    for run in runs:
+        cases = {f"{key} {name}": rec["digests"] == runs[0][key][name]["digests"]
+                 for key in ("K5", "K7", "K9") for name, rec in run.get(key, {}).items()
+                 if "digests" in rec and name in runs[0].get(key, {})}
+        out.append(dict(dir=run["dir"], all=all(cases.values()), cases=cases))
+    return out
 
 
 if __name__ == "__main__":

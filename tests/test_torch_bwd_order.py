@@ -5,7 +5,12 @@ against the plain backward at 1e-6 of its largest magnitude and against the
 JAX package's `_bwd_kernel_rows` and `_bwd_kernel_rows_temporal` (the VJPs of
 the Pallas rows ops, interpret mode) at 1e-5 (sums in other orders); the same
 bits whatever order the sort's tiles and the gather's rows run in; the sort's
-plan and scratch at the paths' shapes."""
+plan and scratch at the paths' shapes. The run-wise route (each run of one
+(head, stage, query frame) sorted on its level's pixels, a row's runs walked
+in run order: `_run_sort_mirror`, `_run_rows_mirror`, `run_walk_mirror`)
+gives every row the global sort's entries in the same order and the same
+split over the gather's lane groups, in one pass or two, whatever order the
+runs are sorted in."""
 import functools
 import random
 
@@ -214,7 +219,11 @@ def test_bwd_sort_plan_and_gather_split_at_the_paths_shapes(dtype, rows, entries
     """The sort: digits of at most 8 bits whose passes hold every key up to
     n_rows (the corners outside their level); the tiles' histograms within
     the one-block top scan; entries within int32. The gather: its lanes and
-    chunks hold the row's D channels in one warp."""
+    chunks hold the row's D channels in one warp. The run-wise route where
+    `bwd_route` takes it (K5 and K7 but the clip decoder's 160 entries a
+    run and the image encoder's 64 runs; K9 has no runs): every pass within RUN_BINS bins a block and its
+    counters within the shared memory of a block, the blocks, the tables and
+    the entries within int32, and its scratch beside the global sort's."""
     passes, bits = K.bwd_sort_plan(rows)
     assert bits <= 8 and (rows >> (passes * bits)) == 0 and passes * bits < 32
     assert passes == -(-rows.bit_length() // 8)
@@ -224,6 +233,40 @@ def test_bwd_sort_plan_and_gather_split_at_the_paths_shapes(dtype, rows, entries
         _build.source_define("msda_bwd.cuh", "BWD_SCAN_TOP")
     plan = K.taps_plan(D, dtype, True)
     assert plan.lanes * plan.per * plan.cw >= D and 32 % plan.lanes == 0
+    runs = _PATH_RUNS.get((rows, entries))
+    if runs is None:                                  # K9
+        return
+    shapes, Q, P, N, J, M, route = runs
+    assert sum(h * w for h, w in shapes) * N * M == rows and 4 * Q * P * N * M * J * len(shapes) \
+        == entries
+    assert K.bwd_route(shapes, Q, P, N, J, M) == route
+    if route < 0:
+        return
+    rp = K.run_plan(shapes, Q, P, N, J, M)
+    bins_max = _build.source_define("msda_bwd.cuh", "RUN_BINS")
+    for mode, blocks, bins, warps, smem in rp.passes():
+        assert bins <= bins_max and warps * bins <= \
+            _build.source_define("msda_bwd.cuh", "RUN_SMEM_INTS")
+        assert smem + K.SMEM_RESERVED <= K.SMEM_PER_BLOCK and blocks < 2 ** 31
+    assert rp.runs * rp.E == entries and rp.offs_size < 2 ** 31
+    new, old = K.bwd_scratch_bytes(entries, rows, rp), K.bwd_scratch_bytes(entries, rows)
+    assert new < 2 ** 31 * 4 * 8 and new <= 1.25 * old
+
+
+# (spatial shapes, Q, P, N, J, M, route) of the run-wise route at the
+# shapes above: the clip pyramid; for the image encoder a four-level pyramid
+# of S 22 848 (COCO's at 800x1216 is 23 205); the mask heads' grids as 9
+# one-point levels
+_PATH_RUNS = {
+    (6 * 5100 * 8, 6 * 5100 * 8 * 24 * 4 * 4):
+        (((48, 80), (24, 40), (12, 20), (6, 10)), 5100, 4, 6, 6, 8, 0),
+    (6 * 5100 * 8, 6 * 10 * 8 * 24 * 4 * 4):
+        (((48, 80), (24, 40), (12, 20), (6, 10)), 10, 4, 6, 6, 8, -1),
+    (2 * 22848 * 8, 2 * 22848 * 8 * 16 * 4):
+        (((98, 175), (49, 88), (25, 44), (13, 22)), 22848, 4, 2, 1, 8, -1),
+    (50 * 9 * 1092, 50 * 1092 * 9 * 4): (((26, 42),) * 9, 1092, 1, 50, 1, 1, 0),
+    (50 * 9 * 69888, 50 * 69888 * 9 * 4): (((208, 336),) * 9, 69888, 1, 50, 1, 1, 0),
+}
 
 
 def test_bwd_sort_plan_small_and_the_scratch_limit():
@@ -256,3 +299,108 @@ def test_deform_conv2d_rows_gradients_through_the_plain_rows():
     for g, p in zip(K.msda_bwd_mirror(value, shapes, loc, att, cot),
                     K.msda_rows_bwd_plain(value, shapes, loc, att, cot)):
         _close(g, p, "the DCN route's rows", REL_PLAIN)
+
+
+# ---------------------------------------------------------------------------
+# The run-wise route of K5 and K7
+# ---------------------------------------------------------------------------
+
+def _run_case(case):
+    """(spatial shapes, value, loc, att, cot, frames) of one run-wise case:
+    K5 under the `all` rule and under a window rule that repeats frame 1 at
+    both edges of a 3-frame clip; K7 at random locations (dead taps and
+    corners outside their level among them), with runs of more than one
+    global sort tile; the DCN route's grid."""
+    rng = np.random.RandomState(11)
+    if case.startswith("K5"):
+        rule = ("all",) if case == "K5 all" else ("window", (-1, 1))
+        T, Q, M, D, P = 3, 40, 2, 4, 2
+        Lf = (1 + rule_window(rule, T)) * L
+        loc = (rng.rand(T, Q, M, Lf, P, 2) * 1.4 - 0.2).astype(np.float32)
+        shapes, B, frames = SHAPES, T, _frames(rule, T)
+    elif case == "K7 dcn":
+        shapes, B, M, D = DCN_SHAPES, 2, 1, 4
+        loc, frames = _dcn_loc(rng, B), None
+    else:
+        shapes, B, Q, M, D = SHAPES, 2, 600, 1, 4
+        loc = (rng.rand(B, Q, M, L, 2, 2) * 1.4 - 0.2).astype(np.float32)
+        frames = None
+    Sv = sum(h * w for h, w in shapes)
+    value = torch.from_numpy(rng.randn(B, Sv, M, D).astype(np.float32))
+    att = torch.from_numpy(rng.rand(*loc.shape[:-1]).astype(np.float32))
+    cot = torch.from_numpy(rng.randn(B, loc.shape[1], M * D).astype(np.float32))
+    return shapes, value, torch.from_numpy(loc), att, cot, frames
+
+
+RUN_CASES = ["K5 all", "K5 window", "K7 attn", "K7 dcn"]
+
+
+@pytest.mark.parametrize("bucket", [0, 100, 7])
+@pytest.mark.parametrize("case", RUN_CASES)
+def test_run_sort_mirror_gives_the_global_sort_s_rows(case, bucket):
+    """Every value row's entries, in the order the run-wise gather walks
+    them (its frame's runs in run order, each run's segment at the row's
+    pixel), are the global stable sort's, and so is each lane group's share
+    at every `gpr`; in one pass (RUN_BUCKET: these runs are short) or two
+    (buckets of about 100 or 7 entries), with the runs sorted in a shuffled
+    order. The dead corners are in no row."""
+    shapes, value, loc, att, cot, frames = _run_case(case)
+    F, S_v, M, _ = value.shape
+    N, Q, _, Lx, P, _ = loc.shape
+    frames = torch.arange(N)[:, None] if frames is None else frames
+    n_rows = F * S_v * M
+    keys, _, _ = K._tap_entries(shapes, loc, att, frames, S_v, M, n_rows)
+    g_keys, g_order = K._radix_sort_mirror(keys, n_rows)
+    plan = K.run_plan(shapes, Q, P, N, Lx // len(shapes), M, bucket)
+    assert plan.two == (bucket > 0 or plan.E > _build.source_define("msda_bwd.cuh", "RUN_BUCKET"))
+    if case == "K7 attn":
+        assert plan.E > _build.source_define("msda_bwd.cuh", "BWD_TILE")
+    local = K.local_keys(keys, shapes, frames, S_v, M, n_rows)
+    assert (local == K.RUN_DEAD).sum() == (keys == n_rows).sum() > 0
+    runs = list(range(plan.runs))
+    random.Random(bucket).shuffle(runs)
+    ids, offs = K._run_sort_mirror(local, plan, run_order=runs)
+    again = K._run_sort_mirror(local, plan)
+    assert torch.equal(ids, again[0]) and torch.equal(offs, again[1])
+    feeds = K.run_feeds(frames, F)
+    r_keys, r_order = K._run_rows_mirror(ids, offs, plan, feeds, shapes, S_v, n_rows)
+    assert torch.equal(r_keys, g_keys) and torch.equal(r_order, g_order)
+    live = g_keys < n_rows
+    begin = torch.searchsorted(g_keys[live], torch.arange(n_rows))
+    end = torch.searchsorted(g_keys[live], torch.arange(n_rows), right=True)
+    for gpr in (1, 2, 8):
+        for row in torch.randperm(n_rows, generator=torch.Generator().manual_seed(gpr))[:60]:
+            seg = g_order[live][begin[row]:end[row]]
+            walk = K.run_walk_mirror(ids, offs, plan, feeds, shapes, S_v, int(row), gpr)
+            assert walk == [seg[j::gpr].tolist() for j in range(gpr)]
+
+
+@pytest.mark.parametrize("case", RUN_CASES)
+def test_bwd_mirror_run_wise_equals_the_global_sort_s_bits(case):
+    """The whole backward through the run-wise route (one pass and two, the
+    runs shuffled) equals the global sort's bit for bit."""
+    shapes, value, loc, att, cot, frames = _run_case(case)
+    want = K.msda_bwd_mirror(value, shapes, loc, att, cot, frames)
+    runs = list(range(value.shape[2] * loc.shape[3] * loc.shape[0]))
+    random.Random(3).shuffle(runs)
+    for bucket in (0, 9):
+        got = K.msda_bwd_mirror(value, shapes, loc, att, cot, frames, sort=bucket,
+                                run_order=runs)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_run_feeds_list_a_frame_s_runs_in_run_order():
+    """A value frame's runs (frame slot j of query frame n, items j * N + n)
+    in run order: under `all` one per query frame; under a window rule that
+    repeats frame 1 at both edges of a 3-frame clip, frame 1 five times (the
+    current slot of query frame 1, both slots of query frames 0 and 2), in
+    slot order, then query frame order."""
+    ptr, feed = K.run_feeds(_frames(("all",), 6), 6)
+    assert torch.equal(ptr, torch.arange(0, 37, 6, dtype=torch.int32))
+    assert all((feed[6 * f:6 * f + 6].diff() > 0).all() for f in range(6))
+    ptr, feed = K.run_feeds(_frames(("window", (-1, 1)), 3), 3)
+    N = 3
+    assert ptr.tolist() == [0, 2, 7, 9]
+    assert [(int(i) // N, int(i) % N) for i in feed[2:7]] == [(0, 1), (1, 0), (1, 2), (2, 0),
+                                                               (2, 2)]

@@ -551,6 +551,33 @@ def test_temporal_bwd_kernel_in_a_fixed_order(dev, dtype, refs, rule, D):
         assert torch.equal(g.cpu(), m)
 
 
+@pytest.mark.parametrize("sort", [-1, 0, 100, 7])
+@pytest.mark.parametrize("case", ["K5 all", "K5 window", "K7 random", "K7 grid"])
+def test_bwd_routes_give_the_mirror_s_bits(dev, case, sort):
+    """Every sort route of K5 and K7 (-1 the global radix sort; else the
+    run-wise one, with buckets of RUN_BUCKET entries (0), of 100 or of 7:
+    one pass or two) gives the CPU mirror's bits, five times: under `all`,
+    under a window rule that repeats frames at the clip's edges, at random
+    locations (dead taps, corners outside their level) and on the DCN
+    route's grid."""
+    from devis_torch.ops.ms_deform_attn import temporal_frame_table
+    if case.startswith("K5"):
+        rule = ("all",) if case == "K5 all" else ("window", (-2, -1, 1, 2))
+        T = 3 if case == "K5 all" else 5
+        shapes, value, loc, att, grad = _bwd_inputs(dev, torch.bfloat16, "random", 16, T, rule)
+        got = _repeat_equal(lambda: K.launch_temporal_bwd(value, shapes, loc, att, grad, rule,
+                                                          sort=sort))
+        frames = torch.cat([torch.arange(T)[:, None],
+                            torch.as_tensor(temporal_frame_table(rule, T), dtype=torch.long)], 1)
+    else:
+        refs = "random" if case == "K7 random" else "grid"
+        shapes, value, loc, att, grad = _bwd_inputs(dev, torch.bfloat16, refs, 16)
+        got = _repeat_equal(lambda: K.launch_rows_bwd(value, shapes, loc, att, grad, sort=sort))
+        frames = None
+    for g, m in zip(got, _mirror(value, shapes, loc, att, grad, frames)):
+        assert torch.equal(g.cpu(), m)
+
+
 def test_bwd_ops_launch_and_raise(dev):
     """The ops launch the kernels on CUDA tensors (no plain call), return the
     value gradient in the value's dtype; inconsistent shapes raise."""
