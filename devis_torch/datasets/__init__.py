@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..parallel.mesh import local_batch_size, shard_items
+from ..util import trace
 from .transforms import resize_nearest_numpy
 
 
@@ -123,8 +124,9 @@ class TrainLoader:
     with its sampler, `main.py:142-158`). The order of an epoch is
     `np.random.RandomState(seed + epoch)`'s shuffle; the last partial batch
     is dropped unless `drop_last` is false. One thread builds up to
-    `prefetch` batches ahead of the consumer; an error there is raised in
-    the consumer. Clip batches (`vis`) stack `collate_clip` of each sample.
+    `prefetch` batches ahead of the consumer (each in the span
+    `loader.batch`); an error there is raised in the consumer. Clip
+    batches (`vis`) stack `collate_clip` of each sample.
     `max_batches` cuts every epoch to its first batches (smoke runs): the
     batches after them are never built, so a dataset's augmentation draws
     for exactly the batches that were taken. With `world` > 1 the batch is
@@ -198,7 +200,9 @@ class TrainLoader:
         def worker():
             try:
                 for b in batches:
-                    if not put(("batch", self.make_batch(b))):
+                    with trace.span("loader.batch"):
+                        batch = self.make_batch(b)
+                    if not put(("batch", batch)):
                         return
             except Exception as e:  # noqa: BLE001 - re-raised in the consumer
                 put(("error", e))

@@ -21,6 +21,11 @@ optimizer, the train step for clips and for images, and the host epoch loop.
     backward, so the update sees the global batch's gradient; the metrics
     are averaged over the ranks and a non-finite loss on any rank skips the
     update on all.
+  * Spans (`util.trace`, recorded only while on): a step is `loop.step`,
+    its metrics read `loop.metrics_read`; inside the step `step.forward`
+    (the batch to the device and the model), `step.loss` (the criterion:
+    the matcher of the levels the model has not matched, the losses, their
+    weighted total), `step.backward` and `step.update` (`finish`).
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from .models.criterion import (build_weight_dict, clip_criterion,
                                weighted_total)
 from .models.layers import set_dropout_generator
 from .parallel.mesh import comm_device, is_distributed, world_size
+from .util import trace
 from .util.misc import MetricLogger
 
 PARAM_GROUPS = ("base", "backbone", "linear_proj", "mask_head",
@@ -199,25 +205,26 @@ def make_train_step(model: nn.Module, cfg) -> Callable:
     mcfg = matcher_cfg_from(cfg, clip=is_vis)
 
     def finish(state, total, losses):
-        ok = torch.isfinite(total)
-        if is_distributed():
-            # the ranks' losses averaged and their flags agreed, in one
-            # all-reduce: no rank steps alone
-            keys = list(losses)
-            both = torch.stack([ok.float(), total] + [losses[k] for k in keys])
-            both = both.to(comm_device())
-            torch.distributed.all_reduce(both)
-            both = both.to(total.device)
-            n = world_size()
-            ok = both[0] == n
-            total = both[1] / n
-            losses = {k: both[2 + i] / n for i, k in enumerate(keys)}
-        if bool(ok):                      # waits for the device
-            grad_norm = state.apply_gradients()
-        else:
-            grad_norm = global_norm(module.parameters())
-        return state, {"loss": total, "grad_norm": grad_norm,
-                       "finite": ok.float(), **losses}
+        with trace.span("step.update"):
+            ok = torch.isfinite(total)
+            if is_distributed():
+                # the ranks' losses averaged and their flags agreed, in one
+                # all-reduce: no rank steps alone
+                keys = list(losses)
+                both = torch.stack([ok.float(), total] + [losses[k] for k in keys])
+                both = both.to(comm_device())
+                torch.distributed.all_reduce(both)
+                both = both.to(total.device)
+                n = world_size()
+                ok = both[0] == n
+                total = both[1] / n
+                losses = {k: both[2 + i] / n for i, k in enumerate(keys)}
+            if bool(ok):                  # waits for the device
+                grad_norm = state.apply_gradients()
+            else:
+                grad_norm = global_norm(module.parameters())
+            return state, {"loss": total, "grad_norm": grad_norm,
+                           "finite": ok.float(), **losses}
 
     def prepare(batch, generator):
         batch = _to_device(batch, next(module.parameters()).device)
@@ -228,41 +235,49 @@ def make_train_step(model: nn.Module, cfg) -> Callable:
 
     def image_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        batch = prepare(batch, generator)
-        targets = batch["targets"]
-        if mask_on:
-            out = model(batch["images"], batch["pad_mask"], targets=targets,
-                        train=True)
-        else:                             # the detector alone is matched by the criterion
-            out, _ = model(batch["images"], batch["pad_mask"])
-        num_boxes = reduce_num_boxes([targets["valid"].sum()], across_ranks=True)
-        losses = image_criterion(out, targets, mcfg, focal_alpha, mask_on=mask_on,
-                                 num_boxes=num_boxes)
-        total = weighted_total(losses, weight_dict)
-        total.backward()
-        return finish(state, total.detach(),
-                      {k: v.detach() for k, v in losses.items()})
+        with trace.span("step.forward"):
+            batch = prepare(batch, generator)
+            targets = batch["targets"]
+            if mask_on:
+                out = model(batch["images"], batch["pad_mask"], targets=targets,
+                            train=True)
+            else:                         # the detector alone is matched by the criterion
+                out, _ = model(batch["images"], batch["pad_mask"])
+        with trace.span("step.loss"):
+            num_boxes = reduce_num_boxes([targets["valid"].sum()], across_ranks=True)
+            losses = image_criterion(out, targets, mcfg, focal_alpha, mask_on=mask_on,
+                                     num_boxes=num_boxes)
+            total = weighted_total(losses, weight_dict)
+            losses = {k: v.detach() for k, v in losses.items()}
+        with trace.span("step.backward"):
+            total.backward()
+        return finish(state, total.detach(), losses)
 
     def clip_step(state: TrainState, batch,
                   generator: Optional[torch.Generator] = None):
-        batch = prepare(batch, generator)
+        with trace.span("step.forward"):
+            batch = prepare(batch, generator)
         targets = batch["targets"]
         B = batch["images"].shape[0]
-        num_boxes = reduce_num_boxes([targets["exists"][b].sum() * T for b in range(B)],
-                                     across_ranks=True)
+        with trace.span("step.loss"):
+            num_boxes = reduce_num_boxes([targets["exists"][b].sum() * T for b in range(B)],
+                                         across_ranks=True)
         losses: Dict[str, torch.Tensor] = {}
         total = 0.0
         for b in range(B):                # one clip's graph at a time
             tb = {k: v[b] for k, v in targets.items()}
-            out = model(batch["images"][b], batch["pad_mask"][b], targets=tb,
-                        train=True)
-            clip = clip_criterion(out, tb, T, mcfg, focal_alpha, num_boxes,
-                                  mask_on=mask_on)
-            clip_total = weighted_total(clip, weight_dict) / B
-            clip_total.backward()
-            total = total + clip_total.detach()
-            for k, v in clip.items():
-                losses[k] = losses.get(k, 0.0) + v.detach() / B
+            with trace.span("step.forward"):
+                out = model(batch["images"][b], batch["pad_mask"][b], targets=tb,
+                            train=True)
+            with trace.span("step.loss"):
+                clip = clip_criterion(out, tb, T, mcfg, focal_alpha, num_boxes,
+                                      mask_on=mask_on)
+                clip_total = weighted_total(clip, weight_dict) / B
+                total = total + clip_total.detach()
+                for k, v in clip.items():
+                    losses[k] = losses.get(k, 0.0) + v.detach() / B
+            with trace.span("step.backward"):
+                clip_total.backward()
         return finish(state, total, losses)
 
     return clip_step if is_vis else image_step
@@ -274,17 +289,23 @@ def train_one_epoch(step_fn, state: TrainState, data_loader, generator=None,
     """Host epoch loop: one step per batch, metrics logged; raises
     FloatingPointError on a non-finite loss (the step has skipped its
     update). Batches are `datasets.TrainLoader`'s, numpy, as they come.
-    Returns the state and each metric's average over the epoch."""
+    Returns the state and each metric's average over the epoch. Before
+    each step the spans follow a running torch.profiler
+    (`trace.follow_profiler`)."""
     logger = MetricLogger(print_freq=print_freq, debug=debug)
     batches = logger.log_every(data_loader, header=f"Epoch: [{epoch}]")
     try:
         for batch in batches:
-            state, metrics = step_fn(state, batch, generator)
-            host = {k: float(v) for k, v in metrics.items()}
+            trace.follow_profiler()
+            with trace.span("loop.step"):
+                state, metrics = step_fn(state, batch, generator)
+            with trace.span("loop.metrics_read"):
+                host = {k: float(v) for k, v in metrics.items()}
             if host["finite"] < 1.0 or not math.isfinite(host["loss"]):
                 raise FloatingPointError(f"Loss is not finite at epoch {epoch}: {host}")
             logger.update(**host)
     finally:
         batches.close()                   # stops the loader's thread
+        trace.follow_profiler()
     logger.synchronize_between_processes()
     return state, {k: m.global_avg for k, m in logger.meters.items()}

@@ -2,7 +2,7 @@
 `main.py:97-407`): train and evaluate from files on disk.
 
     python -m devis_torch.main --config-file configs/devis/YT-19/devis_R_50_YT-19.yaml \
-        [--eval-only] [--resume OUTPUT_DIR/checkpoint] [KEY VALUE ...]
+        [--eval-only] [--resume OUTPUT_DIR/checkpoint] [--trace] [KEY VALUE ...]
 
 The flow: the config file and the overrides (read by the port's own YAML
 reader), seeding, the datasets of `DATASETS.TYPE` (`coco`, `coco_panoptic`
@@ -36,6 +36,12 @@ shard their videos or images over the ranks and gather the results
 (`inference_vis`, `evaluate_coco`). The entry point uses the GPU unless the
 caller of `main` names another device. `coco_panoptic` trains as the image
 model does (`TrainLoader`'s image batches).
+
+`--trace` turns the program's spans on (`util.trace`): after each training
+epoch `metrics.jsonl` gets a `kind="trace_epoch"` record with each span's
+count, total and self milliseconds over the epoch, and `OUTPUT_DIR/spans.json`
+the spans kept so far as a Chrome trace, on the clock of a `torch.profiler`
+trace of the same run.
 """
 from __future__ import annotations
 
@@ -49,6 +55,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .util import trace
+
 TRAIN_SCALES = (480, 512, 544, 576, 608, 640)
 
 
@@ -57,6 +65,8 @@ def parse_args(argv=None):
     p.add_argument("--config-file", default="", help="YAML config")
     p.add_argument("--eval-only", action="store_true")
     p.add_argument("--resume", default="", help="checkpoint directory to resume from")
+    p.add_argument("--trace", action="store_true",
+                   help="record the program's spans (metrics.jsonl, spans.json)")
     p.add_argument("opts", nargs=argparse.REMAINDER, help="KEY VALUE config overrides")
     return p.parse_args(argv)
 
@@ -181,9 +191,14 @@ def main(argv=None, device=None, max_steps: Optional[int] = None) -> Dict:
     from .util.misc import resolve_device
     device = resolve_device(device)
     joined = init_process_group(device)          # under torchrun
+    if args.trace:
+        trace.reset()
+        trace.enable()
     try:
         return _main(args, cfg, joined or device, max_steps)
     finally:
+        if args.trace:
+            trace.disable()
         if joined is not None:
             destroy_process_group()
 
@@ -285,12 +300,16 @@ def _main(args, cfg, device, max_steps: Optional[int]) -> Dict:
         for epoch in range(start_epoch, cfg.SOLVER.EPOCHS):
             loader.set_epoch(epoch)
             t0 = time.time()
+            spans_before = trace.totals()
             state, train_stats = train_one_epoch(step_fn, state, loader, generator, epoch)
             print(f"epoch {epoch}: {time.time() - t0:.1f}s "
                   f"loss {train_stats.get('loss', float('nan')):.4f}")
             if main_rank:
                 metrics.write(epoch, {**train_stats, **device_memory_stats(device)},
                               kind="train_epoch")
+            if main_rank and args.trace:
+                metrics.write(epoch, {}, kind="trace_epoch", spans=trace.table(spans_before))
+                trace.export_chrome(os.path.join(output_dir, "spans.json"))
             if visdom and main_rank:
                 visdom.plot("train", epoch, {k: v for k, v in train_stats.items() if k in (
                     "loss", "loss_ce", "loss_bbox", "loss_giou", "loss_mask", "loss_dice",

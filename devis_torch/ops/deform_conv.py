@@ -37,6 +37,10 @@ convolutions, the channel mix U_k = x . W_k as one matrix product BEFORE the
 gather (bilinear sampling is linear and W_k is constant over space), and the
 K*K kernel positions gathered as K*K levels of one single-head, one-point
 attention: K6 forward, K7 backward (`msda_rows`). It is exact DCNv2 too.
+
+`launches` counts each op's kernel launches and `plain_calls` its CPU
+dispatches; each of them runs in a span (`util.trace`), `dcn.K4` or
+`dcn.K10`.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..util import trace
 from .ms_deform_attn_cuda import msda_rows
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -306,37 +311,38 @@ def modulated_deform_conv2d(x, w_off, b_off, w_mod, b_mod, weight, bias,
     tensors = (x, w_off, b_off, w_mod, b_mod, weight, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return modulated_deform_conv2d_rows(*tensors, padding)
-    if not x.is_cuda:
-        modulated_deform_conv2d.plain_calls += 1
-        return modulated_deform_conv2d_plain(x, w_off, b_off, w_mod, b_mod,
-                                             weight, bias, padding)
-    name = "modulated_deform_conv2d"
-    B, Cin, H, W = x.shape
-    K = weight.shape[0]
-    Cout = weight.shape[-1]
-    KK = K * K
-    _check_inputs(name, x, {"w_off": (w_off, (K, K, Cin, 2 * KK)),
-                            "w_mod": (w_mod, (K, K, Cin, KK)),
-                            "weight": (weight, (K, K, Cin, Cout))}, tensors)
-    b_off, b_mod, bias = (t.float().contiguous() for t in (b_off, b_mod, bias))
-    out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16:
-        cin_pad, nt, n_tiles = _mma_plan_checked(name, Cin, Cout, K)
-        xn = pack_x(x, cin_pad)
-        wf, bf = pack_field_weight(w_off, b_off, w_mod, b_mod, cin_pad)
-        wm = pack_mix_weight(weight, cin_pad, 16 * nt * n_tiles)
-        _launch(name, _function("dcn_layer_bf16"), xn.data_ptr(), wf.data_ptr(),
-                bf.data_ptr(), wm.data_ptr(), bias.data_ptr(), out.data_ptr(), B,
-                cin_pad, H, W, Cout, wm.shape[-1], nt, K, padding, device=x.device)
-    else:
-        _check_smem(name, _function("dcn_layer_f32_smem_bytes")(Cin, Cout, K))
-        x, w_off, w_mod, weight = (t.contiguous() for t in (x, w_off, w_mod, weight))
-        _launch(name, _function("dcn_layer_f32"), x.data_ptr(), w_off.data_ptr(),
-                b_off.data_ptr(), w_mod.data_ptr(), b_mod.data_ptr(),
-                weight.data_ptr(), bias.data_ptr(), out.data_ptr(), B, Cin, H, W,
-                Cout, K, padding, device=x.device)
-    modulated_deform_conv2d.launches += 1
-    return out
+    with trace.span("dcn.K4"):
+        if not x.is_cuda:
+            modulated_deform_conv2d.plain_calls += 1
+            return modulated_deform_conv2d_plain(x, w_off, b_off, w_mod, b_mod,
+                                                 weight, bias, padding)
+        name = "modulated_deform_conv2d"
+        B, Cin, H, W = x.shape
+        K = weight.shape[0]
+        Cout = weight.shape[-1]
+        KK = K * K
+        _check_inputs(name, x, {"w_off": (w_off, (K, K, Cin, 2 * KK)),
+                                "w_mod": (w_mod, (K, K, Cin, KK)),
+                                "weight": (weight, (K, K, Cin, Cout))}, tensors)
+        b_off, b_mod, bias = (t.float().contiguous() for t in (b_off, b_mod, bias))
+        out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device)
+        if x.dtype == torch.bfloat16:
+            cin_pad, nt, n_tiles = _mma_plan_checked(name, Cin, Cout, K)
+            xn = pack_x(x, cin_pad)
+            wf, bf = pack_field_weight(w_off, b_off, w_mod, b_mod, cin_pad)
+            wm = pack_mix_weight(weight, cin_pad, 16 * nt * n_tiles)
+            _launch(name, _function("dcn_layer_bf16"), xn.data_ptr(), wf.data_ptr(),
+                    bf.data_ptr(), wm.data_ptr(), bias.data_ptr(), out.data_ptr(), B,
+                    cin_pad, H, W, Cout, wm.shape[-1], nt, K, padding, device=x.device)
+        else:
+            _check_smem(name, _function("dcn_layer_f32_smem_bytes")(Cin, Cout, K))
+            x, w_off, w_mod, weight = (t.contiguous() for t in (x, w_off, w_mod, weight))
+            _launch(name, _function("dcn_layer_f32"), x.data_ptr(), w_off.data_ptr(),
+                    b_off.data_ptr(), w_mod.data_ptr(), b_mod.data_ptr(),
+                    weight.data_ptr(), bias.data_ptr(), out.data_ptr(), B, Cin, H, W,
+                    Cout, K, padding, device=x.device)
+        modulated_deform_conv2d.launches += 1
+        return out
 
 
 modulated_deform_conv2d.launches = 0
@@ -352,37 +358,38 @@ def deform_conv2d(x, offset, mask, weight, bias, padding: int = 1):
     tensors = (x, offset, mask, weight, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return deform_conv2d_rows(x, offset, mask, weight.to(x.dtype), bias, padding)
-    if not x.is_cuda:
-        deform_conv2d.plain_calls += 1
-        out = deform_conv2d_plain(x, offset, mask, weight, padding)
-        return (out + bias.float()[None, :, None, None]).to(x.dtype)
-    name = "deform_conv2d"
-    B, Cin, H, W = x.shape
-    K = weight.shape[0]
-    KK = K * K
-    Cout = weight.shape[-1]
-    _check_inputs(name, x, {"offset": (offset, (B, 2 * KK, H, W)),
-                            "mask": (mask, (B, KK, H, W)),
-                            "weight": (weight, (K, K, Cin, Cout))}, tensors)
-    offset, mask = offset.contiguous(), mask.contiguous()
-    bias = bias.float().contiguous()
-    out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16:
-        cin_pad, nt, n_tiles = _mma_plan_checked(name, Cin, Cout, K)
-        xn = pack_x(x, cin_pad)
-        wm = pack_mix_weight(weight, cin_pad, 16 * nt * n_tiles)
-        _launch(name, _function("deform_conv2d_bf16"), xn.data_ptr(),
-                offset.data_ptr(), mask.data_ptr(), wm.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), B, cin_pad, H, W, Cout, wm.shape[-1], nt, K, padding,
-                device=x.device)
-    else:
-        _check_smem(name, _function("dcn_layer_f32_smem_bytes")(Cin, Cout, K))
-        x, weight = x.contiguous(), weight.contiguous()
-        _launch(name, _function("deform_conv2d_f32"), x.data_ptr(), offset.data_ptr(),
-                mask.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                B, Cin, H, W, Cout, K, padding, device=x.device)
-    deform_conv2d.launches += 1
-    return out
+    with trace.span("dcn.K10"):
+        if not x.is_cuda:
+            deform_conv2d.plain_calls += 1
+            out = deform_conv2d_plain(x, offset, mask, weight, padding)
+            return (out + bias.float()[None, :, None, None]).to(x.dtype)
+        name = "deform_conv2d"
+        B, Cin, H, W = x.shape
+        K = weight.shape[0]
+        KK = K * K
+        Cout = weight.shape[-1]
+        _check_inputs(name, x, {"offset": (offset, (B, 2 * KK, H, W)),
+                                "mask": (mask, (B, KK, H, W)),
+                                "weight": (weight, (K, K, Cin, Cout))}, tensors)
+        offset, mask = offset.contiguous(), mask.contiguous()
+        bias = bias.float().contiguous()
+        out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device)
+        if x.dtype == torch.bfloat16:
+            cin_pad, nt, n_tiles = _mma_plan_checked(name, Cin, Cout, K)
+            xn = pack_x(x, cin_pad)
+            wm = pack_mix_weight(weight, cin_pad, 16 * nt * n_tiles)
+            _launch(name, _function("deform_conv2d_bf16"), xn.data_ptr(),
+                    offset.data_ptr(), mask.data_ptr(), wm.data_ptr(), bias.data_ptr(),
+                    out.data_ptr(), B, cin_pad, H, W, Cout, wm.shape[-1], nt, K, padding,
+                    device=x.device)
+        else:
+            _check_smem(name, _function("dcn_layer_f32_smem_bytes")(Cin, Cout, K))
+            x, weight = x.contiguous(), weight.contiguous()
+            _launch(name, _function("deform_conv2d_f32"), x.data_ptr(), offset.data_ptr(),
+                    mask.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                    B, Cin, H, W, Cout, K, padding, device=x.device)
+        deform_conv2d.launches += 1
+        return out
 
 
 deform_conv2d.launches = 0

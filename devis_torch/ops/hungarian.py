@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..util import trace
+
 
 def lsa_numpy(cost: np.ndarray) -> np.ndarray:
     cost = np.asarray(cost, np.float64)
@@ -60,6 +62,10 @@ def lsa_numpy(cost: np.ndarray) -> np.ndarray:
 
 def lsa(cost: torch.Tensor) -> torch.Tensor:
     """(n, m) cost, n <= m → (n,) int64 columns on the cost's device. The
-    cost is read without gradient; the call waits for the device."""
-    cols = lsa_numpy(cost.detach().double().cpu().numpy())
-    return torch.from_numpy(cols).to(cost.device)
+    cost is read without gradient; the call waits for the device (the span
+    `matcher.lsa.wait` inside `matcher.lsa`)."""
+    with trace.span("matcher.lsa"):
+        with trace.span("matcher.lsa.wait"):
+            host = cost.detach().double().cpu()
+        cols = lsa_numpy(host.numpy())
+        return torch.from_numpy(cols).to(cost.device)

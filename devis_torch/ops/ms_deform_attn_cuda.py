@@ -4,7 +4,9 @@ The port's counterpart of `devis_tpu/ops/ms_deform_attn_pallas.py`. Each
 public op takes the JAX package's q-major layout and dispatches on where its
 tensors lie: on the CPU it runs the plain PyTorch version; on a CUDA device it
 launches the hand-written kernel from `csrc/ms_deform_attn*.cu`, or raises. `launches` counts kernel launches
-and `plain_calls` CPU dispatches, per op.
+and `plain_calls` CPU dispatches, per op; each of them runs in a span (`util.trace`) named after the
+kernel: `msda.K1_temporal_proj` (K2's inside it), `msda.K2_tap_window`, `msda.K3_temporal`,
+`msda.K5_temporal_bwd`, `msda.K6_rows`, `msda.K7_rows_bwd`, `msda.K8_proj`, `msda.K9_taps_bwd`.
 
   * K1 `msda_temporal_proj` (encoder; replaces `_fwd_kernel_temporal_proj`):
     value (T, S, M, D), per-level references (T, Q, L, 2) and the raw outputs
@@ -75,6 +77,7 @@ import functools
 import torch
 
 from . import _build
+from ..util import trace
 from .ms_deform_attn import (Shapes, level_start_index, ms_deform_attn,
                              ms_deform_attn_temporal_plain, normalize_shapes,
                              rule_window, temporal_frame_table)
@@ -1075,12 +1078,13 @@ def msda_temporal_proj(value, spatial_shapes, ref, c_off, t_off, c_logit,
                        t_logit, rule=("all",)):
     """K1 (see module docstring). Returns (T, Q, M*D) in the value's dtype."""
     spatial_shapes = normalize_shapes(spatial_shapes)
-    if not value.is_cuda:
-        msda_temporal_proj.plain_calls += 1
-        return msda_temporal_proj_plain(value, spatial_shapes, ref, c_off,
-                                        t_off, c_logit, t_logit, rule)
-    return MSDATemporalProjFunction.apply(value, ref, c_off, t_off, c_logit,
-                                          t_logit, spatial_shapes, rule)
+    with trace.span("msda.K1_temporal_proj"):
+        if not value.is_cuda:
+            msda_temporal_proj.plain_calls += 1
+            return msda_temporal_proj_plain(value, spatial_shapes, ref, c_off,
+                                            t_off, c_logit, t_logit, rule)
+        return MSDATemporalProjFunction.apply(value, ref, c_off, t_off, c_logit,
+                                              t_logit, spatial_shapes, rule)
 
 
 msda_temporal_proj.launches = 0
@@ -1090,34 +1094,35 @@ msda_temporal_proj.plain_calls = 0
 def msda_tap_window(spatial_shapes, ref, c_off, t_off, n_heads: int):
     """K2 (see module docstring) → (T, M, n_qblocks, Lf, 2) int32."""
     spatial_shapes = normalize_shapes(spatial_shapes)
-    if not ref.is_cuda:
-        msda_tap_window.plain_calls += 1
-        return msda_tap_window_plain(spatial_shapes, ref, c_off, t_off, n_heads)
-    T, Q, L, _ = ref.shape
-    M = n_heads
-    P = c_off.shape[-1] // (M * L * 2)
-    W = t_off.shape[-1] // (M * L * P * 2)
-    _check_geometry("msda_tap_window", spatial_shapes, 0, W, stages=True)
-    _check_cuda("msda_tap_window", ref.device, (ref,), torch.float32)
-    _check_cuda("msda_tap_window", ref.device, (c_off, t_off), c_off.dtype)
-    if c_off.dtype not in _DTYPES:
-        raise ValueError(f"msda_tap_window: unsupported dtype {c_off.dtype}")
-    if (tuple(c_off.shape) != (T, Q, M * L * P * 2)
-            or tuple(t_off.shape) != (T, Q, M * W * L * P * 2)):
-        raise ValueError("msda_tap_window: inconsistent shapes")
-    aligned = c_off.data_ptr() % 16 == 0 and (W == 0 or t_off.data_ptr() % 16 == 0)
-    plan = tap_window_plan(M, W, L, P, c_off.dtype, aligned)
-    nqb = -(-Q // Q_BLOCK)
-    out = torch.empty((T, M, nqb, (1 + W) * L, 2), dtype=torch.int32,
-                      device=ref.device)
-    fn = _function(f"msda_tap_window_{_DTYPES[c_off.dtype]}", 4, 8)
-    with torch.cuda.device(ref.device):
-        _build.check(fn(ref.data_ptr(), c_off.data_ptr(), t_off.data_ptr(),
-                        out.data_ptr(), T, Q, M, P, Q_BLOCK, *plan,
-                        _levels(spatial_shapes), L, W, _stream(ref)),
-                     "msda_tap_window")
-    msda_tap_window.launches += 1
-    return out
+    with trace.span("msda.K2_tap_window"):
+        if not ref.is_cuda:
+            msda_tap_window.plain_calls += 1
+            return msda_tap_window_plain(spatial_shapes, ref, c_off, t_off, n_heads)
+        T, Q, L, _ = ref.shape
+        M = n_heads
+        P = c_off.shape[-1] // (M * L * 2)
+        W = t_off.shape[-1] // (M * L * P * 2)
+        _check_geometry("msda_tap_window", spatial_shapes, 0, W, stages=True)
+        _check_cuda("msda_tap_window", ref.device, (ref,), torch.float32)
+        _check_cuda("msda_tap_window", ref.device, (c_off, t_off), c_off.dtype)
+        if c_off.dtype not in _DTYPES:
+            raise ValueError(f"msda_tap_window: unsupported dtype {c_off.dtype}")
+        if (tuple(c_off.shape) != (T, Q, M * L * P * 2)
+                or tuple(t_off.shape) != (T, Q, M * W * L * P * 2)):
+            raise ValueError("msda_tap_window: inconsistent shapes")
+        aligned = c_off.data_ptr() % 16 == 0 and (W == 0 or t_off.data_ptr() % 16 == 0)
+        plan = tap_window_plan(M, W, L, P, c_off.dtype, aligned)
+        nqb = -(-Q // Q_BLOCK)
+        out = torch.empty((T, M, nqb, (1 + W) * L, 2), dtype=torch.int32,
+                          device=ref.device)
+        fn = _function(f"msda_tap_window_{_DTYPES[c_off.dtype]}", 4, 8)
+        with torch.cuda.device(ref.device):
+            _build.check(fn(ref.data_ptr(), c_off.data_ptr(), t_off.data_ptr(),
+                            out.data_ptr(), T, Q, M, P, Q_BLOCK, *plan,
+                            _levels(spatial_shapes), L, W, _stream(ref)),
+                         "msda_tap_window")
+        msda_tap_window.launches += 1
+        return out
 
 
 msda_tap_window.launches = 0
@@ -1178,11 +1183,12 @@ class MSDATemporalFunction(torch.autograd.Function):
 def msda_temporal(value, spatial_shapes, loc, att, rule=("all",)):
     """K3 (see module docstring). Returns (T, Q, M*D) in the value's dtype."""
     spatial_shapes = normalize_shapes(spatial_shapes)
-    if not value.is_cuda:
-        msda_temporal.plain_calls += 1
-        return ms_deform_attn_temporal_plain(value, spatial_shapes, loc, att,
-                                             rule)
-    return MSDATemporalFunction.apply(value, loc, att, spatial_shapes, rule)
+    with trace.span("msda.K3_temporal"):
+        if not value.is_cuda:
+            msda_temporal.plain_calls += 1
+            return ms_deform_attn_temporal_plain(value, spatial_shapes, loc, att,
+                                                 rule)
+        return MSDATemporalFunction.apply(value, loc, att, spatial_shapes, rule)
 
 
 msda_temporal.launches = 0
@@ -1262,13 +1268,14 @@ def msda_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule=("all",)):
     """K5 (see module docstring). Returns (grad_value in the value's dtype,
     grad_loc f32, grad_att f32)."""
     spatial_shapes = normalize_shapes(spatial_shapes)
-    if not value.is_cuda:
-        msda_temporal_bwd.plain_calls += 1
-        return msda_temporal_bwd_plain(value, spatial_shapes, loc, att, grad_out,
-                                       rule)
-    out = launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule)
-    msda_temporal_bwd.launches += 1
-    return out
+    with trace.span("msda.K5_temporal_bwd"):
+        if not value.is_cuda:
+            msda_temporal_bwd.plain_calls += 1
+            return msda_temporal_bwd_plain(value, spatial_shapes, loc, att, grad_out,
+                                           rule)
+        out = launch_temporal_bwd(value, spatial_shapes, loc, att, grad_out, rule)
+        msda_temporal_bwd.launches += 1
+        return out
 
 
 msda_temporal_bwd.launches = 0
@@ -1374,10 +1381,11 @@ class MSDARowsFunction(torch.autograd.Function):
 def msda_rows(value, spatial_shapes, loc, att):
     """K6 (see module docstring). Returns (B, Q, M*D) in the value's dtype."""
     spatial_shapes = normalize_shapes(spatial_shapes)
-    if not value.is_cuda:
-        msda_rows.plain_calls += 1
-        return ms_deform_attn(value, spatial_shapes, loc, att)
-    return MSDARowsFunction.apply(value, loc, att, spatial_shapes)
+    with trace.span("msda.K6_rows"):
+        if not value.is_cuda:
+            msda_rows.plain_calls += 1
+            return ms_deform_attn(value, spatial_shapes, loc, att)
+        return MSDARowsFunction.apply(value, loc, att, spatial_shapes)
 
 
 msda_rows.launches = 0
@@ -1401,12 +1409,13 @@ def msda_rows_bwd(value, spatial_shapes, loc, att, grad_out):
     """K7 (see module docstring). Returns (grad_value in the value's dtype,
     grad_loc f32, grad_att f32)."""
     spatial_shapes = normalize_shapes(spatial_shapes)
-    if not value.is_cuda:
-        msda_rows_bwd.plain_calls += 1
-        return msda_rows_bwd_plain(value, spatial_shapes, loc, att, grad_out)
-    out = launch_rows_bwd(value, spatial_shapes, loc, att, grad_out)
-    msda_rows_bwd.launches += 1
-    return out
+    with trace.span("msda.K7_rows_bwd"):
+        if not value.is_cuda:
+            msda_rows_bwd.plain_calls += 1
+            return msda_rows_bwd_plain(value, spatial_shapes, loc, att, grad_out)
+        out = launch_rows_bwd(value, spatial_shapes, loc, att, grad_out)
+        msda_rows_bwd.launches += 1
+        return out
 
 
 msda_rows_bwd.launches = 0
@@ -1527,10 +1536,11 @@ class MSDAProjFunction(torch.autograd.Function):
 def msda_proj(value, spatial_shapes, ref, off, logit):
     """K8 (see module docstring). Returns (B, Q, M*D) in the value's dtype."""
     spatial_shapes = normalize_shapes(spatial_shapes)
-    if not value.is_cuda:
-        msda_proj.plain_calls += 1
-        return msda_proj_plain(value, spatial_shapes, ref, off, logit)
-    return MSDAProjFunction.apply(value, ref, off, logit, spatial_shapes)
+    with trace.span("msda.K8_proj"):
+        if not value.is_cuda:
+            msda_proj.plain_calls += 1
+            return msda_proj_plain(value, spatial_shapes, ref, off, logit)
+        return MSDAProjFunction.apply(value, ref, off, logit, spatial_shapes)
 
 
 msda_proj.launches = 0
@@ -1692,39 +1702,40 @@ def msda_taps_bwd(value, spatial_shapes, idx, wt, grad_out):
     """K9 (see module docstring). Returns (grad_value in the value's dtype,
     grad_wt f32)."""
     spatial_shapes = normalize_shapes(spatial_shapes)
-    if not value.is_cuda:
-        msda_taps_bwd.plain_calls += 1
-        return msda_taps_bwd_plain(value, spatial_shapes, idx, wt, grad_out)
-    B, S, M, D = value.shape
-    _, MG, Q, L, K4 = idx.shape
-    if L > _MAX_LEVELS or L != len(spatial_shapes):
-        raise ValueError(f"msda_taps_bwd: {L} levels for {len(spatial_shapes)} "
-                         f"shapes (at most {_MAX_LEVELS})")
-    if value.dtype not in _DTYPES:
-        raise ValueError(f"msda_taps_bwd: unsupported dtype {value.dtype}")
-    _check_cuda("msda_taps_bwd", value.device, (value, grad_out), value.dtype)
-    _check_cuda("msda_taps_bwd", value.device, (idx,), torch.int32)
-    _check_cuda("msda_taps_bwd", value.device, (wt,), torch.float32)
-    if (S != sum(h * w for h, w in spatial_shapes) or MG % M
-            or tuple(wt.shape) != tuple(idx.shape)
-            or tuple(grad_out.shape) != (B, Q, MG * D)):
-        raise ValueError("msda_taps_bwd: inconsistent shapes")
-    value, grad_out = _aligned16(value), _aligned16(grad_out)
-    g_value = torch.empty_like(value)
-    g_wt = torch.empty_like(wt)
-    plan = taps_plan(D, value.dtype, True)
-    gpr = bwd_groups(plan, idx.numel(), B * S * M)
-    sc = bwd_scratch(idx.numel(), B * S * M, value.device, weights=False)
-    fn = _function(f"msda_taps_bwd_{_DTYPES[value.dtype]}", 15, 11)
-    with torch.cuda.device(value.device):
-        _build.check(fn(value.data_ptr(), idx.data_ptr(), wt.data_ptr(),
-                        grad_out.data_ptr(), g_value.data_ptr(), g_wt.data_ptr(),
-                        *_scratch_ptrs(sc), sc["begin"].data_ptr(), sc["end"].data_ptr(),
-                        sc["hist"].data_ptr(), sc["sums"].data_ptr(), sc["top"].data_ptr(),
-                        B, Q, S, M, MG // M, D, K4, plan.lanes, plan.per, int(plan.vec), gpr,
-                        _levels(spatial_shapes), L, _stream(value)), "msda_taps_bwd")
-    msda_taps_bwd.launches += 1
-    return g_value, g_wt
+    with trace.span("msda.K9_taps_bwd"):
+        if not value.is_cuda:
+            msda_taps_bwd.plain_calls += 1
+            return msda_taps_bwd_plain(value, spatial_shapes, idx, wt, grad_out)
+        B, S, M, D = value.shape
+        _, MG, Q, L, K4 = idx.shape
+        if L > _MAX_LEVELS or L != len(spatial_shapes):
+            raise ValueError(f"msda_taps_bwd: {L} levels for {len(spatial_shapes)} "
+                             f"shapes (at most {_MAX_LEVELS})")
+        if value.dtype not in _DTYPES:
+            raise ValueError(f"msda_taps_bwd: unsupported dtype {value.dtype}")
+        _check_cuda("msda_taps_bwd", value.device, (value, grad_out), value.dtype)
+        _check_cuda("msda_taps_bwd", value.device, (idx,), torch.int32)
+        _check_cuda("msda_taps_bwd", value.device, (wt,), torch.float32)
+        if (S != sum(h * w for h, w in spatial_shapes) or MG % M
+                or tuple(wt.shape) != tuple(idx.shape)
+                or tuple(grad_out.shape) != (B, Q, MG * D)):
+            raise ValueError("msda_taps_bwd: inconsistent shapes")
+        value, grad_out = _aligned16(value), _aligned16(grad_out)
+        g_value = torch.empty_like(value)
+        g_wt = torch.empty_like(wt)
+        plan = taps_plan(D, value.dtype, True)
+        gpr = bwd_groups(plan, idx.numel(), B * S * M)
+        sc = bwd_scratch(idx.numel(), B * S * M, value.device, weights=False)
+        fn = _function(f"msda_taps_bwd_{_DTYPES[value.dtype]}", 15, 11)
+        with torch.cuda.device(value.device):
+            _build.check(fn(value.data_ptr(), idx.data_ptr(), wt.data_ptr(),
+                            grad_out.data_ptr(), g_value.data_ptr(), g_wt.data_ptr(),
+                            *_scratch_ptrs(sc), sc["begin"].data_ptr(), sc["end"].data_ptr(),
+                            sc["hist"].data_ptr(), sc["sums"].data_ptr(), sc["top"].data_ptr(),
+                            B, Q, S, M, MG // M, D, K4, plan.lanes, plan.per, int(plan.vec), gpr,
+                            _levels(spatial_shapes), L, _stream(value)), "msda_taps_bwd")
+        msda_taps_bwd.launches += 1
+        return g_value, g_wt
 
 
 msda_taps_bwd.launches = 0
@@ -1739,7 +1750,8 @@ class MSDATapsFunction(torch.autograd.Function):
     def forward(ctx, value, loc, att, spatial_shapes):
         ctx.spatial_shapes = spatial_shapes
         ctx.save_for_backward(value, loc, att)
-        return _launch_rows(value, spatial_shapes, loc, att)
+        with trace.span("msda.K6_rows"):
+            return _launch_rows(value, spatial_shapes, loc, att)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -1789,8 +1801,9 @@ def msda_taps(value, spatial_shapes, loc, att):
     (`by_level_groups`), a K6 launch each. Returns (B, Q, MG*D)."""
     spatial_shapes = normalize_shapes(spatial_shapes)
     if not value.is_cuda:
-        msda_taps.plain_calls += 1
-        return ms_deform_attn(value, spatial_shapes, loc, att)
+        with trace.span("msda.K6_rows"):
+            msda_taps.plain_calls += 1
+            return ms_deform_attn(value, spatial_shapes, loc, att)
     return by_level_groups(lambda v, s, lo, a: MSDATapsFunction.apply(v, lo, a, s),
                            value, spatial_shapes, loc, att)
 

@@ -3,9 +3,9 @@
 
 A JSONL metrics stream any dashboard can tail (`MetricsWriter`), an optional
 visdom sink behind `VISDOM_ON` (the reference's live plots,
-`src/util/visdom_vis.py:34-191`), the card's memory counters
-(`device_memory_stats`, from `torch.cuda.memory_stats`) and a scoped
-`torch.profiler` trace (`ProfilerSession`).
+`src/util/visdom_vis.py:34-191`) and the card's memory counters
+(`device_memory_stats`, from `torch.cuda.memory_stats`). The program's
+spans and their Chrome trace are `util/trace.py`'s.
 """
 from __future__ import annotations
 
@@ -88,31 +88,3 @@ def device_memory_stats(device=None) -> Dict[str, float]:
     stats = torch.cuda.memory_stats(device)
     return {"bytes_in_use_gib": stats.get("allocated_bytes.all.current", 0) / 2 ** 30,
             "peak_bytes_gib": stats.get("allocated_bytes.all.peak", 0) / 2 ** 30}
-
-
-class ProfilerSession:
-    """Scoped `torch.profiler` trace of host and card activity, written as
-    a Chrome trace into `log_dir`: `with ProfilerSession(dir, enabled): ...`."""
-
-    def __init__(self, log_dir: str, enabled: bool = True):
-        self.log_dir = log_dir
-        self.enabled = enabled
-        self.prof = None
-
-    def __enter__(self):
-        if self.enabled:
-            from torch.profiler import ProfilerActivity, profile
-            acts = [ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(ProfilerActivity.CUDA)
-            self.prof = profile(activities=acts)
-            self.prof.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        if self.prof is not None:
-            self.prof.__exit__(*exc)
-            os.makedirs(self.log_dir, exist_ok=True)
-            self.prof.export_chrome_trace(os.path.join(self.log_dir, "trace.json"))
-            self.prof = None
-        return False

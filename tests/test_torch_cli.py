@@ -171,11 +171,12 @@ def test_unported_types_name_their_roadmap_items(tmp_path):
 
 def test_logging_and_metric_helpers(tmp_path, monkeypatch):
     """The CLI's metrics stream, the visdom sink without its client, the
-    memory stats off the card, a profiler trace, and the metric logger's
-    `max` / `value` and one-process synchronisation."""
+    memory stats off the card, the spans' Chrome trace, and the metric
+    logger's `max` / `value` and one-process synchronisation."""
     from devis_torch.config import get_cfg_defaults
-    from devis_torch.util.logging_utils import (ProfilerSession, VisdomSink, build_metrics,
-                                                build_visdom, device_memory_stats)
+    from devis_torch.util import trace
+    from devis_torch.util.logging_utils import (VisdomSink, build_metrics, build_visdom,
+                                                device_memory_stats)
     from devis_torch.util.misc import MetricLogger
     cfg = get_cfg_defaults()
     cfg.OUTPUT_DIR = str(tmp_path)
@@ -187,9 +188,19 @@ def test_logging_and_metric_helpers(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "visdom", None)      # no client, whatever is installed
     VisdomSink("http://localhost", 1).plot("train", 0, {"loss": 1.0})   # a no-op
     assert device_memory_stats("cpu") == {}
-    with ProfilerSession(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    trace.reset()
+    trace.enable()
+    try:
+        with trace.span("outer"):
+            with trace.span("inner"):
+                torch.ones(4).sum()
+    finally:
+        trace.disable()
+    trace.export_chrome(str(tmp_path / "trace" / "spans.json"))
+    events = json.load(open(tmp_path / "trace" / "spans.json"))["traceEvents"]
+    spans = {e["name"]: e for e in events if e["ph"] == "X"}
+    assert set(spans) == {"outer", "inner"} and spans["inner"]["args"]["parent"] == "outer"
+    assert spans["outer"]["ts"] <= spans["inner"]["ts"] and spans["inner"]["dur"] > 0
     log = MetricLogger()
     for v in (2.0, 5.0, 3.0):
         log.update(loss=v)

@@ -32,6 +32,7 @@ PORT_MODULES = ("devis_torch", "devis_torch.config", "devis_torch.models",
                 "devis_torch.main", "devis_torch.datasets", "devis_torch.datasets.coco",
                 "devis_torch.datasets.image_io", "devis_torch.evaluation.coco_eval",
                 "devis_torch.util.checkpoint", "devis_torch.util.logging_utils",
+                "devis_torch.util.trace",
                 "devis_torch.util.fixtures", "devis_torch.parallel",
                 "devis_torch.parallel.mesh", "devis_torch.parallel.multihost",
                 "devis_torch.overfit_synthetic", "devis_torch.util.visualization",
